@@ -1,0 +1,19 @@
+"""repro_torch — the PyTorch/CUDA port of ``repro`` for one NVIDIA H100.
+
+The package mirrors ``src/repro`` module for module, so each port module
+has a counterpart of the same name there. The JAX package is the reference;
+this one imports only ``torch``, numpy and the standard library.
+
+Device rule: the device of the tensors decides. A CPU tensor goes to the
+plain PyTorch version of a kernel; a CUDA tensor goes to the hand-written
+Hopper kernel (``kernels/csrc``), or the call raises. Entry points that
+create state (``search.make(...).build``, ``data.synthetic.sift_like``,
+``rotations`` ``init``, ``convert``) take ``device=`` with the card as the
+default and raise when no card is present unless ``device="cpu"`` is
+passed.
+
+This slice serves an IVF-PQ index on a rotation learned by Givens
+coordinate descent: ``rotations`` (GCD, SubspaceGCD), ``quant`` (PQ, VQ,
+k-means), ``index`` (build, search, refresh) and ``search`` (``ivf`` and
+``flat_adc`` backends). See ROADMAP.md for what is still to be ported.
+"""

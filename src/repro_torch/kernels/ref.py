@@ -1,0 +1,107 @@
+"""Plain PyTorch versions of the kernels this port carries (port of
+``repro/kernels/ref.py``).
+
+Each ``<name>_ref`` is the semantic ground truth of its kernel. The wrappers
+in ``kernels/ops.py`` call them for CPU tensors; ``chip_smoke.py`` holds each
+CUDA kernel against them on the card. The scan references sum the Dp
+columns in ascending order, one column at a time, which is also the order
+the CUDA scan body sums them in; a column-at-a-time gather keeps the peak
+temporary at one (rows,) slab instead of a (rows, Dp) gather.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.adc_common import dequantize_luts
+
+
+def givens_rotate_ref(xe: torch.Tensor, xo: torch.Tensor, c: torch.Tensor,
+                      s: torch.Tensor):
+    """Rotate paired column planes: (m, p) × 2, cos/sin (p,) -> (ye, yo)
+    with ye = c·xe + s·xo and yo = c·xo − s·xe."""
+    c = c.to(xe.dtype)[None, :]
+    s = s.to(xe.dtype)[None, :]
+    return c * xe + s * xo, c * xo - s * xe
+
+
+def gcd_score_ref(G: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """A = M − Mᵀ with M = GᵀR (paper Algorithm 2 line 3)."""
+    M = G.T.float() @ R.float()
+    return (M - M.T).to(R.dtype)
+
+
+def _lut_f32(lut: torch.Tensor, scales: torch.Tensor | None) -> torch.Tensor:
+    if scales is not None:
+        return dequantize_luts(lut, scales)
+    return lut.float()
+
+
+def adc_lookup_ref(lut: torch.Tensor, codes: torch.Tensor,
+                   scales: torch.Tensor | None = None,
+                   ids: torch.Tensor | None = None) -> torch.Tensor:
+    """ADC score sum. lut (b, D, K), codes (N, D) -> (b, N) float32 with
+    out[q, n] = Σ_d LUT[q, d, codes[n, d]].
+
+    ``scales`` (b, D, 2): the lut is an int8/uint8 quantize_luts pack and is
+    dequantized first. ``ids`` (N,): rows with id < 0 score −inf."""
+    lut = _lut_f32(lut, scales)
+    b, D, _ = lut.shape
+    out = torch.zeros((b, codes.shape[0]), dtype=torch.float32,
+                      device=lut.device)
+    for d in range(D):
+        out += lut[:, d, :].index_select(1, codes[:, d].long())
+    if ids is not None:
+        out.masked_fill_(ids[None, :] < 0, float("-inf"))
+    return out
+
+
+def ivf_adc_ref(lut: torch.Tensor, codes: torch.Tensor,
+                block_idx: torch.Tensor, block_query: torch.Tensor, *,
+                block_size: int = 128, scales: torch.Tensor | None = None,
+                ids: torch.Tensor | None = None) -> torch.Tensor:
+    """Selected-block ADC scan. lut (b, D, K), codes (cap, D),
+    block_idx/block_query (S,) -> (S, block_size): the scores of tile
+    ``block_idx[s]`` of the CSR codes array under query ``block_query[s]``'s
+    LUT. ``scales``: quantized-LUT pack. ``ids`` (cap,): rows with id < 0
+    score −inf."""
+    lut = _lut_f32(lut, scales)
+    D = lut.shape[1]
+    rows = (block_idx.long()[:, None] * block_size
+            + torch.arange(block_size, device=codes.device))      # (S, bs)
+    q = block_query.long()[:, None]                               # (S, 1)
+    out = torch.zeros(rows.shape, dtype=torch.float32, device=lut.device)
+    for d in range(D):
+        out += lut[:, d, :][q, codes[:, d][rows].long()]
+    if ids is not None:
+        out.masked_fill_(ids[rows] < 0, float("-inf"))
+    return out
+
+
+def topk_merge_ref(scores: torch.Tensor, ids: torch.Tensor,
+                   k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of (b, C) candidates under the padding contract.
+
+    Equal scores rank by ascending id (a stable sort by id, then a stable
+    sort by −score, equal to the JAX package's two-key sort), so the result
+    is a function of the candidate set alone. Slots whose score is −inf get
+    id −1; when k > C the output is padded with (−inf, −1). Returns (b, k)
+    float32 scores and int32 ids."""
+    b, C = scores.shape
+    kk = min(k, C)
+    ids = ids.to(torch.int32)
+    by_id = torch.argsort(ids, dim=1, stable=True)
+    s1 = scores.gather(1, by_id)
+    i1 = ids.gather(1, by_id)
+    by_score = torch.argsort(-s1, dim=1, stable=True)[:, :kk]
+    top_scores = s1.gather(1, by_score)
+    top_ids = i1.gather(1, by_score)
+    top_ids = torch.where(torch.isfinite(top_scores), top_ids,
+                          torch.full_like(top_ids, -1))
+    if kk < k:
+        pad = k - kk
+        top_scores = torch.cat([top_scores, torch.full(
+            (b, pad), float("-inf"), dtype=top_scores.dtype,
+            device=scores.device)], dim=1)
+        top_ids = torch.cat([top_ids, torch.full(
+            (b, pad), -1, dtype=torch.int32, device=scores.device)], dim=1)
+    return top_scores, top_ids
