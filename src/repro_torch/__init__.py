@@ -7,13 +7,15 @@ this one imports only ``torch``, numpy and the standard library.
 Device rule: the device of the tensors decides. A CPU tensor goes to the
 plain PyTorch version of a kernel; a CUDA tensor goes to the hand-written
 Hopper kernel (``kernels/csrc``), or the call raises. Entry points that
-create state (``search.make(...).build``, ``data.synthetic.sift_like``,
-``rotations`` ``init``, ``convert``) take ``device=`` with the card as the
-default and raise when no card is present unless ``device="cpu"`` is
-passed.
+create state (``search.make(...).build``, ``data.synthetic``,
+``rotations`` ``init``, ``models.recsys.TwoTower.init``, ``convert``) take
+``device=`` with the card as the default and raise when no card is present
+unless ``device="cpu"`` is passed.
 
-This slice serves an IVF-PQ index on a rotation learned by Givens
-coordinate descent: ``rotations`` (GCD, SubspaceGCD), ``quant`` (PQ, VQ,
-k-means), ``index`` (build, search, refresh) and ``search`` (``ivf`` and
-``flat_adc`` backends). See ROADMAP.md for what is still to be ported.
+Two slices are ported. Serving: an IVF-PQ index on a rotation learned by
+Givens coordinate descent (``rotations``, ``quant``, ``index``, ``search``).
+Training: the paper's two-tower model trained through the trainable PQ
+index layer T(X) = φ(XR)Rᵀ with R moved by GCD (``models``,
+``core.index_layer``, ``training``, ``quant.opq``, ``configs``). See
+ROADMAP.md for what is still to be ported.
 """

@@ -1,9 +1,11 @@
-"""Carry index and learner state across from numpy arrays.
+"""Carry index, learner, model and optimizer state across from numpy.
 
-The port cannot import JAX, so a caller that holds a JAX-built index turns
-it into numpy first (``np.asarray`` of each leaf) and hands the dict here;
-both packages then serve the very same index. Storage dtypes are kept:
-codes uint8 (K ≤ 256), ids and offsets int32.
+The port cannot import JAX, so a caller that holds JAX state turns it into
+numpy first (``np.asarray`` of each leaf) and hands the dict here; both
+packages then compute from the very same leaves. Storage dtypes are kept:
+codes uint8 (K ≤ 256), ids and offsets int32. Model and optimizer leaves
+are keyed by the JAX path keys (``item_table``, ``user0_w``, ``index/R``,
+``index/codebooks``; ``training.optimizer.path_key``).
 """
 from __future__ import annotations
 
@@ -12,8 +14,12 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch import quant
+from repro_torch import rotations as rot_lib
+from repro_torch.core import index_layer as il
 from repro_torch.index.ivf import IVFPQIndex
+from repro_torch.models import recsys
 from repro_torch.rotations.gcd import GCDState
+from repro_torch.training import optimizer as opt_lib
 
 INDEX_KEYS = ("R", "centroids", "codebooks", "codes", "ids", "list_offsets",
               "block_size")
@@ -46,17 +52,68 @@ def index_from_numpy(arrays: dict, *, device=None) -> IVFPQIndex:
         block_size=int(arrays["block_size"]))
 
 
+def _check_zero_accumulators(arrays: dict, what: str) -> None:
+    for key in ("accum", "accum2"):
+        if np.any(np.asarray(arrays.get(key, 0.0))):
+            raise NotImplementedError(
+                f"{what}: a nonzero {key!r} belongs to a preconditioned GCD, "
+                "not ported yet (ROADMAP.md queue 1, slice 7)")
+
+
 def gcd_state_from_numpy(arrays: dict, *, device=None) -> GCDState:
     """A ``GCDState`` on ``device`` from numpy arrays: ``R`` and optionally
     ``step``. The JAX state's preconditioner accumulators ``accum`` and
     ``accum2`` may come along only as zeros (preconditioner "none", the one
-    this slice ports)."""
+    the port has)."""
     dev = _device.resolve(device)
-    for key in ("accum", "accum2"):
-        if np.any(np.asarray(arrays.get(key, 0.0))):
-            raise NotImplementedError(
-                f"gcd_state_from_numpy: a nonzero {key!r} belongs to a "
-                "preconditioned GCD, not ported yet (ROADMAP.md queue 1, "
-                "slice 2 'Training path')")
+    _check_zero_accumulators(arrays, "gcd_state_from_numpy")
     return GCDState(R=_t(arrays["R"], dev, np.float32),
                     step=_t(arrays.get("step", 0), dev, np.int32))
+
+
+def twotower_params_from_numpy(arrays: dict, cfg: recsys.TwoTowerConfig, *,
+                               device=None) -> recsys.TwoTower:
+    """A ``TwoTower`` on ``device`` from the JAX model's leaves, keyed by
+    path: every key of ``recsys.twotower_specs(cfg)``, and ``index/R`` with
+    ``index/codebooks`` when ``cfg.index`` is set. Shapes are checked."""
+    dev = _device.resolve(device)
+    specs = recsys.twotower_specs(cfg)
+    want = dict((k, s.shape) for k, s in specs.items())
+    if cfg.index is not None:
+        n, D = cfg.index.dim, cfg.index.num_subspaces
+        want["index/R"] = (n, n)
+        want["index/codebooks"] = (D, cfg.index.num_codewords, n // D)
+    missing = sorted(set(want) - set(arrays))
+    extra = sorted(set(arrays) - set(want))
+    if missing or extra:
+        raise KeyError(f"twotower_params_from_numpy: missing {missing}, "
+                       f"unexpected {extra}")
+    for k, shape in want.items():
+        if np.shape(arrays[k]) != tuple(shape):
+            raise ValueError(f"{k}: shape {np.shape(arrays[k])}, the config "
+                             f"gives {tuple(shape)}")
+    tensors = {k: _t(arrays[k], dev, np.float32) for k in specs}
+    index = None
+    if cfg.index is not None:
+        index = il.IndexLayer(_t(arrays["index/R"], dev, np.float32),
+                              _t(arrays["index/codebooks"], dev, np.float32))
+    return recsys.TwoTower(tensors, index)
+
+
+def opt_state_from_numpy(arrays: dict, cfg: opt_lib.OptimizerConfig, *,
+                         device=None) -> opt_lib.OptState:
+    """An ``OptState`` on ``device`` from the JAX one: ``mu`` and ``nu``
+    (path key -> array), ``step``, and ``rot`` (path key -> the learner
+    state's fields, ``R`` and ``step``; GCD's accumulators only as
+    zeros)."""
+    dev = _device.resolve(device)
+    learner = rot_lib.from_config(cfg.rotation)
+    rot = {}
+    for k, fields in arrays.get("rot", {}).items():
+        _check_zero_accumulators(fields, f"opt_state_from_numpy {k}")
+        st = learner.init_from(_t(fields["R"], dev, np.float32))
+        rot[k] = st._replace(step=_t(fields.get("step", 0), dev, np.int32))
+    return opt_lib.OptState(
+        mu={k: _t(v, dev, np.float32) for k, v in arrays["mu"].items()},
+        nu={k: _t(v, dev, np.float32) for k, v in arrays["nu"].items()},
+        rot=rot, step=int(np.asarray(arrays["step"])))

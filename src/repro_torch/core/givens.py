@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ops as kops
+
 SQRT2 = 1.4142135623730951
 
 
@@ -25,17 +27,10 @@ def apply_pair_rotations(X: torch.Tensor, pi: torch.Tensor, pj: torch.Tensor,
     """Right-multiply X (..., n) by ∏_ℓ R_{pi[ℓ], pj[ℓ]}(theta[ℓ]).
 
     Pairs must be disjoint; columns outside every pair pass through. O(m·p)
-    work for p pairs, no matmul. Returns a new tensor."""
-    c = torch.cos(theta).to(X.dtype)
-    s = torch.sin(theta).to(X.dtype)
-    pi = pi.long()
-    pj = pj.long()
-    xi = X[..., pi]
-    xj = X[..., pj]
-    Y = X.clone()
-    Y[..., pi] = c * xi + s * xj
-    Y[..., pj] = c * xj - s * xi
-    return Y
+    work for p pairs, no matmul. Returns a new tensor, differentiable in X
+    and θ. Goes through ``kernels.ops.apply_pair_rotations``: the
+    givens_rotate kernel on the card, its plain version on the CPU."""
+    return kops.apply_pair_rotations(X, pi, pj, theta)
 
 
 def orthogonality_error(R: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("adc_scan.cu", "gcd_score.cu")
+SOURCES = ("adc_scan.cu", "gcd_score.cu", "givens_rotate.cu", "pq_assign.cu",
+           "embedding_bag.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "libreprokernels.so"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
@@ -98,6 +99,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_adc_lookup.restype = i
     lib.repro_gcd_score.argtypes = [p, p, p, i, p]
     lib.repro_gcd_score.restype = i
+    lib.repro_givens_rotate.argtypes = [p, p, p, p, p, p, ll, i, i, i, p]
+    lib.repro_givens_rotate.restype = i
+    lib.repro_pq_assign.argtypes = [p, p, p, ll, i, i, i, i, p]
+    lib.repro_pq_assign.restype = i
+    lib.repro_embedding_bag.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.repro_embedding_bag.restype = i
 
 
 def library() -> ctypes.CDLL:

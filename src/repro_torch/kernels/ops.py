@@ -11,6 +11,14 @@ The device of the tensors decides, and there is no ``use_kernel`` switch:
 Each wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel,
 and nowhere else, so a run can show that its path went through the kernel.
 ``topk_merge`` has no kernel, as in the JAX package: it is plain torch.
+
+Two wrappers are ``torch.autograd.Function``s on both devices, because the
+training path differentiates through them: ``apply_pair_rotations`` (the
+backward rotates dY by −θ through the same kernel, and reduces dθ in plain
+torch, as the JAX package's custom VJP does in XLA) and ``embedding_bag``
+(the backward is a plain ``index_add_`` into a dense table gradient, the
+gradient ``jax.grad`` of a gather gives; the JAX package has no backward
+kernel for it either).
 """
 from __future__ import annotations
 
@@ -25,16 +33,19 @@ from repro_torch.kernels.adc_common import (  # noqa: F401
     quantize_luts,
 )
 
-__all__ = ["gcd_score", "adc_lookup", "ivf_adc", "topk_merge",
+__all__ = ["gcd_score", "givens_rotate", "apply_pair_rotations", "pq_assign",
+           "embedding_bag", "adc_lookup", "ivf_adc", "topk_merge",
            "quantize_luts", "dequantize_luts", "LUT_DTYPES", "LAUNCHES",
            "reset_launches"]
 
 #: Kernel launches per kernel in this process (see module docstring).
-LAUNCHES = {"ivf_adc": 0, "adc_lookup": 0, "gcd_score": 0}
+LAUNCHES = {"ivf_adc": 0, "adc_lookup": 0, "gcd_score": 0, "givens_rotate": 0,
+            "pq_assign": 0, "embedding_bag": 0}
 
 _FLAT_ROWS = 4096        # rows per block of the flat scan
 _SMEM_LIMIT = 232_448    # shared memory one H100 block may use (bytes)
 _LUT_KIND = {torch.float32: 0, torch.int8: 1, torch.uint8: 2}
+_ROTATE_ROWS = 8         # rows per block of the plane rotation
 
 
 def reset_launches() -> None:
@@ -112,6 +123,193 @@ def gcd_score(G: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
         _build.check(err, "gcd_score")
         LAUNCHES["gcd_score"] += 1
     return out
+
+
+def givens_rotate(X: torch.Tensor, pi: torch.Tensor, pj: torch.Tensor,
+                  c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """X (m, n) with column pairs (pi[l], pj[l]) rotated by cos/sin (p,):
+    y_i = c·x_i + s·x_j, y_j = c·x_j − s·x_i; other columns copied. The
+    pairs must be disjoint (``apply_pair_rotations`` checks it). Bit-equal
+    to its plain version on the card."""
+    if not _on_card(X, pi, pj, c, s):
+        return ref.pair_rotate_ref(X, pi, pj, c, s)
+    m, n = X.shape
+    p = pi.shape[0]
+    _require(X, "X", torch.float32, (m, n))
+    _require(pi, "pi", torch.int32, (p,))
+    _require(pj, "pj", torch.int32, (p,))
+    _require(c, "c", torch.float32, (p,))
+    _require(s, "s", torch.float32, (p,))
+    if 12 * n > _SMEM_LIMIT:
+        raise ValueError(f"givens_rotate: n={n} column map does not fit in "
+                         "one block's shared memory")
+    out = torch.empty_like(X)
+    if m and n:
+        with torch.cuda.device(X.device):
+            err = _build.library().repro_givens_rotate(
+                _ptr(X), _ptr(out), _ptr(pi), _ptr(pj), _ptr(c), _ptr(s), m,
+                n, p, _ROTATE_ROWS, _stream(X.device))
+        _build.check(err, "givens_rotate")
+        LAUNCHES["givens_rotate"] += 1
+    return out
+
+
+def _rotate(X: torch.Tensor, pi, pj, theta: torch.Tensor) -> torch.Tensor:
+    return givens_rotate(X.contiguous(), pi, pj,
+                         torch.cos(theta).to(X.dtype).contiguous(),
+                         torch.sin(theta).to(X.dtype).contiguous())
+
+
+class _PairRotation(torch.autograd.Function):
+    """Y = X·∏ℓ R_{pi[ℓ],pj[ℓ]}(θℓ) for X (m, n). The rotation is linear and
+    orthogonal, so dX is dY rotated by −θ (the kernel again), and
+    dθℓ = Σ_rows ⟨dY, ∂Y/∂θℓ⟩ is plane-local
+    (``repro/kernels/ops.py:60-77``)."""
+
+    @staticmethod
+    def forward(ctx, X, theta, pi, pj):
+        ctx.save_for_backward(X, theta, pi, pj)
+        return _rotate(X, pi, pj, theta)
+
+    @staticmethod
+    def backward(ctx, dY):
+        X, theta, pi, pj = ctx.saved_tensors
+        dX = dtheta = None
+        if ctx.needs_input_grad[0]:
+            dX = _rotate(dY, pi, pj, -theta)
+        if ctx.needs_input_grad[1]:
+            c = torch.cos(theta).to(X.dtype)
+            s = torch.sin(theta).to(X.dtype)
+            pi, pj = pi.long(), pj.long()
+            xe, xo = X[:, pi], X[:, pj]
+            dye, dyo = dY[:, pi], dY[:, pj]
+            # y_e = c·x_e + s·x_o ; y_o = c·x_o − s·x_e
+            dtheta = torch.sum((dye * (-s * xe + c * xo)
+                                + dyo * (-s * xo - c * xe)).float(),
+                               dim=0).to(theta.dtype)
+        return dX, dtheta, None, None
+
+
+def _disjoint_pairs(pi: torch.Tensor, pj: torch.Tensor, n: int):
+    """(pi, pj) as int32 after checking that the 2p columns are distinct
+    and inside [0, n): overlapping pairs are another delta, not ported.
+    Costs one host synchronisation."""
+    if pi.shape != pj.shape or pi.dim() != 1:
+        raise ValueError(f"pairs: pi {tuple(pi.shape)} and pj "
+                         f"{tuple(pj.shape)} must be equal (p,) vectors")
+    cols = torch.cat([pi, pj]).long()
+    if cols.numel():
+        bad = (cols.min() < 0) | (cols.max() >= n) | (torch.bincount(
+            torch.clamp(cols, 0, n - 1), minlength=n).max() > 1)
+        if bool(bad):
+            raise ValueError(
+                "apply_pair_rotations: pairs overlap or leave [0, n): the "
+                "overlapping-Givens delta is not ported (ROADMAP.md slice 7)")
+    return pi.to(torch.int32).contiguous(), pj.to(torch.int32).contiguous()
+
+
+def apply_pair_rotations(X: torch.Tensor, pi: torch.Tensor, pj: torch.Tensor,
+                         theta: torch.Tensor) -> torch.Tensor:
+    """Right-multiply X (..., n) by ∏ℓ R_{pi[ℓ],pj[ℓ]}(θℓ) over disjoint
+    pairs: the givens_rotate kernel on the card, its plain version on the
+    CPU. Differentiable in X and θ (``_PairRotation``)."""
+    n = X.shape[-1]
+    pi, pj = _disjoint_pairs(pi, pj, n)
+    Y = _PairRotation.apply(X.reshape(-1, n), theta, pi, pj)
+    return Y.reshape(X.shape)
+
+
+def pq_assign(X: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """Nearest-codeword assignment X (m, n) × codebooks (D, K, sub) -> (m, D)
+    int32, ties to the first k. On the card a float32 SIMT kernel; it sums
+    in another order than the plain einsum, so a near tie may flip."""
+    if not _on_card(X, codebooks):
+        return ref.pq_assign_ref(X, codebooks)
+    m, n = X.shape
+    D, K, sub = codebooks.shape
+    if n != D * sub:
+        raise ValueError(f"pq_assign: n={n} != D·sub = {D}·{sub}")
+    _require(X, "X", torch.float32, (m, n))
+    _require(codebooks, "codebooks", torch.float32, (D, K, sub))
+    if D > 65535:
+        raise ValueError(f"pq_assign: D={D} exceeds the grid's y limit")
+    out = torch.empty((m, D), dtype=torch.int32, device=X.device)
+    if m and D and K:
+        with torch.cuda.device(X.device):
+            err = _build.library().repro_pq_assign(
+                _ptr(X), _ptr(codebooks), _ptr(out), m, n, D, K, sub,
+                _stream(X.device))
+        _build.check(err, "pq_assign")
+        LAUNCHES["pq_assign"] += 1
+    return out
+
+
+def _embedding_bag_fwd(table, indices, bag_ids, num_bags: int, weights):
+    if not _on_card(table, indices, bag_ids, weights):
+        return ref.embedding_bag_ref(table, indices, bag_ids, num_bags,
+                                     weights)
+    V, dim = table.shape
+    L = indices.shape[0]
+    _require(table, "table", torch.float32, (V, dim))
+    _require(indices, "indices", torch.int32, (L,))
+    _require(bag_ids, "bag_ids", torch.int32, (L,))
+    if weights is not None:
+        _require(weights, "weights", torch.float32, (L,))
+    out = torch.empty((num_bags, dim), dtype=torch.float32,
+                      device=table.device)
+    if num_bags and dim:
+        # bag b's entries are the run [offsets[b], offsets[b + 1]) of the
+        # sorted bag ids
+        offsets = torch.searchsorted(
+            bag_ids, torch.arange(num_bags + 1, dtype=torch.int32,
+                                  device=bag_ids.device),
+            out_int32=True)
+        vec4 = int(dim % 4 == 0 and table.data_ptr() % 16 == 0)
+        with torch.cuda.device(table.device):
+            err = _build.library().repro_embedding_bag(
+                _ptr(table), _ptr(indices), _ptr(offsets), _ptr(weights),
+                _ptr(out), num_bags, dim, vec4, _stream(table.device))
+        _build.check(err, "embedding_bag")
+        LAUNCHES["embedding_bag"] += 1
+    return out
+
+
+class _EmbeddingBag(torch.autograd.Function):
+    """EmbeddingBag(sum) with a plain backward: dTable is the dense (V, dim)
+    ``index_add_`` of w·dOut[bag] over the non-padding entries, and
+    dw[e] = ⟨dOut[bag[e]], table[idx[e]]⟩ (0 for padding)."""
+
+    @staticmethod
+    def forward(ctx, table, indices, bag_ids, weights, num_bags):
+        ctx.save_for_backward(table, indices, bag_ids, weights)
+        return _embedding_bag_fwd(table, indices, bag_ids, num_bags, weights)
+
+    @staticmethod
+    def backward(ctx, dout):
+        table, indices, bag_ids, weights = ctx.saved_tensors
+        valid = (indices >= 0)[:, None]
+        safe = torch.clamp(indices, min=0).long()
+        g = dout[bag_ids.long()]                              # (L, dim)
+        dtable = dweights = None
+        if ctx.needs_input_grad[0]:
+            rows = g if weights is None else g * weights[:, None]
+            rows = torch.where(valid, rows, torch.zeros_like(rows))
+            dtable = torch.zeros_like(table).index_add_(0, safe, rows)
+        if weights is not None and ctx.needs_input_grad[3]:
+            dweights = torch.where(valid, g * table[safe],
+                                   torch.zeros_like(g)).sum(-1)
+        return dtable, None, None, dweights, None
+
+
+def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
+                  bag_ids: torch.Tensor, num_bags: int,
+                  weights: torch.Tensor | None = None) -> torch.Tensor:
+    """EmbeddingBag(sum) -> (num_bags, dim) float32. ``indices`` (L,), −1 =
+    padding (adds nothing); ``bag_ids`` (L,) sorted ascending; optional
+    ``weights`` (L,). A bag with no entries is 0. Differentiable in the
+    table and the weights (``_EmbeddingBag``)."""
+    return _EmbeddingBag.apply(table, indices, bag_ids, weights,
+                               int(num_bags))
 
 
 def adc_lookup(lut: torch.Tensor, codes: torch.Tensor,

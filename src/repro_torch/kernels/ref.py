@@ -15,13 +15,62 @@ import torch
 from repro_torch.kernels.adc_common import dequantize_luts
 
 
-def givens_rotate_ref(xe: torch.Tensor, xo: torch.Tensor, c: torch.Tensor,
-                      s: torch.Tensor):
-    """Rotate paired column planes: (m, p) × 2, cos/sin (p,) -> (ye, yo)
-    with ye = c·xe + s·xo and yo = c·xo − s·xe."""
-    c = c.to(xe.dtype)[None, :]
-    s = s.to(xe.dtype)[None, :]
-    return c * xe + s * xo, c * xo - s * xe
+def pair_rotate_ref(X: torch.Tensor, pi: torch.Tensor, pj: torch.Tensor,
+                    c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The givens_rotate kernel's function over a full (m, n) X: columns
+    pi[l] and pj[l] mixed by cos/sin (p,) as y_i = c·x_i + s·x_j and
+    y_j = c·x_j − s·x_i, every other column copied. Pairs are disjoint. Each
+    product and sum is one rounded elementwise op, as in the kernel."""
+    pi = pi.long()
+    pj = pj.long()
+    c = c.to(X.dtype)
+    s = s.to(X.dtype)
+    xi = X[..., pi]
+    xj = X[..., pj]
+    Y = X.clone()
+    Y[..., pi] = c * xi + s * xj
+    Y[..., pj] = c * xj - s * xi
+    return Y
+
+
+def apply_pair_rotations_ref(X: torch.Tensor, pi: torch.Tensor,
+                             pj: torch.Tensor,
+                             theta: torch.Tensor) -> torch.Tensor:
+    """X (..., n) right-multiplied by ∏ℓ R_{pi[ℓ],pj[ℓ]}(θℓ) over disjoint
+    pairs; differentiable by torch.autograd in X and θ."""
+    return pair_rotate_ref(X, pi, pj, torch.cos(theta), torch.sin(theta))
+
+
+def pq_assign_ref(X: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """Nearest codeword per subspace: X (m, n), codebooks (D, K, sub) ->
+    (m, D) int32, the argmin over k of ‖C[d,k]‖² − 2⟨x_d, C[d,k]⟩, ties to
+    the first k."""
+    D = codebooks.shape[0]
+    m, n = X.shape
+    dots = torch.einsum("mds,dks->mdk", X.reshape(m, D, n // D), codebooks)
+    cn = torch.sum(torch.square(codebooks), dim=-1)
+    return torch.argmin(cn[None] - 2.0 * dots, dim=-1).to(torch.int32)
+
+
+def embedding_bag_ref(table: torch.Tensor, indices: torch.Tensor,
+                      bag_ids: torch.Tensor, num_bags: int,
+                      weights: torch.Tensor | None = None) -> torch.Tensor:
+    """EmbeddingBag(sum): table (V, dim), flat indices (L,), sorted bag_ids
+    (L,), optional weights (L,) -> (num_bags, dim) float32.
+
+    The semantics are those of the JAX package's kernel wrapper
+    (``repro/kernels/embedding_bag.py``): an index < 0 is padding and adds
+    nothing, a bag with no entries is 0. (The JAX ``embedding_bag_ref``
+    itself does not mask −1; its callers mask first.) Entries are added in
+    index order."""
+    valid = indices >= 0
+    rows = table[torch.clamp(indices, min=0).long()].float()
+    if weights is not None:
+        rows = rows * weights.float()[:, None]
+    rows = torch.where(valid[:, None], rows, torch.zeros_like(rows))
+    out = torch.zeros((num_bags, table.shape[1]), dtype=torch.float32,
+                      device=table.device)
+    return out.index_add_(0, bag_ids.long(), rows)
 
 
 def gcd_score_ref(G: torch.Tensor, R: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,11 @@
 """Quantizer configuration (port of ``repro/quant/base.py``).
 
-The quantizers of this slice (``PQ``, ``VQ``) follow the JAX package's
+The quantizers of this port (``PQ``, ``VQ``) follow the JAX package's
 Quantizer protocol: ``fit``, ``encode``, ``decode``, ``adc_tables``,
 ``distortion`` and ``rotate``, with ``code_width`` integer columns per item.
+``PQ`` also has what the trainable index layer needs: ``encode_st`` (the
+straight-through φ of Eq. 1) and ``code_dtype`` (uint8 codes for the ADC
+scan).
 """
 from __future__ import annotations
 

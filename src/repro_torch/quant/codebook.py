@@ -2,8 +2,9 @@
 ``repro/quant/codebook.py``).
 
 Codebooks are (D, K, sub) float tensors; codes are (m, D) integers (int32
-from ``assign``, uint8 in index storage). ``assign`` works through the rows
-in chunks, so encoding a million rows never holds more than a bounded
+from ``assign``, uint8 in index storage). ``assign`` goes through the pq_assign
+kernel on the card; on the CPU its plain version works through the rows in
+chunks, so encoding a million rows never holds more than a bounded
 (rows, D, K) score slab.
 """
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import givens
+from repro_torch.kernels import ops as kops
 
 #: Elements of the (rows, D, K) score slab ``assign`` holds at once.
 ASSIGN_SLAB = 1 << 27
@@ -32,16 +34,17 @@ def merge(Xs: torch.Tensor) -> torch.Tensor:
 
 def assign(X: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     """Nearest codeword per subspace, (m, n) -> (m, D) int32: the argmin
-    over k of ‖C[d,k]‖² − 2⟨x_d, C[d,k]⟩ (ties to the first index)."""
+    over k of ‖C[d,k]‖² − 2⟨x_d, C[d,k]⟩ (ties to the first index), through
+    ``kernels.ops.pq_assign``. On the card one kernel launch covers every
+    row; on the CPU the plain version runs in row chunks."""
+    if X.device.type != "cpu":
+        return kops.pq_assign(X.contiguous(), codebooks.contiguous())
     D, K, _ = codebooks.shape
-    cn = torch.sum(torch.square(codebooks), dim=-1)          # (D, K)
     m = X.shape[0]
     out = torch.empty((m, D), dtype=torch.int32, device=X.device)
     step = max(1, ASSIGN_SLAB // (D * K))
     for s in range(0, m, step):
-        dots = torch.einsum("mds,dks->mdk", split(X[s:s + step], D),
-                            codebooks)
-        out[s:s + step] = torch.argmin(cn[None] - 2.0 * dots, dim=-1)
+        out[s:s + step] = kops.pq_assign(X[s:s + step], codebooks)
     return out
 
 
@@ -50,6 +53,20 @@ def decode(codes: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     D = codebooks.shape[0]
     d = torch.arange(D, device=codebooks.device)[None, :]
     return merge(codebooks[d, codes.long()])
+
+
+def quantize(X: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """φ(X): hard quantization, no gradient bridging."""
+    return decode(assign(X, codebooks), codebooks)
+
+
+def quantize_ste(X: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """φ(X) with the straight-through estimator: the forward value is the
+    quantized X, the backward the identity wrt X; the codebooks get no
+    gradient here (the distortion term trains them)."""
+    with torch.no_grad():
+        q = decode(assign(X, codebooks), codebooks)
+    return X + (q - X.detach())
 
 
 def distortion(X: torch.Tensor, codebooks: torch.Tensor,

@@ -41,6 +41,11 @@ class PQ:
         return self.num_subspaces
 
     @property
+    def code_dtype(self) -> torch.dtype:
+        """Storage dtype of the codes: uint8 up to 256 codewords."""
+        return torch.uint8 if self.num_codewords <= 256 else torch.int32
+
+    @property
     def config(self) -> PQConfig:
         return PQConfig(self.num_subspaces, self.num_codewords)
 
@@ -56,6 +61,10 @@ class PQ:
 
     def decode(self, codes: torch.Tensor) -> torch.Tensor:
         return cb.decode(codes, self.codebooks)
+
+    def encode_st(self, X: torch.Tensor) -> torch.Tensor:
+        """φ(X) forward, identity backward wrt X (straight-through)."""
+        return cb.quantize_ste(X, self.codebooks)
 
     def adc_tables(self, Q: torch.Tensor) -> torch.Tensor:
         return cb.adc_lut(Q, self.codebooks)  # (b, D, K)

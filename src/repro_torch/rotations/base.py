@@ -3,7 +3,8 @@
 A learner's ``update`` returns the new state and a delta Δ with
 R_new = R_old·Δ. This slice carries the disjoint ``GivensDelta`` that GCD
 emits; ``apply`` right-multiplies any (..., n) tensor by it, so a trainer
-and a live index fed the same delta stay in sync. The overlapping ablation
+and a live index fed the same delta stay in sync; on the card it runs the
+givens_rotate kernel (``core.givens.apply_pair_rotations``). The overlapping ablation
 and ``DenseDelta`` (Cayley, Procrustes) wait for a later slice.
 """
 from __future__ import annotations

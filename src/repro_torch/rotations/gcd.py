@@ -13,9 +13,10 @@ index exactly (``index.maintain.refresh_delta``). A goes through
 ``kernels.ops.gcd_score`` at every n: the gcd_score kernel on the card, its
 plain version on the CPU.
 
-This slice ports pair selection ``method="greedy"`` with preconditioner
+The port has pair selection ``method="greedy"`` with preconditioner
 ``"none"`` only, so neither is a field here; the registry names of the
 other methods raise NotImplementedError until a later slice ports them.
+``Frozen`` is the frozen-R control of the paper's Table 1.
 """
 from __future__ import annotations
 
@@ -50,6 +51,12 @@ class GCD:
         return GCDState(R=R, step=torch.zeros((), dtype=torch.int32,
                                               device=R.device))
 
+    def with_rotation(self, state: GCDState, R: torch.Tensor) -> GCDState:
+        return state._replace(R=R)
+
+    def materialize(self, state: GCDState) -> torch.Tensor:
+        return state.R
+
     def update(self, state: GCDState, grad: torch.Tensor, lr: float,
                generator: torch.Generator | None = None
                ) -> tuple[GCDState, base.GivensDelta]:
@@ -83,3 +90,36 @@ class SubspaceGCD(GCD):
     def _mask(self, A: torch.Tensor) -> torch.Tensor:
         d = torch.arange(A.shape[-1], device=A.device) // self.sub
         return torch.where(d[:, None] == d[None, :], A, torch.zeros_like(A))
+
+
+class FrozenState(NamedTuple):
+    R: torch.Tensor
+    step: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class Frozen:
+    """The frozen-R control: ``update`` leaves R as it is and returns the
+    identity delta."""
+
+    def init(self, n: int, dtype=torch.float32, device=None) -> FrozenState:
+        dev = _device.resolve(device)
+        return self.init_from(torch.eye(n, dtype=dtype, device=dev))
+
+    def init_from(self, R: torch.Tensor) -> FrozenState:
+        return FrozenState(R=R, step=torch.zeros((), dtype=torch.int32,
+                                                 device=R.device))
+
+    def with_rotation(self, state: FrozenState,
+                      R: torch.Tensor) -> FrozenState:
+        return state._replace(R=R)
+
+    def materialize(self, state: FrozenState) -> torch.Tensor:
+        return state.R
+
+    def update(self, state: FrozenState, grad: torch.Tensor, lr: float,
+               generator: torch.Generator | None = None
+               ) -> tuple[FrozenState, base.GivensDelta]:
+        del grad, lr, generator
+        return (state._replace(step=state.step + 1),
+                base.identity_delta(state.R.dtype, state.R.device))

@@ -9,10 +9,14 @@ against these plain versions on the card by ``chip_smoke.py``.
 
 Tolerances: ``gcd_score`` to 1e-5 (one float32 product of n terms); the
 scans to atol 1e-4, rtol 1e-5, since the Dp float32 terms are summed in
-another order; their −inf positions exactly.
+another order; their −inf positions exactly. ``pq_assign`` exactly, on
+dyadic inputs whose scores are exact in float32, ties and all;
+``embedding_bag`` to 1e-5; ``apply_pair_rotations`` and its gradients to
+1e-6.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -178,13 +182,21 @@ def test_topk_padded_prefilter_matches_jax(k):
 
 
 def test_givens_rotate_ref_matches_jax():
+    """The plain version of the givens_rotate kernel over a full X with an
+    unpaired column against the JAX Pallas kernel (interpret mode) on the
+    gathered planes, 1e-6; the unpaired column is copied exactly."""
+    from repro.kernels import givens_rotate as jrot
+
     rng = np.random.RandomState(3)
-    xe, xo = (rng.randn(7, 5).astype(np.float32) for _ in range(2))
+    X = rng.randn(7, 11).astype(np.float32)
+    perm = rng.permutation(11)
+    pi, pj = perm[:5], perm[5:10]
     c, s = (rng.randn(5).astype(np.float32) for _ in range(2))
-    want = jref.givens_rotate_ref(*map(jnp.asarray, (xe, xo, c, s)))
-    got = tref.givens_rotate_ref(*map(_t, (xe, xo, c, s)))
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6)
+    ye, yo = jrot.givens_rotate(*map(jnp.asarray, (X[:, pi], X[:, pj], c, s)))
+    got = tref.pair_rotate_ref(*map(_t, (X, pi, pj, c, s))).numpy()
+    np.testing.assert_allclose(got[:, pi], np.asarray(ye), atol=1e-6)
+    np.testing.assert_allclose(got[:, pj], np.asarray(yo), atol=1e-6)
+    np.testing.assert_array_equal(got[:, perm[10]], X[:, perm[10]])
 
 
 def test_wrappers_refuse_other_devices():
@@ -195,3 +207,151 @@ def test_wrappers_refuse_other_devices():
         tops.gcd_score(meta, meta)
     with pytest.raises(ValueError):
         tops.gcd_score(torch.zeros((4, 4)), meta)
+    with pytest.raises(ValueError):
+        tops.pq_assign(meta, torch.zeros((2, 3, 2)))
+    with pytest.raises(ValueError):
+        tops.givens_rotate(meta, *(torch.zeros(1),) * 4)
+
+
+def _dyadic(rng: np.random.RandomState, *shape) -> np.ndarray:
+    """Quarter-integers in [−2, 2]: every product and short sum of them is
+    exact in float32, so the JAX package and the port compute the same
+    scores whatever their summation order, and ties are real ties."""
+    return (rng.randint(-8, 9, size=shape) / 4.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("m,D,K,sub", [(40, 4, 16, 2), (33, 1, 64, 8),
+                                       (7, 8, 32, 8)])
+def test_pq_assign_ref_matches_jax(m, D, K, sub):
+    """Equal codes, first index on ties, against the JAX oracle and its
+    Pallas kernel (interpret mode)."""
+    rng = np.random.RandomState(m + K)
+    X = _dyadic(rng, m, D * sub)
+    C = _dyadic(rng, D, K, sub)
+    want = np.asarray(jref.pq_assign_ref(jnp.asarray(X), jnp.asarray(C)))
+    got = tops.pq_assign(_t(X), _t(C))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(tref.pq_assign_ref(_t(X), _t(C)).numpy(),
+                                  want)
+    kern = np.asarray(jops.pq_assign(jnp.asarray(X), jnp.asarray(C)))
+    np.testing.assert_array_equal(got.numpy(), kern)
+
+
+def test_pq_assign_ties_go_to_the_first_codeword():
+    X = np.zeros((3, 4), np.float32)
+    C = np.zeros((2, 5, 2), np.float32)
+    C[:, 3] = 0.0                   # all five codewords tie at distance 0
+    got = tops.pq_assign(_t(X), _t(C))
+    np.testing.assert_array_equal(got.numpy(), np.zeros((3, 2), np.int32))
+
+
+def _bag_inputs(rng: np.random.RandomState, V=50, dim=12, bags=9, L=40):
+    table = rng.randn(V, dim).astype(np.float32)
+    idx = rng.randint(0, V, size=L).astype(np.int32)
+    idx[rng.rand(L) < 0.3] = -1                       # padding
+    bag = np.sort(rng.randint(0, bags, size=L)).astype(np.int32)
+    bag[bag == 4] = 5                                 # bag 4 is empty
+    idx[bag == 2] = -1                                # bag 2 is all padding
+    w = rng.randn(L).astype(np.float32)
+    return table, idx, np.sort(bag), w, bags
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_embedding_bag_matches_jax_kernel(weighted):
+    """−1 padding adds nothing and a bag with no entries is 0, as the JAX
+    package's kernel wrapper gives them (interpret mode), to 1e-5."""
+    table, idx, bag, w, bags = _bag_inputs(np.random.RandomState(5))
+    w = w if weighted else None
+    want = np.asarray(jops.embedding_bag(
+        jnp.asarray(table), jnp.asarray(idx), jnp.asarray(bag), bags,
+        None if w is None else jnp.asarray(w)))
+    got = tops.embedding_bag(_t(table), _t(idx), _t(bag), bags,
+                             None if w is None else _t(w))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    assert not np.any(got.numpy()[[2, 4]])            # exact zeros
+    plain = tref.embedding_bag_ref(_t(table), _t(idx), _t(bag), bags,
+                                   None if w is None else _t(w))
+    np.testing.assert_array_equal(plain.numpy(), got.numpy())
+
+
+def test_embedding_bag_gradient_matches_jax():
+    """The plain backward: dense dTable and dw against ``jax.grad`` of the
+    masked take-and-segment-sum the JAX package differentiates, 1e-5."""
+    table, idx, bag, w, bags = _bag_inputs(np.random.RandomState(6))
+    dout = np.random.RandomState(7).randn(bags, table.shape[1]).astype(
+        np.float32)
+
+    def jloss(tb, wt):
+        rows = jnp.take(tb, jnp.maximum(idx, 0), axis=0) * wt[:, None]
+        rows = jnp.where((idx >= 0)[:, None], rows, 0.0)
+        out = jax.ops.segment_sum(rows, bag, num_segments=bags)
+        return jnp.sum(out * dout)
+
+    want_t, want_w = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(table),
+                                                      jnp.asarray(w))
+    tt = _t(table).requires_grad_(True)
+    tw = _t(w).requires_grad_(True)
+    out = tops.embedding_bag(tt, _t(idx), _t(bag), bags, tw)
+    got_t, got_w = torch.autograd.grad(out, (tt, tw), _t(dout))
+    np.testing.assert_allclose(got_t.numpy(), np.asarray(want_t), atol=1e-5)
+    np.testing.assert_allclose(got_w.numpy(), np.asarray(want_w), atol=1e-5)
+
+
+@pytest.mark.parametrize("m,n,p", [(6, 8, 4), (5, 11, 3), (1, 2, 1)])
+def test_apply_pair_rotations_grad_matches_jax(m, n, p):
+    """Forward, dX and dθ of the port's autograd.Function against
+    ``jax.grad`` through the JAX custom VJP (plain path), 1e-6. Ragged n
+    leaves columns unpaired."""
+    rng = np.random.RandomState(m * n)
+    X = rng.randn(m, n).astype(np.float32)
+    perm = rng.permutation(n)
+    pi, pj = perm[:p].astype(np.int32), perm[p:2 * p].astype(np.int32)
+    theta = rng.randn(p).astype(np.float32)
+    dY = rng.randn(m, n).astype(np.float32)
+
+    def jloss(x, th):
+        y = jops.apply_pair_rotations(x, jnp.asarray(pi), jnp.asarray(pj),
+                                      th, use_kernel=False)
+        return jnp.sum(y * dY), y
+
+    (_, want_y), (want_dx, want_dth) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(jnp.asarray(X),
+                                             jnp.asarray(theta))
+    tx = _t(X).requires_grad_(True)
+    tth = _t(theta).requires_grad_(True)
+    y = tops.apply_pair_rotations(tx, _t(pi), _t(pj), tth)
+    got_dx, got_dth = torch.autograd.grad(y, (tx, tth), _t(dY))
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want_y),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got_dx.numpy(), np.asarray(want_dx),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got_dth.numpy(), np.asarray(want_dth),
+                               atol=1e-6, rtol=1e-6)
+
+
+def test_apply_pair_rotations_matches_its_plain_autograd():
+    """The hand-written backward equals torch.autograd of the plain
+    version: dX bit for bit (the chip check holds the kernel to the same)."""
+    rng = np.random.RandomState(9)
+    X = _t(rng.randn(7, 10).astype(np.float32)).requires_grad_(True)
+    th = _t(rng.randn(4).astype(np.float32)).requires_grad_(True)
+    pi, pj = torch.tensor([0, 2, 9, 5]), torch.tensor([1, 7, 3, 6])
+    dY = _t(rng.randn(7, 10).astype(np.float32))
+    a = torch.autograd.grad(tops.apply_pair_rotations(X, pi, pj, th),
+                            (X, th), dY)
+    b = torch.autograd.grad(tref.apply_pair_rotations_ref(X, pi, pj, th),
+                            (X, th), dY)
+    assert torch.equal(a[0], b[0])
+    torch.testing.assert_close(a[1], b[1], atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("pi,pj", [([0, 1], [1, 2]), ([0, 3], [4, 0]),
+                                   ([0], [9])])
+def test_apply_pair_rotations_rejects_overlap(pi, pj):
+    """Overlapping pairs are another delta (not ported); out-of-range ones
+    are an error."""
+    X = torch.zeros((2, 6))
+    with pytest.raises(ValueError):
+        tops.apply_pair_rotations(X, torch.tensor(pi), torch.tensor(pj),
+                                  torch.zeros(len(pi)))
