@@ -26,7 +26,22 @@ Phases, one JSON line each:
            enqueue left out) for each kernel, its plain version, its
            library yardstick and the launch floor; one-shot CUDA-event
            times with a cold L2 (host latency included); then the
-           serve_p99 batch stage by stage. The 1M-row index is freed after;
+           serve_p99 batch stage by stage;
+  engine   the serving front end on main's refreshed index: a fused-refresh
+           IVF state (nprobe 32) behind search.Engine, driven by 48
+           requests from SEED (sizes 512, 100, 37, 1, 300, 64 in turn,
+           about half their rows repeats) with a subspace-GCD refresh after
+           request 16 and a GCD-G refresh (pairs across subspaces) after
+           request 32, then the stream again with int8 tables. Checked
+           against direct searches, the LUT cache's hits, invalidations and
+           executables, an eager refresh of the same index by the same
+           deltas, recall against the exact backend, and the exact
+           backends against the plain Q·Xᵀ; counts are set to 0 just
+           before the path and read just after it. Then fused_lut against
+           its plain version on the path's operands (b = 512 at two
+           rotations, b = 1, 37, 300, a depth-2 RQ column map, n = 512),
+           and its time beside the two library calls that compute the same
+           tables and the eager LUT stage. The 1M-row index is freed after;
   train    the training slice at the full width of the paper's two-tower
            model (configs/paper_twotower.make_config: 1,541,673 items,
            embedding 512, towers (512, 512), history 16, D = 64, K = 256)
@@ -74,6 +89,7 @@ BATCHES = (512, 100, 37)           # serve_p99 and two ragged sizes
 NPROBES = (8, 32, 128)
 SERVE_NPROBE = 32                  # the index's default probe width
 FLAT_QUERIES = 64
+EXACT_TILE = 4096                  # corpus rows per tile of the exact scan
 GCD_STEPS, GCD_LR = 4, 1e-3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM float32, outside tensor cores
@@ -94,6 +110,8 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel it replaces)
                   "src/repro/kernels/pq_assign.py:35"),
     "embedding_bag": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
                       "src/repro/kernels/embedding_bag.py:44"),
+    "fused_lut": ("src/repro_torch/kernels/csrc/fused_lut.cu",
+                  "src/repro/kernels/lut_build.py:55"),
 }
 #: The kernels each path runs: the serving path's index build assigns codes
 #: and its refresh rotates; the training path adds the EmbeddingBag.
@@ -102,6 +120,11 @@ SERVE_KERNELS = ("ivf_adc", "adc_lookup", "gcd_score", "pq_assign",
 TRAIN_KERNELS = ("gcd_score", "givens_rotate", "pq_assign", "embedding_bag",
                  "adc_lookup")
 NEW_KERNELS = ("givens_rotate", "pq_assign", "embedding_bag")
+
+# engine phase: the Engine over a fused-refresh IVF state on main's index
+ENGINE_REQUESTS = 48
+ENGINE_SIZES = (512, 100, 37, 1, 300, 64)
+LUT_RTOL = 1e-5                    # fused_lut: of the table's max |entry|
 
 # train phase (cut to fit a run; see the module docstring)
 TRAIN_BATCH = 16_384               # RECSYS_SHAPES train_batch is 65,536
@@ -231,25 +254,6 @@ def phase_env():
 # -- main ------------------------------------------------------------------
 
 
-def _exact_topk(X, Q, k: int):
-    """Exact MIPS ground truth, computed here with a chunked plain Q·Xᵀ."""
-    import torch
-
-    best_s = torch.full((Q.shape[0], k), float("-inf"), device=Q.device)
-    best_i = torch.full((Q.shape[0], k), -1, dtype=torch.int64,
-                        device=Q.device)
-    step = 1 << 18
-    for s in range(0, X.shape[0], step):
-        sc = Q @ X[s:s + step].T
-        cs = torch.cat([best_s, sc], dim=1)
-        ci = torch.cat([best_i, torch.arange(
-            s, s + sc.shape[1], device=Q.device).expand(Q.shape[0], -1)],
-            dim=1)
-        best_s, top = torch.topk(cs, k, dim=1)
-        best_i = ci.gather(1, top)
-    return best_i
-
-
 def _serve(searcher, state, queries, truth, flat_truth, nprobe: int,
            smi: str):
     import torch
@@ -376,8 +380,12 @@ def phase_main(smi: str) -> dict:
     st = searcher.stats(state)
     check(st["rows"] == N, "index lost rows")
 
-    # ground truths: exact MIPS, and the flat ADC scan of the same codes
-    truth = _exact_topk(X, Q, 10)
+    # ground truths: exact MIPS by the port's exact backend (held against
+    # the plain Q·Xᵀ in phase engine), and the flat ADC scan of the codes
+    exact = search.make("exact")
+    exact_state = exact.build(None, X, R, search.SearchConfig(
+        tile_rows=EXACT_TILE))
+    truth = exact.search(exact_state, Q, k=10).ids
     flat = search.make("flat_adc")
     flat_truth = flat.search(flat.attach(state.index), Q, k=10).ids
     searcher.search(state, Q[:BATCHES[-1]], k=10)        # warm-up
@@ -430,7 +438,7 @@ def phase_main(smi: str) -> dict:
          refresh_code_flips=flips, theta_max=float(delta.theta.abs().max()),
          orthogonality_error=orth, launches=launches,
          peak_memory_bytes=peak, total_s=time.perf_counter() - t_all,
-         card=smi, exact_truth="chunked plain Q·Xᵀ top-10 in chip_smoke")
+         card=smi, exact_truth="repro_torch search backend exact")
     check(mismatch_before == 0.0,
           f"stored codes differ from a re-encode before any refresh "
           f"({mismatch_before})")
@@ -444,7 +452,8 @@ def phase_main(smi: str) -> dict:
               f"kernel {name} was not launched on the main path")
     return dict(launches=launches, index=state.index, Q=Q, G=G_sub,
                 R=R_before.contiguous(), X=X, index_before=index_before,
-                delta=delta, peak_memory_bytes=peak)
+                delta=delta, peak_memory_bytes=peak, exact=exact_state,
+                truth=truth, after_recall=after["recall_at_10"])
 
 
 # -- kernels ----------------------------------------------------------------
@@ -694,6 +703,385 @@ def phase_kernels(ctx: dict) -> dict:
          host_launch_ms=host_launch_ms, serve_pq_assign_flips=serve_flips,
          card=torch.cuda.get_device_name(0))
     return rows, errs
+
+
+# -- engine -----------------------------------------------------------------
+
+
+def _stream():
+    """The engine phase's request stream, from SEED: ENGINE_REQUESTS row
+    lists into a pool of fresh queries, sizes cycling through
+    ENGINE_SIZES, about half of each request's rows (none of the first's)
+    repeats of rows served before."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED)
+    seen, fresh, out = [], 0, []
+    for r in range(ENGINE_REQUESTS):
+        size = ENGINE_SIZES[r % len(ENGINE_SIZES)]
+        reps = (rng.choice(seen, size // 2).tolist() if seen else [])
+        new = list(range(fresh, fresh + size - len(reps)))
+        fresh += len(new)
+        rows = np.array(reps + new)
+        rng.shuffle(rows)
+        out.append(rows)
+        seen.extend(new)
+    return out, fresh
+
+
+def _expected_cache(stream, invalidate_before: set) -> list:
+    """What the Engine's LUT cache must do on the stream (no eviction: the
+    stream's distinct rows fit in the cache): per request (hits, misses,
+    whether a table is built). The cache is cleared before the requests
+    in ``invalidate_before``."""
+    cached, out = set(), []
+    for r, rows in enumerate(stream):
+        if r in invalidate_before:
+            cached.clear()
+        hits = sum(int(i) in cached for i in rows)
+        out.append((hits, len(rows) - hits, hits < len(rows)))
+        cached.update(int(i) for i in rows)
+    return out
+
+
+def _gcd_delta(learner, R, sample, quantizer):
+    """One learner step from the distortion gradient at rotation R."""
+    import torch
+
+    Rp = R.clone().requires_grad_(True)
+    (G,) = torch.autograd.grad(quantizer.distortion(sample @ Rp), Rp)
+    _, delta = learner.update(learner.init_from(R.detach()), G, GCD_LR)
+    return delta
+
+
+def _hold_fused_lut(name, Q, qdelta, cb, colmap, errs, rel, fails) -> None:
+    """fused_lut against its plain version: max |kernel − plain| within
+    LUT_RTOL of the table's scale, and the int8/uint8 packs of the two
+    tables at most one step apart."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    got = ops.fused_lut(Q, qdelta, cb, colmap)
+    want = ref.fused_lut_ref(Q, qdelta, cb, colmap)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    errs[f"fused_lut/{name}"] = err
+    rel[name] = err / scale
+    if not err <= LUT_RTOL * scale:
+        fails.append(f"fused_lut {name}: max abs error {err} beyond "
+                     f"{LUT_RTOL} of the scale {scale}")
+    for dt in ("int8", "uint8"):
+        qg, _ = ops.quantize_luts(got, dt)
+        qw, _ = ops.quantize_luts(want, dt)
+        step = int((qg.int() - qw.int()).abs().max())
+        if step > 1:
+            fails.append(f"fused_lut {name}: {dt} codes {step} steps apart")
+
+
+def phase_engine(ctx: dict, smi: str):
+    """The Engine over a fused-refresh IVF state on main's index, held
+    against direct searches, an eager refresh and the exact backends."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import obs, rotations, search
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops, ref
+    from repro_torch.metrics import recall_at_k
+
+    index, X, Q = ctx["index"], ctx["X"], ctx["Q"]
+    sample = X[:TRAIN]
+    fails, errs = [], {}
+    t_all = time.perf_counter()
+
+    # the exact backends: exact against the plain product Q·Xᵀ (rows that
+    # differ must hold float32 ties), exact_stream against exact
+    exact, estate = search.make("exact"), ctx["exact"]
+    ex = exact.search(estate, Q, k=10)
+    plain_ids = torch.topk(Q @ X.T, 10, dim=1).indices
+    differ = torch.nonzero(~(ex.ids.long() == plain_ids).all(1)).squeeze(1)
+    tie_gap = 0.0
+    for r in differ.tolist():
+        q = Q[r].double()
+        a = torch.sort(X[ex.ids[r].long()].double() @ q).values
+        b = torch.sort(X[plain_ids[r]].double() @ q).values
+        tie_gap = max(tie_gap, float((a - b).abs().max()
+                                     / b.abs().max()))
+    if tie_gap > TIE_GAP:
+        fails.append(f"exact differs from the plain Q·Xᵀ top-10 beyond "
+                     f"float32 ties (gap {tie_gap})")
+    del plain_ids
+    t0 = time.perf_counter()
+    stream_b = search.make("exact_stream")
+    sstate = stream_b.build(None, X, ctx["R"],
+                            search.SearchConfig(tile_rows=EXACT_TILE))
+    torch.cuda.synchronize()
+    t_stream_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sres = stream_b.search(sstate, Q, k=10)
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    if not torch.equal(sres.ids, ex.ids):
+        fails.append("exact_stream ids differ from exact")
+    t0 = time.perf_counter()
+    exact.search(estate, Q, k=10)
+    torch.cuda.synchronize()
+    t_exact = time.perf_counter() - t0
+    del sstate
+    truth = ex.ids
+
+    # the path: counts from 0 here, read after the stream and its checks
+    ops.reset_launches()
+    expect = {"fused_lut": 0, "ivf_adc": 0}
+    ivf, flat = search.make("ivf"), search.make("flat_adc")
+    state = ivf.attach(index, nprobe=SERVE_NPROBE, fused_refresh=True)
+    state0 = state
+    fstate = flat.attach(index, fused_refresh=True)
+    # nprobe = L through the fused tables equals the fused flat scan
+    qf = Q[:FLAT_QUERIES]
+    full = ivf.search(state, qf, k=10, nprobe=L)
+    fres = flat.search(fstate, qf, k=10)
+    expect["fused_lut"] += 2
+    expect["ivf_adc"] += 1
+    if not torch.equal(full.ids, fres.ids):
+        fails.append("fused nprobe = L ids differ from the fused flat scan")
+
+    g = torch.Generator(device=X.device)
+    g.manual_seed(SEED + 3)
+    stream, n_fresh = _stream()
+    pool = synthetic.sift_like(g, n_fresh, DIM)
+    within_at, cross_at = ENGINE_REQUESTS // 3, 2 * ENGINE_REQUESTS // 3
+    cache = _expected_cache(stream, {cross_at})
+    engine = search.Engine(ivf, state, k=10)
+    deltas, refreshes = [], {}
+    direct = dict(equal=0, within_rows=0, within_ids_equal=0)
+    for r, rows in enumerate(stream):
+        if r == within_at:
+            d = _gcd_delta(rotations.make("subspace_gcd", sub=DIM // D),
+                           engine.state.rot, sample, index.quantizer)
+            before = engine.stats()
+            engine.refresh(d)
+            deltas.append(d)
+            refreshes["within"] = dict(
+                invariant=ivf.luts_refresh_invariant(state, d),
+                theta_max=float(d.theta.abs().max()))
+        if r == cross_at:
+            d = _gcd_delta(rotations.make("gcd_greedy"), engine.state.rot,
+                           sample, index.quantizer)
+            mid = engine.stats()
+            engine.refresh(d)
+            deltas.append(d)
+            after = engine.stats()
+            refreshes["cross"] = dict(
+                invariant=ivf.luts_refresh_invariant(engine.state, d),
+                theta_max=float(d.theta.abs().max()),
+                invalidations=after["lut_invalidations"]
+                - mid["lut_invalidations"],
+                epoch=after["lut_epoch"] - mid["lut_epoch"])
+        qb = pool[torch.from_numpy(rows).to(X.device)]
+        got = engine.search(qb)
+        expect["ivf_adc"] += 1
+        expect["fused_lut"] += int(cache[r][2])
+        want = ivf.search(engine.state, qb, k=10)
+        expect["ivf_adc"] += 1
+        expect["fused_lut"] += 1
+        same = torch.equal(got.ids, want.ids)
+        diff = float((got.scores - want.scores).abs().max())
+        if within_at <= r < cross_at:
+            # cached tables from before the refresh: equal in exact
+            # arithmetic, not in float32
+            direct["within_rows"] += len(rows)
+            direct["within_ids_equal"] += int(
+                (got.ids == want.ids).all(1).sum())
+            if not torch.allclose(got.scores, want.scores, atol=1e-4,
+                                  rtol=1e-4):
+                fails.append(f"request {r}: scores off by {diff} after the "
+                             "within-subspace refresh")
+        else:
+            direct["equal"] += int(same)
+            if not (same and torch.allclose(got.scores, want.scores,
+                                            atol=1e-6, rtol=1e-6)):
+                fails.append(f"request {r}: Engine differs from a direct "
+                             f"search (ids equal {same}, scores {diff})")
+        if r == cross_at - 1:
+            st = engine.stats()
+            hits = sum(c[0] for c in cache[:r + 1])
+            if st["lut_invalidations"] != 0 or st["lut_hits"] != hits \
+                    or st["executables"] != before["executables"]:
+                fails.append(f"within-subspace refresh: invalidations "
+                             f"{st['lut_invalidations']}, hits "
+                             f"{st['lut_hits']} (the stream repeats {hits}"
+                             f"), executables {before['executables']} -> "
+                             f"{st['executables']}")
+    if refreshes["within"]["invariant"] is not True \
+            or refreshes["cross"]["invariant"] is not False:
+        fails.append(f"refresh invariance misjudged: {refreshes}")
+    if refreshes["cross"]["invalidations"] != 1 \
+            or refreshes["cross"]["epoch"] != 1:
+        fails.append(f"GCD-G refresh: {refreshes['cross']}")
+    if direct["within_ids_equal"] < 0.99 * direct["within_rows"]:
+        fails.append(f"after the within-subspace refresh only "
+                     f"{direct['within_ids_equal']} of "
+                     f"{direct['within_rows']} rows have the direct "
+                     "search's ids")
+    st1 = engine.stats()
+    want_hits = sum(c[0] for c in cache)
+    if st1["lut_hits"] != want_hits or \
+            st1["lut_misses"] != sum(c[1] for c in cache):
+        fails.append(f"LUT hits {st1['lut_hits']} / misses "
+                     f"{st1['lut_misses']}, the stream implies {want_hits}")
+    reqs1 = engine.requests
+
+    # the second pass of the stream with int8 tables. A cached table row
+    # was built from Q·R₀ of an earlier batch, whose float32 product may
+    # round differently at another batch size, and a last-bit difference
+    # can move an int8 code by one step: each score may then move by at
+    # most one step in every column, Σ_d scale_d
+    engine8 = search.Engine(ivf, dataclasses.replace(engine.state,
+                                                     lut_dtype="int8"), k=10)
+    cache8 = _expected_cache(stream, set())
+    direct8 = dict(rows=0, ids_equal=0, max_diff_over_step=0.0)
+    for r, rows in enumerate(stream):
+        qb = pool[torch.from_numpy(rows).to(X.device)]
+        got = engine8.search(qb)
+        QRb = ivf.rotate_queries(engine8.state, qb)
+        lut8 = ivf.luts(engine8.state, QRb)
+        want = ivf.search_prepared(engine8.state, QRb, lut8, k=10)
+        expect["ivf_adc"] += 2
+        expect["fused_lut"] += int(cache8[r][2]) + 1
+        step = lut8[1][..., 0].sum(dim=1, keepdim=True)
+        over = float(((got.scores - want.scores).abs() / step).max())
+        direct8["rows"] += len(rows)
+        direct8["ids_equal"] += int((got.ids == want.ids).all(1).sum())
+        direct8["max_diff_over_step"] = max(direct8["max_diff_over_step"],
+                                            over)
+        if over > 1.0:
+            fails.append(f"int8 request {r}: scores {over} steps from a "
+                         "direct search")
+    if direct8["ids_equal"] < 0.99 * direct8["rows"]:
+        fails.append(f"int8 pass: {direct8['ids_equal']} of "
+                     f"{direct8['rows']} rows have the direct search's ids")
+    st8 = engine8.stats()
+
+    # the end state: the fused state against an eager copy of the index
+    # refreshed by the same two deltas, and recall against exact
+    state = engine.state
+    eager = ivf.attach(index, nprobe=SERVE_NPROBE)
+    for d in deltas:
+        eager = ivf.refresh(eager, d)
+    r_e = ivf.search(eager, Q, k=10)
+    probe = obs.RecallProbe(Q, truth, k=10)
+    recall = probe.run(lambda q: ivf.search(state, q, k=10))
+    r_f = ivf.search(state, Q, k=10)
+    expect["ivf_adc"] += 3
+    expect["fused_lut"] += 2
+    eager_share = float((r_e.ids == r_f.ids).float().mean())
+    eager_diff = float((r_e.scores - r_f.scores).abs().max())
+    if not torch.allclose(r_e.scores, r_f.scores, atol=1e-4, rtol=1e-4):
+        fails.append(f"fused and eager refresh: scores off by {eager_diff}")
+    if eager_share < 0.95:
+        fails.append(f"fused and eager refresh: {eager_share} of ids equal")
+    if abs(recall - ctx["after_recall"]) > 0.005:
+        fails.append(f"recall@10 {recall} against exact, main's after "
+                     f"refresh {ctx['after_recall']}")
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    for name, n in expect.items():
+        if launches[name] != n:
+            fails.append(f"{name} launched {launches[name]} times, the path "
+                         f"implies {n}")
+    t_path = time.perf_counter() - t_all
+
+    # fused_lut against its plain version on the path's operands
+    rel = {}
+    cb, colmap = index.quantizer.lut_operands()
+    QR512 = ivf.rotate_queries(state, Q[:BATCHES[0]])
+    for name, qd in (("b512_attach", state0.qdelta),
+                     ("b512_after_gcd_g", state.qdelta)):
+        _hold_fused_lut(name, QR512, qd, cb, colmap, errs, rel, fails)
+    for b in (1, 37, 300):
+        qb = ivf.rotate_queries(state, pool[:b])
+        _hold_fused_lut(f"b{b}", qb, state.qdelta, cb, colmap, errs, rel,
+                        fails)
+    levels = torch.cat([cb, 0.5 * cb.flip(1)])            # (2D, K, sub)
+    rq_map = torch.eye(D, device=cb.device)[
+        torch.arange(2 * D, device=cb.device) % D]
+    _hold_fused_lut("rq_depth2", QR512, state.qdelta, levels.contiguous(),
+                    rq_map, errs, rel, fails)
+    n2, D2 = 512, 64
+    q2 = torch.randn((300, n2), generator=g, device=cb.device)
+    qd2 = torch.linalg.qr(torch.randn((n2, n2), generator=g,
+                                      device=cb.device))[0].contiguous()
+    cb2 = torch.randn((D2, K, n2 // D2), generator=g, device=cb.device)
+    _hold_fused_lut("n512_D64", q2, qd2, cb2,
+                    torch.eye(D2, device=cb.device), errs, rel, fails)
+
+    # times per launch at b = 512
+    qd = state.qdelta
+    cols = state.lut_cols
+    k_ms = graph_ms(lambda: ops.fused_lut(QR512, qd, cb, colmap, cols=cols),
+                    launches=50)
+    p_ms = graph_ms(lambda: ref.fused_lut_ref(QR512, qd, cb, colmap),
+                    launches=20)
+    cbT = cb.transpose(1, 2).contiguous()                  # (D, sub, K)
+    b512 = QR512.shape[0]
+
+    def two_calls():
+        QL = torch.matmul(QR512, qd).view(b512, D, -1).transpose(0, 1)
+        return torch.bmm(QL, cbT)                          # (D, b, K)
+
+    lib_err = float((two_calls().transpose(0, 1)
+                     - ref.fused_lut_ref(QR512, qd, cb, colmap)).abs().max())
+    lib_ms = graph_ms(two_calls, launches=20)
+    eager_lut_ms = graph_ms(lambda: index.quantizer.adc_tables(QR512),
+                            launches=20)
+    Dp, _, sub = cb.shape
+    nbytes = 4 * (b512 * DIM + DIM * DIM + Dp * K * sub + b512 * Dp * K + Dp)
+    flops = 2 * b512 * DIM * DIM + 2 * b512 * Dp * K * sub
+    row = dict(shape=dict(b=b512, n=DIM, Dp=Dp, K=K, sub=sub), ms=k_ms,
+               plain_ms=p_ms, bytes=nbytes, flops=flops,
+               **_bound(nbytes, flops), library_ms=lib_ms,
+               library="two calls: torch.matmul(Q, qdelta), then torch.bmm "
+                       "over the subspaces",
+               library_max_abs_err=lib_err, eager_lut_ms=eager_lut_ms,
+               max_abs_err=max(v for v in errs.values()),
+               rel_err=rel)
+
+    def per_bucket(reqs):
+        out = {}
+        for rec in reqs:
+            out.setdefault(rec["bucket"], obs.Distribution(
+                "latency_ms", window=len(reqs))).observe(rec["latency_ms"])
+        return {str(b): dict(n=d.count, p50=d.percentile(50),
+                             p99=d.percentile(99))
+                for b, d in sorted(out.items())}
+
+    keys = ("requests", "queries", "compiles", "executables", "refreshes",
+            "lut_hits", "lut_misses", "lut_hit_rate", "lut_invalidations",
+            "lut_epoch", "lut_cached_rows", "latency_ms_p50",
+            "latency_ms_p99")
+    emit("engine", requests=ENGINE_REQUESTS, sizes=list(ENGINE_SIZES),
+         fresh_rows=n_fresh, rows=sum(len(r) for r in stream),
+         nprobe=SERVE_NPROBE, refreshes=refreshes,
+         float32={k: st1[k] for k in keys}, int8={k: st8[k] for k in keys},
+         latency_ms_by_bucket=dict(float32=per_bucket(reqs1),
+                                   int8=per_bucket(engine8.requests)),
+         direct_searches=direct, int8_direct_searches=direct8,
+         eager_ids_equal_share=eager_share, eager_max_score_diff=eager_diff,
+         recall_at_10=recall, main_after_refresh_recall=ctx["after_recall"],
+         exact=dict(rows_differing_from_plain=int(differ.numel()),
+                    max_tie_gap=tie_gap, search_s=t_exact,
+                    stream_search_s=t_stream,
+                    stream_build_s=t_stream_build),
+         launches=launches, expected_launches=expect, fused_lut=row,
+         path_s=t_path, total_s=time.perf_counter() - t_all, card=smi,
+         fails=fails)
+    check(not fails, "; ".join(fails))
+    return {"fused_lut": row}, errs, launches
 
 
 # -- train ------------------------------------------------------------------
@@ -1263,6 +1651,10 @@ def main() -> int:
     ctx = phase_main(smi)
     rows, errs = phase_kernels(ctx)
     launches = {k: ctx["launches"][k] for k in SOURCES}
+    engine_rows, engine_errs, engine_launches = phase_engine(ctx, smi)
+    rows.update(engine_rows)
+    errs.update(engine_errs)
+    launches["fused_lut"] = engine_launches["fused_lut"]
     del ctx                          # frees the 1M-row index
     torch.cuda.empty_cache()
     tctx = phase_train(smi)

@@ -12,10 +12,14 @@ create state (``search.make(...).build``, ``data.synthetic``,
 ``device=`` with the card as the default and raise when no card is present
 unless ``device="cpu"`` is passed.
 
-Two slices are ported. Serving: an IVF-PQ index on a rotation learned by
+Three slices are ported. Serving: an IVF-PQ index on a rotation learned by
 Givens coordinate descent (``rotations``, ``quant``, ``index``, ``search``).
 Training: the paper's two-tower model trained through the trainable PQ
 index layer T(X) = φ(XR)Rᵀ with R moved by GCD (``models``,
-``core.index_layer``, ``training``, ``quant.opq``, ``configs``). See
-ROADMAP.md for what is still to be ported.
+``core.index_layer``, ``training``, ``quant.opq``, ``configs``). The
+serving front end: ``search.Engine`` (ragged batches, the per-query LUT
+cache, live refresh) over fused-refresh states, whose tables the
+``fused_lut`` kernel builds, the exact backends as the recall oracle, and
+``obs`` (metrics, spans, the recall probe). See ROADMAP.md for what is
+still to be ported.
 """

@@ -1,4 +1,5 @@
-"""Carry index, learner, model and optimizer state across from numpy.
+"""Carry index, search, learner, model and optimizer state across from
+numpy.
 
 The port cannot import JAX, so a caller that holds JAX state turns it into
 numpy first (``np.asarray`` of each leaf) and hands the dict here; both
@@ -8,6 +9,8 @@ are keyed by the JAX path keys (``item_table``, ``user0_w``, ``index/R``,
 ``index/codebooks``; ``training.optimizer.path_key``).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -19,6 +22,8 @@ from repro_torch.core import index_layer as il
 from repro_torch.index.ivf import IVFPQIndex
 from repro_torch.models import recsys
 from repro_torch.rotations.gcd import GCDState
+from repro_torch.search import exact as search_exact
+from repro_torch.search import flat as search_flat
 from repro_torch.training import optimizer as opt_lib
 
 INDEX_KEYS = ("R", "centroids", "codebooks", "codes", "ids", "list_offsets",
@@ -50,6 +55,47 @@ def index_from_numpy(arrays: dict, *, device=None) -> IVFPQIndex:
         ids=_t(arrays["ids"], dev, np.int32),
         list_offsets=_t(arrays["list_offsets"], dev, np.int32),
         block_size=int(arrays["block_size"]))
+
+
+FUSED_KEYS = ("rot", "wacc", "qdelta")
+
+
+def adc_state_from_numpy(arrays: dict, *, fused: bool, nprobe: int = 8,
+                         lut_dtype: str = "float32",
+                         device=None) -> search_flat.ADCState:
+    """An ``ADCState`` (the ``ivf`` and ``flat_adc`` state) on ``device``
+    from a JAX ``ADCState``'s leaves: the index keys of
+    ``index_from_numpy`` and, when ``fused``, the fused-refresh matrices
+    ``rot``, ``wacc`` and ``qdelta``, so a state taken after several fused
+    refreshes carries across as it stands."""
+    index = index_from_numpy(arrays, device=device)
+    state = search_flat.ADCState(
+        index=index, max_blocks=index.max_list_blocks(),
+        nprobe=min(nprobe, index.num_lists), lut_dtype=lut_dtype)
+    if not fused:
+        return state
+    missing = [k for k in FUSED_KEYS if k not in arrays]
+    if missing:
+        raise KeyError(f"adc_state_from_numpy: fused, missing {missing}")
+    state = search_flat._fused_state(state)
+    return dataclasses.replace(
+        state, **{k: _t(arrays[k], index.device, np.float32)
+                  for k in FUSED_KEYS})
+
+
+def exact_state_from_numpy(arrays: dict, *,
+                           device=None) -> search_exact.ExactState:
+    """An ``ExactState`` on ``device`` from a JAX one's leaves: ``R``,
+    ``XR``, ``ids``, ``tile_rows`` and ``R0`` (None or absent in eager
+    mode)."""
+    dev = _device.resolve(device)
+    R0 = arrays.get("R0")
+    return search_exact.ExactState(
+        R=_t(arrays["R"], dev, np.float32),
+        XR=_t(arrays["XR"], dev, np.float32),
+        ids=_t(arrays["ids"], dev, np.int32),
+        tile_rows=int(arrays["tile_rows"]),
+        R0=None if R0 is None else _t(R0, dev, np.float32))
 
 
 def _check_zero_accumulators(arrays: dict, what: str) -> None:

@@ -1,5 +1,5 @@
-"""GCD rotation refresh of a live index (port of
-``repro/index/maintain.py:114-210``).
+"""GCD rotation refresh of a live index and its health (port of
+``repro/index/maintain.py:46-83`` and ``:114-210``).
 
 A GCD step updates the rotation by a product of disjoint Givens rotations,
 R ← R·Δ. Under Δ every stored quantity transforms by right multiplication
@@ -16,10 +16,38 @@ import dataclasses
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import givens
 from repro_torch.index import ivf
 from repro_torch.index.ivf import IVFPQIndex
 from repro_torch.rotations import GivensDelta
+
+
+def refresh_health(R: torch.Tensor, delta: GivensDelta | None = None, *,
+                   registry: obs.Registry | None = None) -> dict:
+    """Host-side refresh health, recorded on ``registry`` (default: the
+    global ``repro_torch.obs`` registry):
+
+      * ``refresh.orthogonality_drift``: ‖RᵀR − I‖ of the serving rotation
+        after the refresh; repeated float32 delta products slowly leave
+        SO(n), and drift degrades every stored code at once;
+      * ``refresh.delta_norm``: ‖θ‖ of the GivensDelta; a spiking norm is
+        a runaway learner, visible before recall moves.
+
+    One host synchronisation on the (n, n) rotation: call it per refresh,
+    not per query. Returns the measured values whether or not the registry
+    is enabled."""
+    reg = registry if registry is not None else obs.default_registry()
+    drift = float(givens.orthogonality_error(R))
+    norm = None
+    if delta is not None:
+        norm = float(torch.linalg.vector_norm(check_refreshable(delta).theta
+                                              .double()))
+        reg.gauge("refresh.delta_norm").set(norm)
+    reg.gauge("refresh.orthogonality_drift").set(drift)
+    reg.counter("refresh.count").inc()
+    reg.event("refresh", orthogonality_drift=drift, delta_norm=norm)
+    return dict(orthogonality_drift=drift, delta_norm=norm)
 
 
 def rotate_components(R: torch.Tensor, coarse, quantizer, pi: torch.Tensor,

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("adc_scan.cu", "gcd_score.cu", "givens_rotate.cu", "pq_assign.cu",
-           "embedding_bag.cu")
+           "embedding_bag.cu", "fused_lut.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "libreprokernels.so"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
@@ -105,6 +105,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_pq_assign.restype = i
     lib.repro_embedding_bag.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.repro_embedding_bag.restype = i
+    lib.repro_fused_lut.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.repro_fused_lut.restype = i
 
 
 def library() -> ctypes.CDLL:

@@ -34,18 +34,21 @@ from repro_torch.kernels.adc_common import (  # noqa: F401
 )
 
 __all__ = ["gcd_score", "givens_rotate", "apply_pair_rotations", "pq_assign",
-           "embedding_bag", "adc_lookup", "ivf_adc", "topk_merge",
+           "embedding_bag", "adc_lookup", "ivf_adc", "fused_lut",
+           "lut_column_map", "topk_merge",
            "quantize_luts", "dequantize_luts", "LUT_DTYPES", "LAUNCHES",
            "reset_launches"]
 
 #: Kernel launches per kernel in this process (see module docstring).
 LAUNCHES = {"ivf_adc": 0, "adc_lookup": 0, "gcd_score": 0, "givens_rotate": 0,
-            "pq_assign": 0, "embedding_bag": 0}
+            "pq_assign": 0, "embedding_bag": 0, "fused_lut": 0}
 
 _FLAT_ROWS = 4096        # rows per block of the flat scan
 _SMEM_LIMIT = 232_448    # shared memory one H100 block may use (bytes)
 _LUT_KIND = {torch.float32: 0, torch.int8: 1, torch.uint8: 2}
 _ROTATE_ROWS = 8         # rows per block of the plane rotation
+_LUT_TILE = 32           # queries per block of the fused LUT build
+_LUT_THREADS = 256       # threads per block of it (kThreads in the source)
 
 
 def reset_launches() -> None:
@@ -373,6 +376,70 @@ def ivf_adc(lut: torch.Tensor, codes: torch.Tensor, block_idx: torch.Tensor,
                 _stream(lut.device))
         _build.check(err, "ivf_adc")
         LAUNCHES["ivf_adc"] += 1
+    return out
+
+
+def lut_column_map(colmap: torch.Tensor) -> torch.Tensor:
+    """The (Dp,) int32 code column -> query subspace map of a one-hot
+    (Dp, D) ``colmap``, as the fused_lut kernel takes it. Raises unless
+    every row is one-hot; that check costs one host synchronisation, so
+    callers make the map once per state, not per batch."""
+    if colmap.dim() != 2:
+        raise ValueError(f"colmap: shape {tuple(colmap.shape)}, expected "
+                         "(Dp, D)")
+    one = (colmap == 1).sum(dim=1) == 1
+    zero = ((colmap == 0) | (colmap == 1)).all(dim=1)
+    if not bool((one & zero).all()):
+        raise ValueError("colmap must be one-hot: each code column reads "
+                         "exactly one query subspace")
+    return colmap.argmax(dim=1).to(torch.int32).contiguous()
+
+
+def fused_lut(Q: torch.Tensor, qdelta: torch.Tensor, cb_flat: torch.Tensor,
+              colmap: torch.Tensor, *,
+              cols: torch.Tensor | None = None) -> torch.Tensor:
+    """Rotation-fused ADC tables: queries (b, n) × query-side transform
+    (n, n) × frozen flattened codebooks (Dp, K, sub) × one-hot column map
+    (Dp, D) -> (b, Dp, K) float32 with
+    lut[b, p, k] = ⟨(Q·qdelta) subspace of column p, cb_flat[p, k]⟩.
+    ``cols`` is ``lut_column_map(colmap)``, made once by the caller; the
+    card's kernel reads it in place of the one-hot matrix (made here, with
+    a host synchronisation, when it is not given). On the card the
+    subspace width must be 4, 8 or 16 and ``cb_flat`` 16-byte aligned."""
+    if not _on_card(Q, qdelta, cb_flat, colmap, cols):
+        return ref.fused_lut_ref(Q, qdelta, cb_flat, colmap)
+    b, n = Q.shape
+    Dp, K, sub = cb_flat.shape
+    D = colmap.shape[1]
+    if D * sub != n:
+        raise ValueError(f"fused_lut: n={n} != D·sub = {D}·{sub}")
+    _require(Q, "Q", torch.float32, (b, n))
+    _require(qdelta, "qdelta", torch.float32, (n, n))
+    _require(cb_flat, "cb_flat", torch.float32, (Dp, K, sub))
+    if cols is None:
+        cols = lut_column_map(colmap)
+    _require(cols, "cols", torch.int32, (Dp,))
+    if sub not in (4, 8, 16):
+        raise ValueError(f"fused_lut: the kernel takes subspaces of 4, 8 or "
+                         f"16 columns, not {sub}")
+    if cb_flat.data_ptr() % 16:
+        raise ValueError("fused_lut: cb_flat must be 16-byte aligned")
+    parts = _LUT_THREADS // _LUT_TILE
+    smem = 4 * (n * sub + (1 + parts) * _LUT_TILE * sub)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"fused_lut: a tile of {_LUT_TILE} queries at n={n} "
+                         f"and sub={sub} needs {smem} bytes of shared memory, "
+                         "more than one block has")
+    if Dp > 65535:
+        raise ValueError(f"fused_lut: Dp={Dp} exceeds the grid's y limit")
+    out = torch.empty((b, Dp, K), dtype=torch.float32, device=Q.device)
+    if b and Dp and K:
+        with torch.cuda.device(Q.device):
+            err = _build.library().repro_fused_lut(
+                _ptr(Q), _ptr(qdelta), _ptr(cb_flat), _ptr(cols), _ptr(out),
+                b, n, Dp, K, sub, _LUT_TILE, _stream(Q.device))
+        _build.check(err, "fused_lut")
+        LAUNCHES["fused_lut"] += 1
     return out
 
 

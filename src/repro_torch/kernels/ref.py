@@ -79,6 +79,22 @@ def gcd_score_ref(G: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     return (M - M.T).to(R.dtype)
 
 
+def fused_lut_ref(Q: torch.Tensor, qdelta: torch.Tensor,
+                  cb_flat: torch.Tensor, colmap: torch.Tensor) -> torch.Tensor:
+    """Rotation-fused ADC table build. Q (b, n) queries, qdelta (n, n) the
+    query-side transform of fused refresh, cb_flat (Dp, K, sub) frozen
+    codebooks flattened by code column, colmap (Dp, D) one-hot code column
+    -> query subspace map (identity for PQ; column l·D+d of a level-major
+    depth-M RQ maps to subspace d) -> (b, Dp, K) float32 with
+    lut[b, p, k] = ⟨(Q·qdelta) subspace of column p, cb_flat[p, k]⟩."""
+    QL = Q.float() @ qdelta.float()                                # (b, n)
+    b, n = QL.shape
+    D = colmap.shape[1]
+    QLs = QL.reshape(b, D, n // D)
+    Qexp = torch.einsum("pd,bds->bps", colmap.float(), QLs)
+    return torch.einsum("bps,pks->bpk", Qexp, cb_flat.float())
+
+
 def _lut_f32(lut: torch.Tensor, scales: torch.Tensor | None) -> torch.Tensor:
     if scales is not None:
         return dequantize_luts(lut, scales)

@@ -69,6 +69,14 @@ class PQ:
     def adc_tables(self, Q: torch.Tensor) -> torch.Tensor:
         return cb.adc_lut(Q, self.codebooks)  # (b, D, K)
 
+    def lut_operands(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Operands of the fused LUT build (``kernels.ops.fused_lut``): the
+        flattened codebooks (Dp, K, sub) and the one-hot code column ->
+        query subspace map (Dp, D), the identity for PQ (Dp == D)."""
+        D = self.num_subspaces
+        return self.codebooks, torch.eye(D, dtype=torch.float32,
+                                         device=self.codebooks.device)
+
     def distortion(self, X: torch.Tensor,
                    codes: torch.Tensor | None = None) -> torch.Tensor:
         return cb.distortion(X, self.codebooks, codes)

@@ -355,3 +355,64 @@ def test_apply_pair_rotations_rejects_overlap(pi, pj):
     with pytest.raises(ValueError):
         tops.apply_pair_rotations(X, torch.tensor(pi), torch.tensor(pj),
                                   torch.zeros(len(pi)))
+
+
+def _fused_lut_operands(seed: int, b: int, n: int, Dp: int, K: int, sub: int):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(b, n).astype(np.float32),
+            rng.randn(n, n).astype(np.float32),
+            rng.randn(Dp, K, sub).astype(np.float32))
+
+
+def _rq_colmap(D: int, M: int) -> np.ndarray:
+    """The level-major depth-M RQ column map of ``repro/quant/rq.py``
+    ``lut_operands``, built by hand: column l·D+d reads subspace d."""
+    cols = np.arange(M * D)
+    return np.eye(D, dtype=np.float32)[cols % D]
+
+
+# b, n, D, K, sub, depth: the PQ shapes of tests/test_kernels.py and its
+# depth-2 RQ layout
+FUSED_LUT_CASES = [(3, 16, 4, 8, 4, 1), (17, 32, 8, 16, 4, 1),
+                   (5, 16, 4, 8, 4, 2)]
+
+
+@pytest.mark.parametrize("b,n,D,K,sub,depth", FUSED_LUT_CASES)
+def test_fused_lut_matches_jax_kernel(b, n, D, K, sub, depth):
+    """The plain version against the JAX Pallas kernel (interpret mode) and
+    against the two-step form Q·qdelta, then one einsum per code column;
+    atol = rtol = 1e-5 (float32 sums of n and sub terms)."""
+    Q, qd, cb = _fused_lut_operands(b, b, n, depth * D, K, sub)
+    colmap = _rq_colmap(D, depth)
+    want = np.asarray(jops.fused_lut(jnp.asarray(Q), jnp.asarray(qd),
+                                     jnp.asarray(cb), jnp.asarray(colmap)))
+    before = dict(tops.LAUNCHES)
+    got = tops.fused_lut(_t(Q), _t(qd), _t(cb), _t(colmap))
+    assert tops.LAUNCHES == before          # a CPU call launches nothing
+    assert got.dtype == torch.float32 and got.shape == (b, depth * D, K)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    QL = (Q.astype(np.float64) @ qd).reshape(b, D, sub)
+    for p in range(depth * D):
+        direct = np.einsum("bs,ks->bk", QL[:, p % D], cb[p])
+        np.testing.assert_allclose(got[:, p].numpy(), direct, atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_lut_column_maps_are_one_hot():
+    """The kernel reads an integer column map: PQ's identity and the RQ
+    level-major layout are one-hot and map as the einsum does; a map that
+    is not one-hot is refused."""
+    from repro_torch import quant
+
+    cb = torch.zeros((4, 8, 2))
+    _, eye = quant.PQ(cb).lut_operands()
+    assert torch.equal(eye, torch.eye(4))
+    np.testing.assert_array_equal(tops.lut_column_map(eye).numpy(),
+                                  np.arange(4))
+    rq = tops.lut_column_map(_t(_rq_colmap(4, 2)))
+    assert rq.dtype == torch.int32
+    np.testing.assert_array_equal(rq.numpy(), np.arange(8) % 4)
+    for bad in (torch.zeros((4, 4)), 2.0 * torch.eye(4),
+                torch.ones((4, 4)), torch.eye(4)[:, :, None]):
+        with pytest.raises(ValueError):
+            tops.lut_column_map(bad)
