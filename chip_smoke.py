@@ -63,7 +63,35 @@ Phases, one JSON line each:
            multiple of the tile, weights, padding and empty bags) and the
            rotation's backward, timed like the others; adc_lookup on the
            eval retrieval's own tables (Dp = 64) over the encoded corpus,
-           and gcd_score on the last GCD step's (G, R) at n = 512.
+           and gcd_score on the last GCD step's (G, R) at n = 512;
+  decode   PQ-compressed KV-cache decode of olmo-1b at the full width of
+           configs.get("olmo-1b").config_for_shape("long_500k") (16
+           layers, d_model 2048, 16 heads of 128, KVQuantConfig(128, 16,
+           256), bf16 weights from the seeded init, batch 1, a cache of
+           524,288 positions). Cut to fit a run: a prompt of 4,096 seeded
+           tokens is prefilled (prefilling all 524,288 is O(S²) attention);
+           the KV codebooks are fitted per layer by PQ.fit on the prompt's
+           K·R and V·R (R the identity init gives; the init's 0.02-scale
+           codebooks would make the accuracy checks empty); positions
+           4,096 … 524,279 are filled by tiling the prompt's codes and the
+           length set to 524,280, so the last of 8 greedy decode tokens
+           attends over every position. Counts are set to 0 just before and
+           read just after, and checked against what the path implies
+           (adc_batch 16 a token, pq_assign 2 a layer a prefill and a
+           token, plus the fit's). Checked: compressed attention of the
+           last token's last layer, over all S positions, against dense
+           attention over decode_k/decode_v of the same codes (1e-4 of the
+           largest entry); reported: PQ against a dense cache at the
+           prompt's length (top-1 agreement, largest logit gap), per-token
+           decode time, a per-layer device split by CUDA events, peak
+           memory and cache bytes against a dense bf16 cache;
+  decode_kernels
+           adc_batch against its plain version on the decode's own operands
+           (bit-equal for float32 tables, 1e-5 of the largest entry for
+           int8/uint8 packs), on Nemotron's KV geometry (r = 12, Dp = 24,
+           tables staged in two chunks), on Dp = 16 with r = 3 and S not a
+           multiple of a block's rows, timed beside its plain version, its
+           bound and one F.embedding_bag over per-group offsets.
 Every check raises on failure, so the script exits non-zero with the error;
 it also exits non-zero without a CUDA device. The last three lines are the
 nvidia-smi line, the per-kernel JSON summary and the device JSON.
@@ -112,6 +140,8 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel it replaces)
                       "src/repro/kernels/embedding_bag.py:44"),
     "fused_lut": ("src/repro_torch/kernels/csrc/fused_lut.cu",
                   "src/repro/kernels/lut_build.py:55"),
+    "adc_batch": ("src/repro_torch/kernels/csrc/adc_scan.cu",
+                  "src/repro/kernels/adc_batch.py:38"),
 }
 #: The kernels each path runs: the serving path's index build assigns codes
 #: and its refresh rotates; the training path adds the EmbeddingBag.
@@ -138,6 +168,16 @@ TOWER_CHUNK = 262_144              # item-tower rows per call in the encode
 ASSIGN_GAP = 1e-5                  # a pq_assign flip this close is a tie
 BAG_RTOL = 1e-5
 DTHETA_RTOL = 1e-4
+
+# decode phase (cut to fit a run; see the module docstring)
+DECODE_ARCH, DECODE_SHAPE = "olmo-1b", "long_500k"
+PROMPT_LEN = 4096
+DECODE_TOKENS = 8
+FIT_ITERS = 10                     # k-means iterations of the codebook fit
+ATTN_RTOL = 1e-4                   # compressed vs dense attention
+BATCH_RTOL = 1e-5                  # adc_batch on int8/uint8 packs
+SPLIT_REPS = 5                     # repetitions of the per-layer split
+DECODE_KERNELS = ("adc_batch", "pq_assign")
 
 
 def emit(phase: str, **fields) -> None:
@@ -790,6 +830,7 @@ def phase_engine(ctx: dict, smi: str):
 
     from repro_torch import obs, rotations, search
     from repro_torch.data import synthetic
+    from repro_torch.index import search as index_search
     from repro_torch.kernels import ops, ref
     from repro_torch.metrics import recall_at_k
 
@@ -981,8 +1022,41 @@ def phase_engine(ctx: dict, smi: str):
     expect["fused_lut"] += 2
     eager_share = float((r_e.ids == r_f.ids).float().mean())
     eager_diff = float((r_e.scores - r_f.scores).abs().max())
-    if not torch.allclose(r_e.scores, r_f.scores, atol=1e-4, rtol=1e-4):
-        fails.append(f"fused and eager refresh: scores off by {eager_diff}")
+    # The two states probe through other float32 products (the fused one
+    # at R₀, the eager one against rotated centroids), so a query whose
+    # nprobe-th and next lists are a float32 tie may probe another list in
+    # each. Every query's scores are held to 1e-4 against the eager state
+    # searched over the lists the fused state probed: r_e itself where the
+    # lists agree, else a second eager search through the prepared path
+    # with the probe pinned to the fused lists. Each such query must also
+    # be a tie: every list one state alone probes lies within TIE_GAP (of
+    # the query's coarse scale) of the fused nprobe-th coarse score.
+    QRf, QRe = ivf.rotate_queries(state, Q), ivf.rotate_queries(eager, Q)
+    cf = index_search.coarse_scores(state.index, QRf)
+    ce = index_search.coarse_scores(eager.index, QRe)
+    vals_f, lists_f = torch.sort(cf, dim=1, descending=True, stable=True)
+    lists_e = torch.sort(ce, dim=1, descending=True, stable=True).indices
+    flipped = torch.zeros_like(cf, dtype=torch.bool).scatter_(
+        1, lists_f[:, :SERVE_NPROBE], True) ^ torch.zeros_like(
+        cf, dtype=torch.bool).scatter_(1, lists_e[:, :SERVE_NPROBE], True)
+    moved = flipped.any(1)
+    edge = vals_f[:, SERVE_NPROBE - 1:SERVE_NPROBE]
+    probe_gap = float(((cf - edge).abs() * flipped).amax(1).div(
+        cf.abs().amax(1)).max())
+    if probe_gap > TIE_GAP:
+        fails.append(f"fused and eager refresh probe other lists beyond a "
+                     f"float32 tie (gap {probe_gap})")
+    want_scores = r_e.scores.clone()
+    if moved.any():
+        QRm = QRe[moved]
+        with _probe_pinned(index_search, lists_f[moved, :SERVE_NPROBE]):
+            want_scores[moved] = ivf.search_prepared(
+                eager, QRm, ivf.luts(eager, QRm), k=10).scores
+        expect["ivf_adc"] += 1
+    pinned_diff = float((want_scores - r_f.scores).abs().max())
+    if not torch.allclose(want_scores, r_f.scores, atol=1e-4, rtol=1e-4):
+        fails.append(f"fused and eager refresh: scores off by {pinned_diff} "
+                     "over the same probed lists")
     if eager_share < 0.95:
         fails.append(f"fused and eager refresh: {eager_share} of ids equal")
     if abs(recall - ctx["after_recall"]) > 0.005:
@@ -1072,6 +1146,8 @@ def phase_engine(ctx: dict, smi: str):
                                    int8=per_bucket(engine8.requests)),
          direct_searches=direct, int8_direct_searches=direct8,
          eager_ids_equal_share=eager_share, eager_max_score_diff=eager_diff,
+         eager_probe_flips=int(moved.sum()), eager_probe_tie_gap=probe_gap,
+         eager_pinned_max_score_diff=pinned_diff,
          recall_at_10=recall, main_after_refresh_recall=ctx["after_recall"],
          exact=dict(rows_differing_from_plain=int(differ.numel()),
                     max_tie_gap=tie_gap, search_s=t_exact,
@@ -1089,7 +1165,8 @@ def phase_engine(ctx: dict, smi: str):
 
 class _StepTimer:
     """CUDA events at the marks of each train step (``make_train_step``'s
-    ``marks``): start, forward, backward, adamw, rotation."""
+    ``marks``: start, forward, backward, adamw, rotation) or decode step
+    (``serve_decode``'s)."""
 
     def __init__(self):
         self.steps = []
@@ -1119,26 +1196,46 @@ class _StepTimer:
 
 
 @contextlib.contextmanager
-def _last_call(name: str, into: dict):
-    """Inside the block, keep a copy of the operands of the last call of
-    ``kernels.ops.<name>`` in ``into[name]``; the call itself goes on to
-    the wrapper as before and launches (and counts) as it would."""
+def _last_call(name: str, into: dict, module=None):
+    """Inside the block, keep a copy of the positional operands of the last
+    call of ``module.<name>`` (default: ``kernels.ops``) in ``into[name]``;
+    the call itself goes on as before and launches (and counts) as it
+    would."""
     import torch
 
     from repro_torch.kernels import ops
 
-    real = getattr(ops, name)
+    module = ops if module is None else module
+    real = getattr(module, name)
 
-    def spy(*args):
+    def spy(*args, **kwargs):
         into[name] = tuple(a.detach().clone() if torch.is_tensor(a) else a
                            for a in args)
-        return real(*args)
+        return real(*args, **kwargs)
 
-    setattr(ops, name, spy)
+    setattr(module, name, spy)
     try:
         yield
     finally:
-        setattr(ops, name, real)
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def _probe_pinned(index_search, lists):
+    """Inside the block, ``index_search.probe`` returns ``lists`` (b, p)
+    and each one's coarse score from the searched index, in place of that
+    index's own top-p: a search then scans exactly these lists."""
+    real = index_search.probe
+
+    def pinned(index, QR, nprobe):
+        assert lists.shape == (QR.shape[0], nprobe)
+        return lists, index_search.coarse_scores(index, QR).gather(1, lists)
+
+    index_search.probe = pinned
+    try:
+        yield
+    finally:
+        index_search.probe = real
 
 
 def _run_steps(step, state, batches, timer: _StepTimer):
@@ -1639,6 +1736,308 @@ def phase_train_kernels(ctx: dict) -> dict:
     return rows, errs
 
 
+# -- decode -----------------------------------------------------------------
+
+
+def _fit_codebooks(g, params, cache, cfg) -> None:
+    """Per layer, PQ.fit on the prompt's K·R and V·R (R from init) in
+    place of the init's random codebooks."""
+    import torch
+
+    from repro_torch import quant
+
+    kvq, hd = params["kvq"], cfg.head_dim
+    for layer in range(cfg.num_layers):
+        for x, rot, cb in ((cache.k, "rot_k", "cb_k"),
+                           (cache.v, "rot_v", "cb_v")):
+            X = x[layer].reshape(-1, hd).float() @ kvq[rot][layer].float()
+            pq, _ = quant.PQ.fit(g, X, cfg.kv_quant.pq_cfg, iters=FIT_ITERS)
+            with torch.no_grad():
+                kvq[cb][layer] = pq.codebooks.to(kvq[cb].dtype)
+
+
+def _tile_prompt_codes(cache, prompt_len: int, length: int):
+    """Fill positions prompt_len … length−1 of both code tensors by tiling
+    the prompt's own codes; return the cache with ``length`` set."""
+    import torch
+
+    for codes in (cache.k_codes, cache.v_codes):
+        for s0 in range(prompt_len, length, prompt_len):
+            n = min(prompt_len, length - s0)
+            codes[:, :, :, s0:s0 + n] = codes[:, :, :, :n]
+    return cache._replace(length=torch.full_like(cache.length, length))
+
+
+def _decode_layer_split(params, cache, cfg, token) -> dict:
+    """Median device milliseconds of each part of a layer's decode step
+    (``serve_decode``'s ``marks``, a CUDA event each), over every layer of
+    SPLIT_REPS steps at the cache's full length; "head" is the final norm
+    and logits, once a step. Each step writes the cache's last position
+    again."""
+    from repro_torch.models import transformer as tfm
+
+    last = cache._replace(length=cache.length - 1)
+    timer = _StepTimer()
+    for _ in range(SPLIT_REPS):
+        timer.start()
+        tfm.serve_decode(params, token, last, cfg, marks=timer)
+    return timer.split_ms()
+
+
+def phase_decode(smi: str) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch import configs, device
+    from repro_torch.core import kv_quant
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tfm
+
+    spec = configs.get(DECODE_ARCH)
+    cfg = spec.config_for_shape(DECODE_SHAPE)
+    dense_cfg = cfg._replace(kv_quant=None)
+    shape = spec.shapes[DECODE_SHAPE].params
+    S, B, L = shape["seq_len"], shape["global_batch"], cfg.num_layers
+    check(shape.get("pq_cache") and cfg.kv_quant is not None,
+          f"{DECODE_SHAPE} does not switch the PQ cache on")
+    peaks, counts, secs = {}, {}, {}
+
+    def part(name: str, before: dict) -> None:
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        counts[name] = _launch_delta(before)
+
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t_all = time.perf_counter()
+    g = device.generator(SEED + 4)
+    params = tfm.init_params(g, cfg)
+    prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, PROMPT_LEN))).to(params["embed"].device)
+    secs["init"] = time.perf_counter() - t_all
+    part("init", {})
+
+    with torch.no_grad():
+        # 1. the prompt through a dense cache: each layer's K and V
+        before = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        dense_logits, dcache = tfm.serve_prefill(params, prompt, dense_cfg)
+        torch.cuda.synchronize()
+        secs["prefill_dense"] = time.perf_counter() - t0
+        part("prefill_dense", before)
+        _expect("dense prefill", counts["prefill_dense"], {})
+
+        # 2. the codebooks, fitted per layer on the prompt's K·R and V·R
+        before = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        _fit_codebooks(g, params, dcache, cfg)
+        torch.cuda.synchronize()
+        secs["fit"] = time.perf_counter() - t0
+        del dcache
+        part("fit", before)
+        _expect("codebook fit", counts["fit"],
+                {"pq_assign": 2 * L * FIT_ITERS})
+
+        # 3. the PQ prefill into a cache of S positions, then the tiling
+        before = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        logits, cache = tfm.serve_prefill(params, prompt, cfg, max_len=S)
+        torch.cuda.synchronize()
+        secs["prefill"] = time.perf_counter() - t0
+        check(torch.equal(logits, dense_logits), "the PQ prefill's logits "
+              "differ from the dense prefill's (its attention is dense)")
+        cache = _tile_prompt_codes(cache, PROMPT_LEN, S - DECODE_TOKENS)
+        part("prefill", before)
+        _expect("PQ prefill", counts["prefill"], {"pq_assign": 2 * L})
+        cache_ptrs = [t.data_ptr() for t in cache[:2]]
+
+        # 4. greedy decode: the last token attends over all S positions
+        before = dict(ops.LAUNCHES)
+        tok = logits.argmax(-1)
+        host_ms, out_tokens, seen = [], [], {}
+        for i in range(DECODE_TOKENS):
+            with contextlib.ExitStack() as spies:
+                if i == DECODE_TOKENS - 1:   # the last layer's operands
+                    spies.enter_context(_last_call("adc_batch", seen))
+                    spies.enter_context(_last_call(
+                        "adc_decode_attention", seen, module=kv_quant))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = tfm.serve_decode(params, tok, cache, cfg)
+                torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            check(bool(torch.isfinite(logits).all()) and logits.shape
+                  == (B, cfg.vocab_size), f"decode step {i}: logits")
+            tok = logits.argmax(-1)
+            out_tokens.append(int(tok[0]))
+        part("decode", before)
+        _expect("decode", counts["decode"],
+                {"adc_batch": L * DECODE_TOKENS,
+                 "pq_assign": 2 * L * DECODE_TOKENS})
+        check(int(cache.length[0]) == S, f"cache length {cache.length}")
+        check([t.data_ptr() for t in cache[:2]] == cache_ptrs,
+              "decode did not write the cache in place")
+
+        # 5. compressed against dense attention, the last layer, every
+        # position
+        kvp, q, kc, vc, mask = seen["adc_decode_attention"]
+        check(bool(mask.all()), "the last token's mask is not all of S")
+        got = kv_quant.adc_decode_attention(kvp, q, kc, vc, mask)
+        khat, vhat = kv_quant.decode_k(kvp, kc), kv_quant.decode_v(kvp, vc)
+        want = layers.decode_attention(q.float(), khat, vhat,
+                                       torch.full((B,), S, device=q.device))
+        del khat, vhat
+        attn_err = float((got - want).abs().max())
+        attn_rel = attn_err / float(want.abs().max())
+        check(attn_rel <= ATTN_RTOL, f"compressed attention is {attn_rel} "
+              "(relative) from dense attention over the decoded cache")
+        del got, want
+        split = _decode_layer_split(params, cache, cfg, tok)
+        torch.cuda.synchronize()     # the check's peak; its launches are
+        peaks["attention_check"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()    # not the path's
+
+        # 6. the quantization's effect on logits, PQ against a dense cache,
+        # both fed the dense path's greedy tokens
+        before = dict(ops.LAUNCHES)
+        short = PROMPT_LEN + DECODE_TOKENS
+        lp, cp = tfm.serve_prefill(params, prompt, cfg, max_len=short)
+        ld, cd = tfm.serve_prefill(params, prompt, dense_cfg, max_len=short)
+        agree, gaps = [], []
+        for _ in range(DECODE_TOKENS):
+            tok = ld.argmax(-1)
+            lp, cp = tfm.serve_decode(params, tok, cp, cfg)
+            ld, cd = tfm.serve_decode(params, tok, cd, dense_cfg)
+            agree.append(bool((lp.argmax(-1) == ld.argmax(-1)).all()))
+            gaps.append(float((lp - ld).abs().max()))
+        del cp, cd
+        part("quant_effect", before)
+        _expect("PQ against dense", counts["quant_effect"],
+                {"adc_batch": L * DECODE_TOKENS,
+                 "pq_assign": 2 * L * (DECODE_TOKENS + 1)})
+
+    launches = {}
+    for c in counts.values():
+        for k, v in c.items():
+            launches[k] = launches.get(k, 0) + v
+    hd, D = cfg.head_dim, cfg.kv_quant.num_subspaces
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache[:2])
+    dense_bytes = 2 * L * B * cfg.num_kv_heads * S * hd * 2
+    emit("decode", config=cfg.name, shape=DECODE_SHAPE, layers=L,
+         d_model=cfg.d_model, heads=cfg.num_heads,
+         kv_heads=cfg.num_kv_heads, head_dim=hd, d_ff=cfg.d_ff,
+         vocab=cfg.vocab_size, kv_quant=cfg.kv_quant._asdict(),
+         dtype=str(cfg.dtype), batch=B, max_len=S,
+         num_params=tfm.num_params(cfg),
+         cuts=dict(prompt=PROMPT_LEN, prefill_of=S,
+                   codebooks=f"PQ.fit per layer on the prompt's K·R, V·R, "
+                             f"{FIT_ITERS} iterations",
+                   tiled=[PROMPT_LEN, S - DECODE_TOKENS - 1],
+                   decode_tokens=DECODE_TOKENS, weights="seeded init"),
+         tokens=out_tokens, step_host_ms=host_ms,
+         step_host_ms_median=statistics.median(host_ms),
+         layer_device_ms=split,
+         layer_device_ms_total=sum(v for k, v in split.items()
+                                   if k != "head"),
+         attention_vs_dense=dict(max_abs_err=attn_err, rel=attn_rel),
+         pq_vs_dense=dict(max_len=short, top1_agree=agree,
+                          max_logit_gap=gaps),
+         cache_bytes=cache_bytes, dense_bf16_cache_bytes=dense_bytes,
+         seconds=secs, launches=launches, launches_by_part=counts,
+         peak_memory_bytes=peaks, total_s=time.perf_counter() - t_all,
+         card=smi)
+    for name in DECODE_KERNELS:
+        check(launches.get(name, 0) > 0,
+              f"kernel {name} was not launched on the decode path")
+    lut, codes = seen["adc_batch"]
+    del params, cache, seen
+    return dict(launches=launches, main_launches=counts["decode"], lut=lut,
+                codes=codes)
+
+
+def phase_decode_kernels(ctx: dict) -> dict:
+    """adc_batch against its plain version on the decode's operands and on
+    other geometries, timed beside its bound and a library call."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    lut, codes = ctx["lut"].contiguous(), ctx["codes"]
+    dev = codes.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 5)
+
+    def random_case(groups, r, Dp, S):
+        return (torch.randn((groups, r, Dp, 256), generator=g, device=dev),
+                torch.randint(0, 256, (groups, S, Dp), generator=g,
+                              device=dev, dtype=torch.uint8))
+
+    cases = {"decode": (lut, codes),
+             "nemotron_r12_dp24": random_case(8, 12, 24, 65_537),
+             "dp16_r3_ragged": random_case(5, 3, 16, 100_003)}
+    errs = {}
+    for name, (lt, cd) in cases.items():
+        for dt, (lv, sc) in _lut_variants(lt).items():
+            got = ops.adc_batch(lv, cd, sc)
+            want = ref.adc_batch_ref(lv, cd, sc)
+            torch.cuda.synchronize()
+            if dt == "float32":
+                check(torch.equal(got, want), f"adc_batch {name} float32 is "
+                      "not bit-equal to its plain version")
+                errs[f"adc_batch/{name}/{dt}"] = 0.0
+            else:
+                err = float((got - want).abs().max())
+                rel = err / float(want.abs().max())
+                check(rel <= BATCH_RTOL, f"adc_batch {name} {dt}: relative "
+                      f"error {rel}")
+                errs[f"adc_batch/{name}/{dt}"] = err
+            del got, want
+    gq, r, Dp, K = lut.shape
+    S = codes.shape[1]
+    k_ms = graph_ms(lambda: ops.adc_batch(lut, codes), launches=20)
+    p_ms = graph_ms(lambda: ref.adc_batch_ref(lut, codes), launches=2)
+    # the library yardstick: one embedding_bag, each (group, row) a bag of
+    # its Dp entries of a (g·Dp·K, r) table, the group's offset g·Dp·K
+    # added to its codes; the int32 index tensor is made outside the call
+    offs = (torch.arange(gq, device=dev, dtype=torch.int32)[:, None, None]
+            * (Dp * K)
+            + torch.arange(Dp, device=dev, dtype=torch.int32) * K)
+    bag = (codes.int() + offs).reshape(gq * S, Dp)
+    table = lut.permute(0, 2, 3, 1).reshape(gq * Dp * K, r).contiguous()
+    lib = functools.partial(F.embedding_bag, bag, table, mode="sum")
+    want = ref.adc_batch_ref(lut, codes)
+    lib_err = float((lib().reshape(gq, S, r).permute(0, 2, 1) - want).abs()
+                    .max()) / float(want.abs().max())
+    check(lib_err <= BATCH_RTOL, f"library yardstick computes another "
+          f"function (relative error {lib_err})")
+    del want
+    lib_ms = graph_ms(lib, launches=5)
+    del bag, table, lib, offs
+    extra = {}
+    for dt in ("int8", "uint8"):
+        lv, sc = ops.quantize_luts(lut, dt)
+        extra[f"{dt}_ms"] = graph_ms(lambda: ops.adc_batch(lv, codes, sc),
+                                     launches=20)
+    lt, cd = cases["nemotron_r12_dp24"]
+    extra["nemotron_r12_dp24"] = dict(
+        shape=dict(g=lt.shape[0], r=lt.shape[1], Dp=lt.shape[2],
+                   S=cd.shape[1]),
+        ms=graph_ms(lambda: ops.adc_batch(lt, cd), launches=20))
+    nbytes = codes.numel() + gq * r * S * 4 + lut.numel() * 4
+    flops = gq * r * S * Dp
+    rows = {"adc_batch": dict(
+        shape=dict(g=gq, r=r, Dp=Dp, K=K, S=S), ms=k_ms, plain_ms=p_ms,
+        bytes=nbytes, flops=flops, **_bound(nbytes, flops),
+        library_ms=lib_ms,
+        max_abs_err=max(v for key, v in errs.items()))}
+    emit("decode_kernels", max_abs_err=errs, kernels=rows, extra=extra,
+         launches=ctx["launches"], card=torch.cuda.get_device_name(0))
+    return rows, errs
+
+
 def main() -> int:
     import torch
 
@@ -1662,7 +2061,14 @@ def main() -> int:
     rows.update(train_rows)
     errs.update(train_errs)
     launches.update({k: tctx["launches"][k] for k in NEW_KERNELS})
-    del tctx
+    del tctx                         # frees the two-tower model
+    torch.cuda.empty_cache()
+    dctx = phase_decode(smi)
+    decode_rows, decode_errs = phase_decode_kernels(dctx)
+    rows.update(decode_rows)
+    errs.update(decode_errs)
+    launches["adc_batch"] = dctx["main_launches"]["adc_batch"]
+    del dctx
     summary = []
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]

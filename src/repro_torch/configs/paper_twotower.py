@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.configs import base
 from repro_torch.core.index_layer import IndexLayerConfig
 from repro_torch.models.recsys import TwoTowerConfig
 
@@ -28,3 +29,10 @@ def make_smoke() -> TwoTowerConfig:
         index=IndexLayerConfig(dim=64, num_subspaces=8, num_codewords=32),
         dtype=torch.float32, param_dtype=torch.float32,
     )
+
+
+ARCH = base.ArchSpec(
+    arch_id="paper-twotower", family="recsys", make_config=make_config,
+    make_smoke=make_smoke, shapes=base.RECSYS_SHAPES,
+    notes="Paper §3.2 faithful config (512-dim, hinge 0.1, OPQ warm start).",
+)

@@ -6,7 +6,10 @@ numpy first (``np.asarray`` of each leaf) and hands the dict here; both
 packages then compute from the very same leaves. Storage dtypes are kept:
 codes uint8 (K ≤ 256), ids and offsets int32. Model and optimizer leaves
 are keyed by the JAX path keys (``item_table``, ``user0_w``, ``index/R``,
-``index/codebooks``; ``training.optimizer.path_key``).
+``index/codebooks``; ``training.optimizer.path_key``); the transformer's
+leaves come as the JAX package's nested dict (``layers/attn/wq``, ``kvq``).
+A bfloat16 leaf (numpy's ``ml_dtypes`` bfloat16, which torch cannot take
+directly) goes across through float32, which holds it exactly.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from repro_torch import rotations as rot_lib
 from repro_torch.core import index_layer as il
 from repro_torch.index.ivf import IVFPQIndex
 from repro_torch.models import recsys
+from repro_torch.models import transformer as tfm
 from repro_torch.rotations.gcd import GCDState
 from repro_torch.search import exact as search_exact
 from repro_torch.search import flat as search_flat
@@ -163,3 +167,58 @@ def opt_state_from_numpy(arrays: dict, cfg: opt_lib.OptimizerConfig, *,
         mu={k: _t(v, dev, np.float32) for k, v in arrays["mu"].items()},
         nu={k: _t(v, dev, np.float32) for k, v in arrays["nu"].items()},
         rot=rot, step=int(np.asarray(arrays["step"])))
+
+
+def _leaf(a, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """A numpy leaf of any float dtype (bfloat16 included) as ``dtype``."""
+    arr = np.asarray(a)
+    if arr.dtype.kind not in "biu":
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(
+        device=dev, dtype=dtype)
+
+
+def transformer_params_from_numpy(arrays: dict, cfg: tfm.TransformerConfig,
+                                  *, device=None) -> dict:
+    """The transformer's parameters on ``device`` from the JAX model's
+    nested leaves (``embed``, ``head``, ``layers/...``, ``ln_f`` and
+    ``kvq/{rot_k, rot_v, cb_k, cb_v}`` as the config has them), in the
+    config's param dtype. Keys and shapes are checked against
+    ``param_specs(cfg)``."""
+    dev = _device.resolve(device)
+
+    def carry(specs: dict, arrs: dict, path: str) -> dict:
+        missing = sorted(set(specs) - set(arrs))
+        extra = sorted(set(arrs) - set(specs))
+        if missing or extra:
+            raise KeyError(f"transformer_params_from_numpy{path}: missing "
+                           f"{missing}, unexpected {extra}")
+        out = {}
+        for k, spec in specs.items():
+            if isinstance(spec, dict):
+                out[k] = carry(spec, arrs[k], f"{path}/{k}")
+                continue
+            if np.shape(arrs[k]) != tuple(spec.shape):
+                raise ValueError(f"{path}/{k}: shape {np.shape(arrs[k])}, "
+                                 f"the config gives {tuple(spec.shape)}")
+            out[k] = _leaf(arrs[k], dev, spec.dtype or cfg.param_dtype)
+        return out
+
+    return carry(tfm.param_specs(cfg), arrays, "")
+
+
+def decode_cache_from_numpy(arrays: dict, *, device=None):
+    """A ``DecodeCache`` (keys ``k``, ``v``, ``length``) or a
+    ``PQDecodeCache`` (``k_codes``, ``v_codes``, ``length``) on ``device``
+    from a JAX cache's leaves. Codes stay uint8, lengths int32; dense
+    entries stay bfloat16 if they are, else float32."""
+    dev = _device.resolve(device)
+    length = _t(arrays["length"], dev, np.int32)
+    if "k_codes" in arrays:
+        return tfm.PQDecodeCache(
+            k_codes=_t(arrays["k_codes"], dev, np.uint8),
+            v_codes=_t(arrays["v_codes"], dev, np.uint8), length=length)
+    bf16 = np.asarray(arrays["k"]).dtype.name == "bfloat16"
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    return tfm.DecodeCache(k=_leaf(arrays["k"], dev, dtype),
+                           v=_leaf(arrays["v"], dev, dtype), length=length)

@@ -1,1 +1,2 @@
-"""Rotation primitives (port of ``repro/core``: givens, matching)."""
+"""Core primitives (port of ``repro/core``): Givens rotations, pair
+matching, the trainable index layer and the PQ-compressed KV cache."""

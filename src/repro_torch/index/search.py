@@ -3,7 +3,9 @@
 Per query batch (b, n):
 
   1. rotate:    QR = Q·R
-  2. probe:     coarse scores QR·Cᵀ, keep the top-``nprobe`` lists
+  2. probe:     coarse scores QR·Cᵀ, keep the top-``nprobe`` lists; the
+                product runs in chunks of PROBE_ROWS rows, so a query's
+                coarse scores do not depend on its batch's size
   3. LUT build: ``quantizer.adc_tables(QR)``, optionally int8/uint8 packed
   4. scan:      the probed list tiles scored by the ``ivf_adc`` kernel; the
                 coarse term ⟨q·R, c_l⟩ is added per (query, list) after it
@@ -28,6 +30,13 @@ import torch
 from repro_torch.index.ivf import IVFPQIndex
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+
+#: Rows of every coarse product. cuBLAS picks its kernel, and with it the
+#: order of the sums, by the shape of a product, so one product over a
+#: whole batch could give a query other coarse scores in a batch of 37 rows
+#: than in the Engine's padded bucket of 64, and rank a near tie the other
+#: way. Products of one fixed shape make each query's scores its own.
+PROBE_ROWS = 256
 
 NEG_INF = float("-inf")
 
@@ -81,12 +90,24 @@ def split_lut_pack(lut):
     return lut.contiguous(), None
 
 
+def coarse_scores(index: IVFPQIndex, QR: torch.Tensor) -> torch.Tensor:
+    """⟨q·R, c_l⟩ for every rotated query and list -> (b, L), in products
+    of PROBE_ROWS rows (the last one padded with zero rows)."""
+    b = QR.shape[0]
+    pad = -b % PROBE_ROWS
+    if pad:
+        QR = torch.cat([QR, QR.new_zeros((pad, QR.shape[1]))])
+    C = index.centroids.T
+    return torch.cat([QR[s:s + PROBE_ROWS] @ C
+                      for s in range(0, b + pad, PROBE_ROWS)])[:b]
+
+
 def probe(index: IVFPQIndex, QR: torch.Tensor,
           nprobe: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-``nprobe`` lists per rotated query -> ((b, p) int64 lists,
     (b, p) coarse scores). A stable descending sort sends ties to the lower
     list index, as ``lax.top_k`` does."""
-    coarse = QR @ index.centroids.T                               # (b, L)
+    coarse = coarse_scores(index, QR)                             # (b, L)
     vals, lists = torch.sort(coarse, dim=1, descending=True, stable=True)
     return lists[:, :nprobe], vals[:, :nprobe]
 
@@ -201,5 +222,5 @@ def flat_adc_prepared(index: IVFPQIndex, QR: torch.Tensor, lut
                         dtype=index.list_offsets.dtype)
     row_list = torch.searchsorted(index.list_offsets, rows, right=True) - 1
     row_list = torch.clamp(row_list, 0, index.num_lists - 1)
-    coarse = QR @ index.centroids.T                                # (b, L)
+    coarse = coarse_scores(index, QR)                              # (b, L)
     return res + coarse[:, row_list], index.ids

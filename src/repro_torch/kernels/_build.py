@@ -107,6 +107,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_embedding_bag.restype = i
     lib.repro_fused_lut.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.repro_fused_lut.restype = i
+    lib.repro_adc_batch.argtypes = [p, i, p, p, p, i, i, ll, i, i, i, i, i,
+                                    p]
+    lib.repro_adc_batch.restype = i
 
 
 def library() -> ctypes.CDLL:

@@ -1,13 +1,15 @@
-// ADC scans for Hopper (sm_90a): the probed-block IVF scan and the flat scan.
+// ADC scans for Hopper (sm_90a): the probed-block IVF scan, the flat scan
+// and the grouped KV-cache scan.
 //
-// Replaces two TPU kernels of the JAX package:
+// Replaces three TPU kernels of the JAX package:
 //   * repro/kernels/ivf_adc.py    ivf_adc     (probed CSR tiles, 4 bodies)
 //   * repro/kernels/adc_lookup.py adc_lookup  (flat scan, 4 bodies)
-// Both score uint8 PQ codes against per-query lookup tables:
+//   * repro/kernels/adc_batch.py  adc_batch   (grouped scan, 2 bodies)
+// All score uint8 PQ codes against lookup tables:
 //   score(q, row) = sum_d LUT[q, d, codes[row, d]]
 // with an optional int8/uint8 LUT plus a [scale, offset] sidecar per
-// (query, column), and an optional id column whose negative entries
-// (CSR holes, tombstones) score -inf.
+// (query, column). The two index scans take an optional id column whose
+// negative entries (CSR holes, tombstones) score -inf.
 //
 // What bounds it on an H100: bytes. Each scored row moves Dp code bytes,
 // a 4-byte id and a 4-byte output and does Dp shared-memory lookups and
@@ -28,6 +30,17 @@
 // block usually loads one table for many tiles. The flat scan gives each
 // block one query and a long run of rows, so a table load is spread over
 // thousands of rows. Rows of a masked scan with id < 0 skip the lookups.
+//
+// The grouped scan (KV-cache decode attention) has g groups, one per
+// (batch, kv-head) pair, each with its own S code rows and r tables (the
+// GQA repetition). A block takes one group, up to kMaxTables of its tables
+// (fewer when they would not fit in shared memory: r = 12, Dp = 24 is
+// 288 KiB) and a run of rows; each thread reads a code row once and scores
+// it against every staged table, so the codes cross the bus once per chunk
+// of tables, not once per table. Neighbouring threads write neighbouring s
+// of out[g, r, S]. At the long-context decode shape (g = 16, r = 1,
+// S = 524,288, Dp = 16) the codes are 134 MB a launch against a 16 KiB
+// table, so the floor is the code read.
 // Later work: more than one query per loaded code tile, TMA staging.
 
 #include <cuda_runtime.h>
@@ -38,14 +51,17 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kMaxTables = 8;  // tables of a group one block stages
+constexpr int kMaxBatchThreads = 1024;  // block size bound of the grouped scan
 
-// Stage query q's (Dp, K) table into shared memory as float32.
+// Stage `tables` consecutive (Dp, K) tables, from table q on, into shared
+// memory as float32.
 template <typename LutT>
 __device__ __forceinline__ void load_lut(float* lut_s, const LutT* lut,
                                          const float* scales, long long q,
-                                         int Dp, int K) {
+                                         int Dp, int K, int tables = 1) {
   const LutT* src = lut + q * Dp * K;
-  const int total = Dp * K;
+  const int total = tables * Dp * K;
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
     float v = static_cast<float>(src[i]);
     if constexpr (!std::is_same<LutT, float>::value) {
@@ -56,11 +72,16 @@ __device__ __forceinline__ void load_lut(float* lut_s, const LutT* lut,
   }
 }
 
-// Score one code row against the staged table, columns in ascending order.
-__device__ __forceinline__ float score_row(const float* lut_s,
-                                           const uint8_t* row, int Dp, int K,
-                                           bool vec16) {
-  float acc = 0.f;
+// Score one code row against `tables` staged tables (table t at
+// lut_s + t * Dp * K, t < RC), columns in ascending order, into acc[t].
+template <int RC>
+__device__ __forceinline__ void score_tables(float (&acc)[RC],
+                                             const float* lut_s,
+                                             const uint8_t* row, int Dp,
+                                             int K, bool vec16, int tables) {
+  const int stride = Dp * K;
+#pragma unroll
+  for (int t = 0; t < RC; ++t) acc[t] = 0.f;
   if (vec16) {
     const uint4* p = reinterpret_cast<const uint4*>(row);
     for (int c = 0; c < Dp / 16; ++c) {
@@ -70,17 +91,33 @@ __device__ __forceinline__ float score_row(const float* lut_s,
       for (int j = 0; j < 4; ++j) {
 #pragma unroll
         for (int b = 0; b < 4; ++b) {
-          const int d = c * 16 + j * 4 + b;
-          acc = __fadd_rn(acc, lut_s[d * K + ((words[j] >> (8 * b)) & 0xffu)]);
+          const int at = (c * 16 + j * 4 + b) * K +
+                         ((words[j] >> (8 * b)) & 0xffu);
+#pragma unroll
+          for (int t = 0; t < RC; ++t) {
+            if (t < tables) acc[t] = __fadd_rn(acc[t], lut_s[t * stride + at]);
+          }
         }
       }
     }
   } else {
     for (int d = 0; d < Dp; ++d) {
-      acc = __fadd_rn(acc, lut_s[d * K + __ldg(row + d)]);
+      const int at = d * K + __ldg(row + d);
+#pragma unroll
+      for (int t = 0; t < RC; ++t) {
+        if (t < tables) acc[t] = __fadd_rn(acc[t], lut_s[t * stride + at]);
+      }
     }
   }
-  return acc;
+}
+
+// Score one code row against the staged table, columns in ascending order.
+__device__ __forceinline__ float score_row(const float* lut_s,
+                                           const uint8_t* row, int Dp, int K,
+                                           bool vec16) {
+  float acc[1];
+  score_tables<1>(acc, lut_s, row, Dp, K, vec16, 1);
+  return acc[0];
 }
 
 template <bool MASK>
@@ -146,6 +183,37 @@ adc_lookup_kernel(const LutT* __restrict__ lut,
   }
 }
 
+// out[gi, j, s] for group gi = blockIdx.y / chunks, its tables
+// j in [j0, j0 + chunk) with j0 = (blockIdx.y % chunks) * chunk, and rows
+// s in [blockIdx.x * rows_per_block, +rows_per_block).
+template <typename LutT, int RC>
+__global__ void __launch_bounds__(kMaxBatchThreads)
+adc_batch_kernel(const LutT* __restrict__ lut,
+                 const float* __restrict__ scales,
+                 const uint8_t* __restrict__ codes, float* __restrict__ out,
+                 int r, long long S, int Dp, int K, int chunk,
+                 int rows_per_block, bool vec16) {
+  extern __shared__ float lut_s[];
+  const int chunks = (r + chunk - 1) / chunk;
+  const long long gi = blockIdx.y / chunks;
+  const int j0 = (blockIdx.y % chunks) * chunk;
+  const int tables = min(chunk, r - j0);
+  load_lut<LutT>(lut_s, lut, scales, gi * r + j0, Dp, K, tables);
+  __syncthreads();
+  const long long s0 = static_cast<long long>(blockIdx.x) * rows_per_block;
+  const long long s1 = min(S, s0 + rows_per_block);
+  float* o = out + (gi * r + j0) * S;
+  for (long long s = s0 + threadIdx.x; s < s1; s += blockDim.x) {
+    float acc[RC];
+    score_tables<RC>(acc, lut_s, codes + (gi * S + s) * Dp, Dp, K, vec16,
+                     tables);
+#pragma unroll
+    for (int t = 0; t < RC; ++t) {
+      if (t < tables) o[t * S + s] = acc[t];
+    }
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -198,6 +266,45 @@ cudaError_t launch_flat(const void* lut, const void* scales, const void* codes,
   return cudaGetLastError();
 }
 
+template <typename LutT, int RC>
+cudaError_t launch_batch(const void* lut, const void* scales,
+                         const void* codes, void* out, int g, int r,
+                         long long S, int Dp, int K, int chunk,
+                         int rows_per_block, int threads,
+                         cudaStream_t stream) {
+  const size_t smem = sizeof(float) * static_cast<size_t>(chunk) * Dp * K;
+  auto kernel = adc_batch_kernel<LutT, RC>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int chunks = (r + chunk - 1) / chunk;
+  const dim3 grid(static_cast<unsigned>((S + rows_per_block - 1) /
+                                        rows_per_block),
+                  static_cast<unsigned>(g * chunks));
+  kernel<<<grid, threads, smem, stream>>>(
+      static_cast<const LutT*>(lut), static_cast<const float*>(scales),
+      static_cast<const uint8_t*>(codes), static_cast<float*>(out), r, S, Dp,
+      K, chunk, rows_per_block, rows_vec16(codes, Dp));
+  return cudaGetLastError();
+}
+
+template <typename LutT>
+cudaError_t launch_batch_tables(const void* lut, const void* scales,
+                                const void* codes, void* out, int g, int r,
+                                long long S, int Dp, int K, int chunk,
+                                int rows_per_block, int threads,
+                                cudaStream_t stream) {
+  if (threads < 1 || threads > kMaxBatchThreads) return cudaErrorInvalidValue;
+#define REPRO_BATCH(RC)                                                   \
+  launch_batch<LutT, RC>(lut, scales, codes, out, g, r, S, Dp, K, chunk, \
+                         rows_per_block, threads, stream)
+  if (chunk <= 1) return REPRO_BATCH(1);
+  if (chunk <= 2) return REPRO_BATCH(2);
+  if (chunk <= 4) return REPRO_BATCH(4);
+  if (chunk <= kMaxTables) return REPRO_BATCH(kMaxTables);
+  return cudaErrorInvalidValue;
+#undef REPRO_BATCH
+}
+
 }  // namespace
 
 // lut_kind: 0 = float32, 1 = int8 (+ scales), 2 = uint8 (+ scales).
@@ -238,4 +345,27 @@ extern "C" int repro_adc_lookup(const void* lut, int lut_kind,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_FLAT
+}
+
+// out (g, r, S) float32; `chunk` tables of a group per block (at most
+// kMaxTables, and chunk * Dp * K floats must fit in shared memory), blocks
+// of `threads` threads (at most kMaxBatchThreads) over `rows_per_block`
+// rows (kernels/ops.py sizes both: more threads where one block fills an
+// SM's shared memory, shorter runs where the grid would be thin).
+extern "C" int repro_adc_batch(const void* lut, int lut_kind,
+                               const void* scales, const void* codes,
+                               void* out, int g, int r, long long S, int Dp,
+                               int K, int chunk, int rows_per_block,
+                               int threads, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_TABLES(T)                                                   \
+  launch_batch_tables<T>(lut, scales, codes, out, g, r, S, Dp, K, chunk, \
+                         rows_per_block, threads, st)
+  switch (lut_kind) {
+    case 0: return REPRO_TABLES(float);
+    case 1: return REPRO_TABLES(int8_t);
+    case 2: return REPRO_TABLES(uint8_t);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_TABLES
 }

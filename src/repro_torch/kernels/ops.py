@@ -34,14 +34,14 @@ from repro_torch.kernels.adc_common import (  # noqa: F401
 )
 
 __all__ = ["gcd_score", "givens_rotate", "apply_pair_rotations", "pq_assign",
-           "embedding_bag", "adc_lookup", "ivf_adc", "fused_lut",
+           "embedding_bag", "adc_lookup", "adc_batch", "ivf_adc", "fused_lut",
            "lut_column_map", "topk_merge",
            "quantize_luts", "dequantize_luts", "LUT_DTYPES", "LAUNCHES",
            "reset_launches"]
 
 #: Kernel launches per kernel in this process (see module docstring).
 LAUNCHES = {"ivf_adc": 0, "adc_lookup": 0, "gcd_score": 0, "givens_rotate": 0,
-            "pq_assign": 0, "embedding_bag": 0, "fused_lut": 0}
+            "pq_assign": 0, "embedding_bag": 0, "fused_lut": 0, "adc_batch": 0}
 
 _FLAT_ROWS = 4096        # rows per block of the flat scan
 _SMEM_LIMIT = 232_448    # shared memory one H100 block may use (bytes)
@@ -49,6 +49,9 @@ _LUT_KIND = {torch.float32: 0, torch.int8: 1, torch.uint8: 2}
 _ROTATE_ROWS = 8         # rows per block of the plane rotation
 _LUT_TILE = 32           # queries per block of the fused LUT build
 _LUT_THREADS = 256       # threads per block of it (kThreads in the source)
+_BATCH_ROWS = (8192, 1024)  # longest and shortest row run of a block of
+#                             the grouped scan
+_BATCH_TABLES = 8        # tables of a group per block (kMaxTables)
 
 
 def reset_launches() -> None:
@@ -335,6 +338,68 @@ def adc_lookup(lut: torch.Tensor, codes: torch.Tensor,
                 _ptr(out), b, N, Dp, K, _FLAT_ROWS, _stream(lut.device))
         _build.check(err, "adc_lookup")
         LAUNCHES["adc_lookup"] += 1
+    return out
+
+
+def _batch_blocks(groups: int, S: int, smem: int,
+                  device: torch.device) -> tuple[int, int]:
+    """Rows and threads per block of the grouped scan: 512 threads, or
+    1024 when a block's tables take more than half of an SM's shared
+    memory (one block is all the SM then holds); runs of 8192 rows,
+    halved down to 1024 while the grid would give an SM fewer than four
+    blocks. Found by timing 128–1024 threads and 1024–8192 rows on an H100
+    at the decode shape and Nemotron's KV geometry."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows, shortest = _BATCH_ROWS
+    while rows > shortest and groups * -(-S // rows) < 4 * sms:
+        rows //= 2
+    return rows, 1024 if 2 * smem > _SMEM_LIMIT else 512
+
+
+def adc_batch(lut: torch.Tensor, codes: torch.Tensor,
+              scales: torch.Tensor | None = None) -> torch.Tensor:
+    """Grouped ADC scores (g, r, Dp, K) × (g, S, Dp) -> (g, r, S) float32,
+    the KV-cache decode scorer (group = one (batch, kv-head) pair, r = the
+    GQA repetition). ``scales`` (g, r, Dp, 2): int8/uint8 LUT pack. The
+    uint8 codes go to the kernel as they are stored; no widened copy of the
+    cache is made."""
+    if not _on_card(lut, codes, scales):
+        return ref.adc_batch_ref(lut, codes, scales)
+    if lut.dtype not in _LUT_KIND:
+        raise TypeError(f"lut: dtype {lut.dtype}, kernel takes float32, "
+                        "int8 or uint8")
+    g, r, Dp, K = lut.shape
+    S = codes.shape[1]
+    _require(lut, "lut", lut.dtype, (g, r, Dp, K))
+    kind = _LUT_KIND[lut.dtype]
+    if (kind == 0) != (scales is None):
+        raise ValueError("scales go with an int8/uint8 lut, and only with it")
+    if scales is not None:
+        _require(scales, "scales", torch.float32, (g, r, Dp, 2))
+    _require(codes, "codes", torch.uint8, (g, S, Dp))
+    if K > 256:
+        raise ValueError(f"K={K}: uint8 codes address at most 256 codewords")
+    fit = min(_BATCH_TABLES, _SMEM_LIMIT // max(1, 4 * Dp * K))
+    if fit < 1:
+        raise ValueError(f"a (Dp={Dp}, K={K}) float32 table does not fit in "
+                         "one block's shared memory")
+    chunks = -(-r // fit) if r else 0
+    chunk = -(-r // chunks) if r else 1
+    if g * chunks > 65535:
+        raise ValueError(f"adc_batch: {g} groups × {chunks} table chunks "
+                         "exceed the grid's y limit")
+    if -(-S // _BATCH_ROWS[1]) > 2**31 - 1:
+        raise ValueError(f"adc_batch: S={S} exceeds the grid's x limit")
+    out = torch.empty((g, r, S), dtype=torch.float32, device=lut.device)
+    if g and r and S:
+        rows, threads = _batch_blocks(g * chunks, S, 4 * chunk * Dp * K,
+                                      lut.device)
+        with torch.cuda.device(lut.device):
+            err = _build.library().repro_adc_batch(
+                _ptr(lut), kind, _ptr(scales), _ptr(codes), _ptr(out), g, r,
+                S, Dp, K, chunk, rows, threads, _stream(lut.device))
+        _build.check(err, "adc_batch")
+        LAUNCHES["adc_batch"] += 1
     return out
 
 

@@ -120,6 +120,25 @@ def adc_lookup_ref(lut: torch.Tensor, codes: torch.Tensor,
     return out
 
 
+def adc_batch_ref(lut: torch.Tensor, codes: torch.Tensor,
+                  scales: torch.Tensor | None = None) -> torch.Tensor:
+    """Grouped ADC score sum (KV-cache scoring). lut (g, r, Dp, K),
+    codes (g, S, Dp) -> (g, r, S) float32 with
+    out[g, r, s] = Σ_d lut[g, r, d, codes[g, s, d]].
+
+    One code column at a time in ascending order, so the peak temporary is
+    one (g, r, S) slab. ``scales`` (g, r, Dp, 2): the lut is an int8/uint8
+    quantize_luts pack and is dequantized first."""
+    lut = _lut_f32(lut, scales)
+    g, r, Dp, _ = lut.shape
+    S = codes.shape[1]
+    out = torch.zeros((g, r, S), dtype=torch.float32, device=lut.device)
+    for d in range(Dp):
+        idx = codes[:, :, d].long()[:, None, :].expand(g, r, S)
+        out += torch.gather(lut[:, :, d, :], 2, idx)
+    return out
+
+
 def ivf_adc_ref(lut: torch.Tensor, codes: torch.Tensor,
                 block_idx: torch.Tensor, block_query: torch.Tensor, *,
                 block_size: int = 128, scales: torch.Tensor | None = None,

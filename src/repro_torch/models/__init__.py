@@ -1,2 +1,3 @@
 """Models (port of ``repro/models``): parameter specs, the embedding
-substrate and the two-tower retrieval model of the paper."""
+substrate, the two-tower retrieval model of the paper, and the serving half
+of the decoder-only LM (``layers``, ``transformer``)."""

@@ -1,7 +1,9 @@
 """Declarative parameter specs (port of ``repro/models/param.py``).
 
-A model declares its parameters as a dict of ``ParamSpec``; ``init_params``
-turns it into tensors. Random state is an explicit ``torch.Generator``: a
+A model declares its parameters as a dict of ``ParamSpec``, flat (the
+two-tower model) or nested (the transformer: ``layers/attn/wq`` with a
+leading layer axis); ``init_params`` turns it into a dict of the same
+shape holding tensors. Random state is an explicit ``torch.Generator``: a
 JAX key of the same seed gives other numbers, so tests carry the JAX
 leaves across with ``repro_torch.convert`` instead. The logical sharding
 axes are kept for the sharded slice (ROADMAP.md queue 1, slice 11) and are
@@ -42,12 +44,25 @@ def _init_one(generator: torch.Generator, spec: ParamSpec, default_dtype,
     return z.mul_(scale).to(dtype)
 
 
-def init_params(generator: torch.Generator, specs: dict[str, ParamSpec],
-                param_dtype=torch.float32, *, device=None
-                ) -> dict[str, torch.Tensor]:
-    """One tensor per spec, drawn in sorted name order (the JAX package's
-    tree order) on ``device`` (the card by default)."""
+def init_params(generator: torch.Generator, specs: dict,
+                param_dtype=torch.float32, *, device=None) -> dict:
+    """One tensor per spec of a (nested) dict, drawn in sorted key order at
+    every level (the JAX package's tree order) on ``device`` (the card by
+    default). An ``eye`` spec with a leading layer axis is the identity on
+    every layer."""
     dev = _device.resolve(device)
     _device.check_generator(generator, dev)
-    return {name: _init_one(generator, specs[name], param_dtype, dev)
-            for name in sorted(specs)}
+
+    def init(tree: dict) -> dict:
+        return {name: (init(tree[name]) if isinstance(tree[name], dict)
+                       else _init_one(generator, tree[name], param_dtype,
+                                      dev))
+                for name in sorted(tree)}
+
+    return init(specs)
+
+
+def count_params(specs: dict) -> int:
+    """Parameters in a (nested) dict of specs."""
+    return sum(count_params(s) if isinstance(s, dict) else math.prod(s.shape)
+               for s in specs.values())

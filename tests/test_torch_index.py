@@ -141,6 +141,28 @@ def test_nprobe_all_lists_equals_flat_adc(built):
                                atol=1e-4, rtol=0)
 
 
+def test_coarse_scores_do_not_depend_on_batch_size(built, monkeypatch):
+    """A query's coarse scores, and so its probe and answer, are the same in
+    a batch of any size: the product runs in chunks of PROBE_ROWS rows.
+    Here the chunk is 4 rows, so batches of 3, 7 and 16 rows take 1, 2 and
+    4 products, the last padded."""
+    _, tindex, _, Q = built
+    monkeypatch.setattr(tsearch, "PROBE_ROWS", 4)
+    QR = _t(Q) @ tindex.R
+    full = tsearch.coarse_scores(tindex, QR)
+    np.testing.assert_allclose(full.numpy(),
+                               (QR @ tindex.centroids.T).numpy(),
+                               rtol=1e-6, atol=1e-5)
+    for b in (3, 7, 16):
+        assert torch.equal(tsearch.coarse_scores(tindex, QR[:b]), full[:b])
+    ivf = search.make("ivf")
+    state = ivf.attach(tindex)
+    whole = ivf.search(state, _t(Q), k=10)
+    part = ivf.search(state, _t(Q[:7]), k=10)
+    assert torch.equal(part.ids, whole.ids[:7])
+    assert torch.equal(part.scores, whole.scores[:7])
+
+
 def _subspace_delta(jindex, seed: int):
     G = jax.random.normal(jax.random.PRNGKey(seed), (DIM, DIM))
     learner = jrot.make("subspace_gcd", sub=DIM // D)
