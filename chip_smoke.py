@@ -17,7 +17,8 @@ Phases, one JSON line each:
            the operands the main path gave it (the serve_p99 batch at
            nprobe 32, the flat-check batch, the subspace step's G and R),
            in every LUT type (float32, int8, uint8) with and without the id
-           mask, plus gcd_score at a ragged n = 200; pq_assign on the
+           mask, plus gcd_score at n = 48, 200 and 520 (both tile widths,
+           ragged edges; bit-antisymmetric, within 1e-5); pq_assign on the
            build's encode of all N rows (coarse VQ, then PQ on the
            residuals) with its float32-tie flips counted; givens_rotate on
            the refresh's R, centroids and codebook rows, bit-equal to the
@@ -59,11 +60,13 @@ Phases, one JSON line each:
   train_kernels
            givens_rotate, pq_assign and embedding_bag against their plain
            versions on the operands the train phase gave them, plus ragged
-           shapes (odd n with unpaired columns, the coarse-VQ shape, m not a
-           multiple of the tile, weights, padding and empty bags) and the
-           rotation's backward, timed like the others; adc_lookup on the
-           eval retrieval's own tables (Dp = 64) over the encoded corpus,
-           and gcd_score on the last GCD step's (G, R) at n = 512;
+           shapes (odd n with unpaired columns, the coarse-VQ shape with a
+           row of its own, m not a multiple of the tile, one row, sub = 16
+           and 17 on either side of pq_assign's two bodies, weights,
+           padding and empty bags) and the rotation's backward, timed like
+           the others; adc_lookup on the eval retrieval's own tables
+           (Dp = 64) over the encoded corpus, and gcd_score on the last GCD
+           step's (G, R) at n = 512 beside its torch.matmul yardstick;
   decode   PQ-compressed KV-cache decode of olmo-1b at the full width of
            configs.get("olmo-1b").config_for_shape("long_500k") (16
            layers, d_model 2048, 16 heads of 128, KVQuantConfig(128, 16,
@@ -91,10 +94,16 @@ Phases, one JSON line each:
            int8/uint8 packs), on Nemotron's KV geometry (r = 12, Dp = 24,
            tables staged in two chunks), on Dp = 16 with r = 3 and S not a
            multiple of a block's rows, timed beside its plain version, its
-           bound and one F.embedding_bag over per-group offsets.
+           bound and one F.embedding_bag over per-group offsets; pq_assign
+           on the last token's last encode (16 rows), timed.
 Every check raises on failure, so the script exits non-zero with the error;
 it also exits non-zero without a CUDA device. The last three lines are the
-nvidia-smi line, the per-kernel JSON summary and the device JSON.
+nvidia-smi line, the per-kernel JSON summary and the device JSON. A
+kernel's launches there are those of the four paths' own calls, summed,
+with the split by path: serving's learn, build, serve and refresh; the
+Engine's attach, requests and refreshes (with the learner steps that give
+their deltas); train's parts; decode's prefill and greedy tokens. The
+checks that run beside them in a phase's window are left out.
 """
 from __future__ import annotations
 
@@ -123,6 +132,28 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM float32, outside tensor cores
 ATOL, RTOL = 1e-4, 1e-5            # scans: Dp float32 sums
 GCD_ATOL = 1e-5
+GCD_RAGGED = (48, 200, 520)        # gcd_score beside the path's n = 256
+#: pq_assign's shapes (m, D, K, sub): the paths' own (the joint step, the
+#: OPQ sample, the serving build's residuals and coarse quantizer, a decode
+#: step, one row, a ragged m and K) and the edges of the kernel's bodies
+#: (sub = 16 | 17: resident | tiled; 3036 | 3040: rows kept | streamed;
+#: 3041: streamed by 4-byte copies). train_kernels holds the kernel to its
+#: plain version on each, on the train path's own operands where it has
+#: them; kernel_bench.py times every entry on ``assign_operands``.
+ASSIGN_SHAPES = {
+    "joint_step": (16_384, 64, 256, 8),
+    "opq_sample": (65_536, 64, 256, 8),
+    "serve_residuals": (65_536, 32, 256, 8),
+    "coarse_vq": (100_003, 1, 1024, 256),
+    "decode": (16, 16, 256, 8),
+    "one_row": (1, 64, 256, 8),
+    "ragged_m_K": (1001, 64, 200, 8),
+    "sub16": (4096, 2, 256, 16),
+    "sub17": (4096, 1, 200, 17),
+    "sub3036": (300, 1, 200, 3036),
+    "sub3040": (300, 1, 200, 3040),
+    "sub3041": (300, 1, 200, 3041),
+}
 MISMATCH_LIMIT = 1e-3              # about 1e-4 seen on an H100 at N = 1M
 TIE_GAP = 1e-5                     # a code flip this close is a float32 tie
 SOURCES = {  # kernel: (CUDA source, the TPU kernel it replaces)
@@ -149,7 +180,6 @@ SERVE_KERNELS = ("ivf_adc", "adc_lookup", "gcd_score", "pq_assign",
                  "givens_rotate")
 TRAIN_KERNELS = ("gcd_score", "givens_rotate", "pq_assign", "embedding_bag",
                  "adc_lookup")
-NEW_KERNELS = ("givens_rotate", "pq_assign", "embedding_bag")
 
 # engine phase: the Engine over a fused-refresh IVF state on main's index
 ENGINE_REQUESTS = 48
@@ -389,17 +419,19 @@ def phase_main(smi: str) -> dict:
     t_data = time.perf_counter() - t_all
 
     # learn R: GCD-G steps on the PQ distortion gradient, PQ refit between
+    own = {}     # the launches of the path's own calls, without the checks
     t0 = time.perf_counter()
     learner = rotations.make("gcd_greedy")
     gstate = learner.init(DIM)
     trace = []
-    for _ in range(GCD_STEPS):
-        pq, _ = PQ.fit(g, sample @ gstate.R, PQConfig(D, K), iters=4)
-        Rp = gstate.R.clone().requires_grad_(True)
-        loss = pq.distortion(sample @ Rp)
-        (G,) = torch.autograd.grad(loss, Rp)
-        gstate, _ = learner.update(gstate, G, GCD_LR)
-        trace.append(loss.item())
+    with _counted(own):
+        for _ in range(GCD_STEPS):
+            pq, _ = PQ.fit(g, sample @ gstate.R, PQConfig(D, K), iters=4)
+            Rp = gstate.R.clone().requires_grad_(True)
+            loss = pq.distortion(sample @ Rp)
+            (G,) = torch.autograd.grad(loss, Rp)
+            gstate, _ = learner.update(gstate, G, GCD_LR)
+            trace.append(loss.item())
     R = gstate.R
     orth_learn = float(givens.orthogonality_error(R))
     check(all(v == v and v < float("inf") for v in trace),
@@ -414,8 +446,9 @@ def phase_main(smi: str) -> dict:
                               train_size=TRAIN)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state = searcher.build(g, X, R, cfg)
-    torch.cuda.synchronize()
+    with _counted(own):
+        state = searcher.build(g, X, R, cfg)
+        torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     st = searcher.stats(state)
     check(st["rows"] == N, "index lost rows")
@@ -428,9 +461,10 @@ def phase_main(smi: str) -> dict:
     truth = exact.search(exact_state, Q, k=10).ids
     flat = search.make("flat_adc")
     flat_truth = flat.search(flat.attach(state.index), Q, k=10).ids
-    searcher.search(state, Q[:BATCHES[-1]], k=10)        # warm-up
-    serve = [_serve(searcher, state, Q, truth, flat_truth, p, smi)
-             for p in NPROBES]
+    with _counted(own):
+        searcher.search(state, Q[:BATCHES[-1]], k=10)    # warm-up
+        serve = [_serve(searcher, state, Q, truth, flat_truth, p, smi)
+                 for p in NPROBES]
     recalls = [s["recall_at_10"] for s in serve]
     check(recalls[-1] > 0.0, "zero recall")
     check(recalls[-1] >= recalls[0] - 0.01, f"recall falls with nprobe: "
@@ -449,18 +483,20 @@ def phase_main(smi: str) -> dict:
     mismatch_before = maintain.refresh_mismatch(state.index, X)
     index_before = state.index
     R_before = index_before.R
-    Rp = R_before.clone().requires_grad_(True)
-    loss = state.index.quantizer.distortion(sample @ Rp)
-    (G_sub,) = torch.autograd.grad(loss, Rp)
-    sub_learner = rotations.make("subspace_gcd", sub=DIM // D)
-    _, delta = sub_learner.update(sub_learner.init_from(R_before), G_sub,
-                                  GCD_LR)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state = searcher.refresh(state, delta)
-    torch.cuda.synchronize()
-    t_refresh = time.perf_counter() - t0
-    after = _serve(searcher, state, Q, truth, flat_truth, SERVE_NPROBE, smi)
+    with _counted(own):
+        Rp = R_before.clone().requires_grad_(True)
+        loss = state.index.quantizer.distortion(sample @ Rp)
+        (G_sub,) = torch.autograd.grad(loss, Rp)
+        sub_learner = rotations.make("subspace_gcd", sub=DIM // D)
+        _, delta = sub_learner.update(sub_learner.init_from(R_before), G_sub,
+                                      GCD_LR)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = searcher.refresh(state, delta)
+        torch.cuda.synchronize()
+        t_refresh = time.perf_counter() - t0
+        after = _serve(searcher, state, Q, truth, flat_truth, SERVE_NPROBE,
+                       smi)
     mismatch = maintain.refresh_mismatch(state.index, X)
     flips = _code_flips(state.index, X)
     orth = float(givens.orthogonality_error(state.index.R))
@@ -476,7 +512,7 @@ def phase_main(smi: str) -> dict:
          refresh_s=t_refresh, after_refresh=after,
          refresh_mismatch_before=mismatch_before, refresh_mismatch=mismatch,
          refresh_code_flips=flips, theta_max=float(delta.theta.abs().max()),
-         orthogonality_error=orth, launches=launches,
+         orthogonality_error=orth, launches=launches, path_launches=own,
          peak_memory_bytes=peak, total_s=time.perf_counter() - t_all,
          card=smi, exact_truth="repro_torch search backend exact")
     check(mismatch_before == 0.0,
@@ -490,7 +526,8 @@ def phase_main(smi: str) -> dict:
     for name in SERVE_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the main path")
-    return dict(launches=launches, index=state.index, Q=Q, G=G_sub,
+    return dict(launches=launches, path_launches=own, index=state.index,
+                Q=Q, G=G_sub,
                 R=R_before.contiguous(), X=X, index_before=index_before,
                 delta=delta, peak_memory_bytes=peak, exact=exact_state,
                 truth=truth, after_recall=after["recall_at_10"])
@@ -649,15 +686,16 @@ def phase_kernels(ctx: dict) -> dict:
         plain_ms=p_ms, bytes=nbytes, flops=flops, **_bound(nbytes, flops),
         library_ms=lib_ms)
 
-    # gcd_score: the subspace step's (G, R), and a ragged n
+    # gcd_score: the subspace step's (G, R), and ragged n on both tile
+    # widths (48: 16-wide, a grid of six pairs; 200; 520: 32-wide)
     dev = codes.device
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 1)
-    n200 = 200
-    pairs = {DIM: (ctx["G"], ctx["R"]),
-             n200: (torch.randn((n200, n200), generator=g, device=dev),
-                    torch.linalg.qr(torch.randn((n200, n200), generator=g,
-                                                device=dev))[0])}
+    pairs = {DIM: (ctx["G"], ctx["R"])}
+    for nr in GCD_RAGGED:
+        pairs[nr] = (torch.randn((nr, nr), generator=g, device=dev),
+                     torch.linalg.qr(torch.randn((nr, nr), generator=g,
+                                                 device=dev))[0])
     for n, (G, R) in pairs.items():
         G, R = G.contiguous(), R.contiguous()
         got = ops.gcd_score(G, R)
@@ -878,8 +916,11 @@ def phase_engine(ctx: dict, smi: str):
     # the path: counts from 0 here, read after the stream and its checks
     ops.reset_launches()
     expect = {"fused_lut": 0, "ivf_adc": 0}
+    own = {}     # the Engine's own: attach, requests, refreshes and the
+    #              learner steps that give them their deltas
     ivf, flat = search.make("ivf"), search.make("flat_adc")
-    state = ivf.attach(index, nprobe=SERVE_NPROBE, fused_refresh=True)
+    with _counted(own):
+        state = ivf.attach(index, nprobe=SERVE_NPROBE, fused_refresh=True)
     state0 = state
     fstate = flat.attach(index, fused_refresh=True)
     # nprobe = L through the fused tables equals the fused flat scan
@@ -902,19 +943,23 @@ def phase_engine(ctx: dict, smi: str):
     direct = dict(equal=0, within_rows=0, within_ids_equal=0)
     for r, rows in enumerate(stream):
         if r == within_at:
-            d = _gcd_delta(rotations.make("subspace_gcd", sub=DIM // D),
-                           engine.state.rot, sample, index.quantizer)
+            with _counted(own):
+                d = _gcd_delta(rotations.make("subspace_gcd", sub=DIM // D),
+                               engine.state.rot, sample, index.quantizer)
             before = engine.stats()
-            engine.refresh(d)
+            with _counted(own):
+                engine.refresh(d)
             deltas.append(d)
             refreshes["within"] = dict(
                 invariant=ivf.luts_refresh_invariant(state, d),
                 theta_max=float(d.theta.abs().max()))
         if r == cross_at:
-            d = _gcd_delta(rotations.make("gcd_greedy"), engine.state.rot,
-                           sample, index.quantizer)
+            with _counted(own):
+                d = _gcd_delta(rotations.make("gcd_greedy"),
+                               engine.state.rot, sample, index.quantizer)
             mid = engine.stats()
-            engine.refresh(d)
+            with _counted(own):
+                engine.refresh(d)
             deltas.append(d)
             after = engine.stats()
             refreshes["cross"] = dict(
@@ -924,7 +969,8 @@ def phase_engine(ctx: dict, smi: str):
                 - mid["lut_invalidations"],
                 epoch=after["lut_epoch"] - mid["lut_epoch"])
         qb = pool[torch.from_numpy(rows).to(X.device)]
-        got = engine.search(qb)
+        with _counted(own):
+            got = engine.search(qb)
         expect["ivf_adc"] += 1
         expect["fused_lut"] += int(cache[r][2])
         want = ivf.search(engine.state, qb, k=10)
@@ -988,7 +1034,8 @@ def phase_engine(ctx: dict, smi: str):
     direct8 = dict(rows=0, ids_equal=0, max_diff_over_step=0.0)
     for r, rows in enumerate(stream):
         qb = pool[torch.from_numpy(rows).to(X.device)]
-        got = engine8.search(qb)
+        with _counted(own):
+            got = engine8.search(qb)
         QRb = ivf.rotate_queries(engine8.state, qb)
         lut8 = ivf.luts(engine8.state, QRb)
         want = ivf.search_prepared(engine8.state, QRb, lut8, k=10)
@@ -1068,6 +1115,12 @@ def phase_engine(ctx: dict, smi: str):
         if launches[name] != n:
             fails.append(f"{name} launched {launches[name]} times, the path "
                          f"implies {n}")
+    # of which the Engine's own: one scan a request, a table build a miss
+    own_expect = dict(ivf_adc=2 * len(stream), fused_lut=sum(
+        int(c[2]) for c in cache) + sum(int(c[2]) for c in cache8))
+    if {k: own.get(k, 0) for k in own_expect} != own_expect:
+        fails.append(f"the Engine's own launches {own}, its requests imply "
+                     f"{own_expect}")
     t_path = time.perf_counter() - t_all
 
     # fused_lut against its plain version on the path's operands
@@ -1153,11 +1206,12 @@ def phase_engine(ctx: dict, smi: str):
                     max_tie_gap=tie_gap, search_s=t_exact,
                     stream_search_s=t_stream,
                     stream_build_s=t_stream_build),
-         launches=launches, expected_launches=expect, fused_lut=row,
+         launches=launches, expected_launches=expect, path_launches=own,
+         fused_lut=row,
          path_s=t_path, total_s=time.perf_counter() - t_all, card=smi,
          fails=fails)
     check(not fails, "; ".join(fails))
-    return {"fused_lut": row}, errs, launches
+    return {"fused_lut": row}, errs, own
 
 
 # -- train ------------------------------------------------------------------
@@ -1262,6 +1316,18 @@ def _launch_delta(before: dict) -> dict:
 
     return {k: v - before.get(k, 0) for k, v in ops.LAUNCHES.items()
             if v != before.get(k, 0)}
+
+
+@contextlib.contextmanager
+def _counted(into: dict):
+    """Add the launches made inside the block to ``into``: a path's own
+    calls, apart from the checks that run beside them in its window."""
+    from repro_torch.kernels import ops
+
+    before = dict(ops.LAUNCHES)
+    yield
+    for k, v in _launch_delta(before).items():
+        into[k] = into.get(k, 0) + v
 
 
 def _expect(what: str, got: dict, want: dict) -> None:
@@ -1491,6 +1557,19 @@ def _joint_loss(p, h, pos, cfg):
 # -- train kernels -----------------------------------------------------------
 
 
+def assign_operands(g, m: int, D: int, K: int, sub: int):
+    """Seeded pq_assign operands: X (m, D·sub) of SIFT-like rows, and K
+    rows of it as the codebooks (D, K, sub), as k-means starts."""
+    import torch
+
+    from repro_torch.data import synthetic
+
+    X = synthetic.sift_like(g, max(m, K), D * sub)
+    pick = torch.randperm(X.shape[0], generator=g, device=X.device)[:K]
+    C = X[pick].reshape(K, D, sub).transpose(0, 1).contiguous()
+    return X[:m].contiguous(), C
+
+
 def _assign_flips(X, C, got, want) -> dict:
     """pq_assign codes against the plain version's: every differing
     (row, subspace) must be a float32 tie, the two choices' plain scores
@@ -1546,7 +1625,6 @@ def phase_train_kernels(ctx: dict) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.data import synthetic
     from repro_torch.kernels import ops, ref
 
     dev = ctx["R"].device
@@ -1611,19 +1689,24 @@ def phase_train_kernels(ctx: dict) -> dict:
         flops=flops, **_bound(nbytes, flops), library_ms=lib_ms)
     del Xb, Xd, dY, a, b
 
-    # pq_assign: a joint step's XR, the OPQ sample's XR, the coarse-VQ shape
-    # (K = 1024, sub = 256) and an m that is not a multiple of the tile
+    # pq_assign: a joint step's XR, the OPQ sample's XR, an m and a K that
+    # are not multiples of a tile, one row; the coarse-VQ shape and the
+    # bodies' edges on seeded operands (ASSIGN_SHAPES)
     C = ctx["codebooks"].contiguous()
-    Xc = synthetic.sift_like(g, 100_003, 256)
     assign_cases = {
         "joint_step": (ctx["assign_X"], C),
         "opq_sample": (ctx["opq_X"].contiguous(), C),
-        "coarse_vq": (Xc, Xc[:1024][None].contiguous()),
-        "ragged_m": (ctx["assign_X"][:1001].contiguous(),
-                     C[:, :200].contiguous()),
+        "ragged_m_K": (ctx["assign_X"][:1001].contiguous(),
+                       C[:, :200].contiguous()),
+        "one_row": (ctx["assign_X"][:1].contiguous(), C),
     }
+    for name in ("coarse_vq", "sub16", "sub17", "sub3036", "sub3040",
+                 "sub3041"):
+        assign_cases[name] = assign_operands(g, *ASSIGN_SHAPES[name])
     flips = {}
     for name, (X, Cb) in assign_cases.items():
+        check((X.shape[0], *Cb.shape) == ASSIGN_SHAPES[name],
+              f"pq_assign {name}: shape {(X.shape[0], *Cb.shape)}")
         got = ops.pq_assign(X, Cb)
         want = ref.pq_assign_ref(X, Cb)
         torch.cuda.synchronize()
@@ -1635,14 +1718,29 @@ def phase_train_kernels(ctx: dict) -> dict:
     D, K, sub = C.shape
     k_ms = graph_ms(lambda: ops.pq_assign(X, C), launches=20)
     p_ms = graph_ms(lambda: ref.pq_assign_ref(X, C), launches=2)
-    extra["pq_assign"] = dict(flips=flips, ms_coarse_vq=graph_ms(
-        lambda: ops.pq_assign(Xc, assign_cases["coarse_vq"][1]), launches=5))
+    Xc, Cc = assign_cases["coarse_vq"]
+    c_ms = graph_ms(lambda: ops.pq_assign(Xc, Cc), launches=5)
+    extra["pq_assign"] = dict(flips=flips, ms_coarse_vq=c_ms)
+    for name, (X_, C_) in assign_cases.items():
+        if name not in ("coarse_vq", "joint_step"):
+            extra["pq_assign"][f"ms_{name}"] = graph_ms(
+                lambda: ops.pq_assign(X_, C_), launches=20)
     nbytes = mq * nq * 4 + D * K * sub * 4 + mq * D * 4
     flops = 2 * mq * nq * K
     rows["pq_assign"] = dict(
         shape=dict(m=mq, n=nq, D=D, K=K, sub=sub), ms=k_ms, plain_ms=p_ms,
         bytes=nbytes, flops=flops, **_bound(nbytes, flops), library_ms=None)
-    del Xc, assign_cases
+    # the coarse quantizer's shape, the tiled body, as a row of its own
+    mc, nc = Xc.shape
+    Dc, Kc, subc = Cc.shape
+    nbytes = mc * nc * 4 + Dc * Kc * subc * 4 + mc * Dc * 4
+    flops = 2 * mc * nc * Kc
+    rows["pq_assign_coarse_vq"] = dict(
+        shape=dict(m=mc, n=nc, D=Dc, K=Kc, sub=subc), ms=c_ms,
+        plain_ms=graph_ms(lambda: ref.pq_assign_ref(Xc, Cc), launches=2),
+        bytes=nbytes, flops=flops, **_bound(nbytes, flops), library_ms=None,
+        max_abs_err=flips["coarse_vq"]["max_abs_gap"])
+    del Xc, Cc, assign_cases
 
     # embedding_bag: the last joint batch's histories over the item table,
     # then weights, extra padding and empty bags
@@ -1725,12 +1823,21 @@ def phase_train_kernels(ctx: dict) -> dict:
     n = G.shape[0]
     errs[f"gcd_score/train_n={n}"] = compare(got, want, GCD_ATOL, 0.0)
     check(torch.equal(got, -got.T), f"gcd_score n={n} not antisymmetric")
-    extra["gcd_score"] = dict(n=n, ms=graph_ms(
-        lambda: ops.gcd_score(G, Rs), launches=100))
+    lhs = torch.cat([G, -Rs], dim=0).T.contiguous()          # (n, 2n)
+    rhs = torch.cat([Rs, G], dim=0).contiguous()             # (2n, n)
+    check(torch.allclose(torch.matmul(lhs, rhs), want, atol=GCD_ATOL),
+          "library yardstick computes another function")
+    flops, nbytes = 2 * n ** 3 + n * n, 3 * n * n * 4
+    extra["gcd_score"] = dict(
+        n=n, ms=graph_ms(lambda: ops.gcd_score(G, Rs), launches=100),
+        plain_ms=graph_ms(lambda: ref.gcd_score_ref(G, Rs), launches=100),
+        library_ms=graph_ms(lambda: torch.matmul(lhs, rhs), launches=100),
+        bytes=nbytes, flops=flops, **_bound(nbytes, flops))
 
     for name in rows:
-        rows[name]["max_abs_err"] = max(v for key, v in errs.items()
-                                        if key.startswith(name + "/"))
+        if "max_abs_err" not in rows[name]:
+            rows[name]["max_abs_err"] = max(v for key, v in errs.items()
+                                            if key.startswith(name + "/"))
     emit("train_kernels", max_abs_err=errs, kernels=rows, extra=extra,
          launches=ctx["launches"], card=torch.cuda.get_device_name(0))
     return rows, errs
@@ -1861,6 +1968,7 @@ def phase_decode(smi: str) -> dict:
             with contextlib.ExitStack() as spies:
                 if i == DECODE_TOKENS - 1:   # the last layer's operands
                     spies.enter_context(_last_call("adc_batch", seen))
+                    spies.enter_context(_last_call("pq_assign", seen))
                     spies.enter_context(_last_call(
                         "adc_decode_attention", seen, module=kv_quant))
                 torch.cuda.synchronize()
@@ -1952,9 +2060,14 @@ def phase_decode(smi: str) -> dict:
         check(launches.get(name, 0) > 0,
               f"kernel {name} was not launched on the decode path")
     lut, codes = seen["adc_batch"]
+    assign_X, assign_C = seen["pq_assign"]
     del params, cache, seen
-    return dict(launches=launches, main_launches=counts["decode"], lut=lut,
-                codes=codes)
+    # the path a user calls: serve_prefill, then serve_decode token by token
+    main_launches = {k: counts["prefill"].get(k, 0)
+                     + counts["decode"].get(k, 0)
+                     for k in set(counts["prefill"]) | set(counts["decode"])}
+    return dict(launches=launches, main_launches=main_launches, lut=lut,
+                codes=codes, assign_X=assign_X, assign_C=assign_C)
 
 
 def phase_decode_kernels(ctx: dict) -> dict:
@@ -2026,13 +2139,31 @@ def phase_decode_kernels(ctx: dict) -> dict:
         shape=dict(g=lt.shape[0], r=lt.shape[1], Dp=lt.shape[2],
                    S=cd.shape[1]),
         ms=graph_ms(lambda: ops.adc_batch(lt, cd), launches=20))
+    # pq_assign on the last decode token's last encode (the new values of
+    # every KV head of the last layer)
+    Xa, Ca = ctx["assign_X"], ctx["assign_C"]
+    got = ops.pq_assign(Xa, Ca)
+    want = ref.pq_assign_ref(Xa, Ca)
+    torch.cuda.synchronize()
+    flips = _assign_flips(Xa, Ca, got, want)
+    errs["pq_assign/decode"] = flips["max_abs_gap"]
+    ma, na = Xa.shape
+    Da, Ka, suba = Ca.shape
+    a_bytes = ma * na * 4 + Da * Ka * suba * 4 + ma * Da * 4
+    a_flops = 2 * ma * na * Ka
+    extra["pq_assign"] = dict(
+        shape=dict(m=ma, n=na, D=Da, K=Ka, sub=suba), flips=flips,
+        ms=graph_ms(lambda: ops.pq_assign(Xa, Ca), launches=100),
+        plain_ms=graph_ms(lambda: ref.pq_assign_ref(Xa, Ca), launches=100),
+        bytes=a_bytes, flops=a_flops, **_bound(a_bytes, a_flops))
     nbytes = codes.numel() + gq * r * S * 4 + lut.numel() * 4
     flops = gq * r * S * Dp
     rows = {"adc_batch": dict(
         shape=dict(g=gq, r=r, Dp=Dp, K=K, S=S), ms=k_ms, plain_ms=p_ms,
         bytes=nbytes, flops=flops, **_bound(nbytes, flops),
         library_ms=lib_ms,
-        max_abs_err=max(v for key, v in errs.items()))}
+        max_abs_err=max(v for key, v in errs.items()
+                        if key.startswith("adc_batch/")))}
     emit("decode_kernels", max_abs_err=errs, kernels=rows, extra=extra,
          launches=ctx["launches"], card=torch.cuda.get_device_name(0))
     return rows, errs
@@ -2049,32 +2180,33 @@ def main() -> int:
     smi = phase_env()
     ctx = phase_main(smi)
     rows, errs = phase_kernels(ctx)
-    launches = {k: ctx["launches"][k] for k in SOURCES}
-    engine_rows, engine_errs, engine_launches = phase_engine(ctx, smi)
+    paths = {"serving": ctx["path_launches"]}
+    engine_rows, engine_errs, paths["engine"] = phase_engine(ctx, smi)
     rows.update(engine_rows)
     errs.update(engine_errs)
-    launches["fused_lut"] = engine_launches["fused_lut"]
     del ctx                          # frees the 1M-row index
     torch.cuda.empty_cache()
     tctx = phase_train(smi)
     train_rows, train_errs = phase_train_kernels(tctx)
     rows.update(train_rows)
     errs.update(train_errs)
-    launches.update({k: tctx["launches"][k] for k in NEW_KERNELS})
+    paths["train"] = tctx["launches"]
     del tctx                         # frees the two-tower model
     torch.cuda.empty_cache()
     dctx = phase_decode(smi)
     decode_rows, decode_errs = phase_decode_kernels(dctx)
     rows.update(decode_rows)
     errs.update(decode_errs)
-    launches["adc_batch"] = dctx["main_launches"]["adc_batch"]
+    paths["decode"] = dctx["main_launches"]
     del dctx
     summary = []
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]
+        by_path = {p: c.get(name, 0) for p, c in paths.items()
+                   if c.get(name, 0)}
         summary.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches[name],
+            launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=max(v for key, v in errs.items()
                             if key.startswith(name + "/")),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

@@ -23,6 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("adc_scan.cu", "gcd_score.cu", "givens_rotate.cu", "pq_assign.cu",
            "embedding_bag.cu", "fused_lut.cu")
+HEADERS = ("cp_async.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "libreprokernels.so"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
@@ -31,7 +32,7 @@ CUDA_ROOTS = ("/usr/local/cuda",)   # the toolkit's default install prefix
 
 _lib: ctypes.CDLL | None = None
 #: What the last build in this process did: seconds and the compiler's
-#: resource report (registers, shared memory, spills) per kernel.
+#: resource report (entry function, registers, spills) per kernel.
 build_info: dict = {}
 
 
@@ -52,7 +53,7 @@ def nvcc_path() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(FLAGS).encode())
@@ -88,7 +89,8 @@ def _compile(digest: str) -> None:
     build_info.update(seconds=time.perf_counter() - t0, built=True,
                       ptxas=[ln.strip() for log in logs
                              for ln in log.splitlines()
-                             if "registers" in ln or "spill" in ln])
+                             if "registers" in ln or "spill" in ln
+                             or "entry function" in ln])
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -97,11 +99,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_ivf_adc.restype = i
     lib.repro_adc_lookup.argtypes = [p, i, p, p, p, p, i, ll, i, i, i, p]
     lib.repro_adc_lookup.restype = i
-    lib.repro_gcd_score.argtypes = [p, p, p, i, p]
+    lib.repro_gcd_score.argtypes = [p, p, p, i, i, p]
     lib.repro_gcd_score.restype = i
     lib.repro_givens_rotate.argtypes = [p, p, p, p, p, p, ll, i, i, i, p]
     lib.repro_givens_rotate.restype = i
-    lib.repro_pq_assign.argtypes = [p, p, p, ll, i, i, i, i, p]
+    lib.repro_pq_assign.argtypes = [p, p, p, ll, i, i, i, i, i, i, i, i, i,
+                                     p]
     lib.repro_pq_assign.restype = i
     lib.repro_embedding_bag.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.repro_embedding_bag.restype = i

@@ -33,7 +33,8 @@ from repro_torch.kernels.adc_common import (  # noqa: F401
     quantize_luts,
 )
 
-__all__ = ["gcd_score", "givens_rotate", "apply_pair_rotations", "pq_assign",
+__all__ = ["gcd_score", "gcd_score_tile", "givens_rotate",
+           "apply_pair_rotations", "pq_assign", "pq_assign_plan",
            "embedding_bag", "adc_lookup", "adc_batch", "ivf_adc", "fused_lut",
            "lut_column_map", "topk_merge",
            "quantize_luts", "dequantize_luts", "LUT_DTYPES", "LAUNCHES",
@@ -52,6 +53,13 @@ _LUT_THREADS = 256       # threads per block of it (kThreads in the source)
 _BATCH_ROWS = (8192, 1024)  # longest and shortest row run of a block of
 #                             the grouped scan
 _BATCH_TABLES = 8        # tables of a group per block (kMaxTables)
+_GCD_TILES = (16, 32)    # gcd_score tile widths, narrow and wide
+_GCD_WIDE = 256          # the widest n that takes the narrow tiles
+_ASSIGN_RESIDENT_SUB = 16   # widest subvector of the resident pq_assign body
+_ASSIGN_THREADS = 256    # threads per block of either pq_assign body
+_ASSIGN_BODY = {"resident": 0, "tiled": 1, "streamed": 2}
+_ASSIGN_TILE_CODES = 128  # codewords per tile of the tiled body (kTileCodes)
+_ASSIGN_LDC = 36         # padded 32-column slab row of it (kLdc)
 
 
 def reset_launches() -> None:
@@ -114,6 +122,13 @@ def _check_scan_operands(lut, scales, codes, ids, rows: int):
     return b, Dp, K, kind
 
 
+def gcd_score_tile(n: int) -> int:
+    """Tile width of the gcd_score kernel at n: 16 up to n = 256 and 32
+    above, so n = 256 and n = 512 both give 136 tile pairs I ≤ J (one block
+    each) for the card's 132 SMs. The source owns the rest of the launch."""
+    return _GCD_TILES[0] if n <= _GCD_WIDE else _GCD_TILES[1]
+
+
 def gcd_score(G: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     """A = GᵀR − RᵀG (float32, exactly antisymmetric on the card)."""
     if not _on_card(G, R):
@@ -125,7 +140,8 @@ def gcd_score(G: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     if n:
         with torch.cuda.device(R.device):
             err = _build.library().repro_gcd_score(
-                _ptr(G), _ptr(R), _ptr(out), n, _stream(R.device))
+                _ptr(G), _ptr(R), _ptr(out), n, gcd_score_tile(n),
+                _stream(R.device))
         _build.check(err, "gcd_score")
         LAUNCHES["gcd_score"] += 1
     return out
@@ -225,10 +241,55 @@ def apply_pair_rotations(X: torch.Tensor, pi: torch.Tensor, pj: torch.Tensor,
     return Y.reshape(X.shape)
 
 
+def pq_assign_plan(m: int, D: int, K: int, sub: int, sms: int) -> dict:
+    """Launch plan of the pq_assign kernel for X (m, D·sub) × codebooks
+    (D, K, sub) on a card with ``sms`` SMs; every block has 256 threads.
+
+    ``resident`` (sub ≤ 16, the codebook and its norms fit in shared
+    memory): 8 rows a thread; while the grid would give the card fewer
+    than two blocks per SM, rows per thread halve down to 1, then each row
+    gets 2, 4, … up to 32 lanes (``split``) that share its codewords (a
+    decode step's 16 rows: 32 blocks of 8 rows, each row's 32 lanes taking
+    8 codewords). ``tiled`` otherwise: 16·rows_per_thread rows a block
+    kept in shared memory, the most rows (8, 4, 2, 1) whose tile fits;
+    ``streamed`` where not even 16 rows fit (sub above about 3,000): 128
+    rows a block, streamed a 32-column slab at a time. The grid is D × row
+    blocks, flattened. ``smem`` is the layout's shared memory, which the
+    kernel's entry checks against its own."""
+    sp = -(-sub // 4) * 4
+    ld = sp if (sp // 4) % 2 else sp + 4    # resident_ld: padded row
+    if sub <= _ASSIGN_RESIDENT_SUB and 4 * K * (ld + 1) <= _SMEM_LIMIT:
+        rpt, split = 8, 1
+
+        def blocks():
+            return D * -(-m // (_ASSIGN_THREADS // split * rpt))
+
+        while blocks() < 2 * sms and (rpt > 1 or 2 * split <= min(32, K)):
+            if rpt > 1:
+                rpt //= 2
+            else:
+                split *= 2
+        return dict(body="resident", threads=_ASSIGN_THREADS,
+                    rows_per_thread=rpt, split=split,
+                    rows=_ASSIGN_THREADS // split * rpt, blocks=blocks(),
+                    smem=4 * K * (ld + 1))
+    ring = 2 * _ASSIGN_TILE_CODES * _ASSIGN_LDC + _ASSIGN_THREADS
+    body, rm = "streamed", 8
+    for r in (8, 4, 2, 1):
+        if 4 * (16 * r * (sp + 4) + ring) <= _SMEM_LIMIT:
+            body, rm = "tiled", r
+            break
+    xs = 16 * rm * (sp + 4) if body == "tiled" else 2 * 16 * rm * _ASSIGN_LDC
+    return dict(body=body, threads=_ASSIGN_THREADS, rows_per_thread=rm,
+                split=16, rows=16 * rm, blocks=D * -(-m // (16 * rm)),
+                smem=4 * (xs + ring))
+
+
 def pq_assign(X: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     """Nearest-codeword assignment X (m, n) × codebooks (D, K, sub) -> (m, D)
-    int32, ties to the first k. On the card a float32 SIMT kernel; it sums
-    in another order than the plain einsum, so a near tie may flip."""
+    int32, ties to the first k. On the card a float32 SIMT kernel, one of
+    two bodies by ``pq_assign_plan``; it sums in another order than the
+    plain einsum, so a near tie may flip."""
     if not _on_card(X, codebooks):
         return ref.pq_assign_ref(X, codebooks)
     m, n = X.shape
@@ -237,14 +298,21 @@ def pq_assign(X: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"pq_assign: n={n} != D·sub = {D}·{sub}")
     _require(X, "X", torch.float32, (m, n))
     _require(codebooks, "codebooks", torch.float32, (D, K, sub))
-    if D > 65535:
-        raise ValueError(f"pq_assign: D={D} exceeds the grid's y limit")
     out = torch.empty((m, D), dtype=torch.int32, device=X.device)
     if m and D and K:
+        sms = torch.cuda.get_device_properties(
+            X.device).multi_processor_count
+        plan = pq_assign_plan(m, D, K, sub, sms)
+        if plan["blocks"] > 2**31 - 1:
+            raise ValueError(f"pq_assign: {plan['blocks']} blocks exceed the "
+                             "grid's x limit")
         with torch.cuda.device(X.device):
             err = _build.library().repro_pq_assign(
                 _ptr(X), _ptr(codebooks), _ptr(out), m, n, D, K, sub,
-                _stream(X.device))
+                _ASSIGN_BODY[plan["body"]], plan["threads"],
+                plan["rows_per_thread"],
+                plan["split"] if plan["body"] == "resident" else 1,
+                plan["smem"], _stream(X.device))
         _build.check(err, "pq_assign")
         LAUNCHES["pq_assign"] += 1
     return out

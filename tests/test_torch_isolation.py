@@ -1,7 +1,7 @@
-"""The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, and an entry point called without
-``device=`` on a machine without a GPU raises instead of carrying on on the
-CPU."""
+"""The port stands alone: ``src/repro_torch``, ``chip_smoke.py`` and
+``kernel_bench.py`` import neither JAX nor the JAX package, and an entry
+point called without ``device=`` on a machine without a GPU raises instead
+of carrying on on the CPU."""
 from __future__ import annotations
 
 import re
@@ -17,7 +17,7 @@ from repro_torch.kernels import _build
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "kernel_bench.py"]
 FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)\b(?!_))",
     re.MULTILINE)

@@ -59,7 +59,7 @@ def _pair(a):
     return (None, None) if a is None else (jnp.asarray(a), _t(a))
 
 
-@pytest.mark.parametrize("n", [32, 64, 256])
+@pytest.mark.parametrize("n", [32, 64, 200, 256, 512])
 def test_gcd_score_matches_jax_kernel(n):
     rng = np.random.RandomState(n)
     G = rng.randn(n, n).astype(np.float32)
@@ -221,10 +221,13 @@ def _dyadic(rng: np.random.RandomState, *shape) -> np.ndarray:
 
 
 @pytest.mark.parametrize("m,D,K,sub", [(40, 4, 16, 2), (33, 1, 64, 8),
-                                       (7, 8, 32, 8)])
+                                       (7, 8, 32, 8), (70, 2, 256, 16),
+                                       (5, 1, 200, 17), (130, 1, 1024, 256)])
 def test_pq_assign_ref_matches_jax(m, D, K, sub):
     """Equal codes, first index on ties, against the JAX oracle and its
-    Pallas kernel (interpret mode)."""
+    Pallas kernel (interpret mode); the last three shapes sit on either
+    side of the card kernel's two bodies (sub = 16 resident, sub = 17 and
+    the coarse quantizer's sub = 256 tiled)."""
     rng = np.random.RandomState(m + K)
     X = _dyadic(rng, m, D * sub)
     C = _dyadic(rng, D, K, sub)
@@ -236,6 +239,61 @@ def test_pq_assign_ref_matches_jax(m, D, K, sub):
                                   want)
     kern = np.asarray(jops.pq_assign(jnp.asarray(X), jnp.asarray(C)))
     np.testing.assert_array_equal(got.numpy(), kern)
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 200, 256, 512, 520])
+def test_gcd_score_tile_fills_the_card(n):
+    """16-wide tiles up to n = 256 and 32-wide above; the kernel launches a
+    block per tile pair I ≤ J, so the serving (256) and training (512)
+    widths both give the H100's 132 SMs 136 blocks. (Which pair a block
+    takes is decoded in the kernel; chip_smoke.py checks every entry of A
+    at n = 48, 200, 256, 512 and 520.)"""
+    tile = tops.gcd_score_tile(n)
+    assert tile == (16 if n <= 256 else 32)
+    tiles = -(-n // tile)
+    if n in (256, 512):
+        assert tiles * (tiles + 1) // 2 == 136
+
+
+# (m, D, K, sub) of every pq_assign call on the main path, with its body,
+# and whether it must fill the card (at least one block per SM)
+ASSIGN_PLAN_CASES = {
+    "joint_step": ((16384, 64, 256, 8), "resident", True),
+    "serve_residuals": ((65536, 32, 256, 8), "resident", True),
+    "decode": ((16, 16, 256, 8), "resident", False),
+    "prefill_kmeans": ((65536, 16, 256, 8), "resident", False),
+    "opq_sample": ((65536, 64, 256, 8), "resident", True),
+    "coarse_vq": ((65536, 1, 1024, 256), "tiled", True),
+    "one_row": ((1, 64, 256, 8), "resident", False),
+    "sub16": ((70, 2, 256, 16), "resident", False),
+    "sub17": ((5, 1, 200, 17), "tiled", False),
+    # the widest subvector whose 16-row tile fits, and the first that
+    # streams its rows instead
+    "sub3036": ((300, 1, 200, 3036), "tiled", False),
+    "sub3040": ((300, 1, 200, 3040), "streamed", False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ASSIGN_PLAN_CASES))
+def test_pq_assign_plan_main_path_shapes(case):
+    """The launch plan picks the body by shape, covers every row of every
+    subspace, fits one block's shared memory, and gives the training and
+    serving shapes a grid of at least 132 blocks (the H100's SMs). No
+    subvector is too wide: past the tiled body's limit the rows stream."""
+    (m, D, K, sub), body, fill = ASSIGN_PLAN_CASES[case]
+    plan = tops.pq_assign_plan(m, D, K, sub, sms=132)
+    assert plan["body"] == body
+    assert plan["smem"] <= tops._SMEM_LIMIT
+    assert plan["blocks"] == D * -(-m // plan["rows"])
+    assert plan["rows"] == plan["threads"] // (
+        plan["split"] if body == "resident" else 16) * plan["rows_per_thread"]
+    if fill:
+        assert plan["blocks"] >= 132
+    if body == "resident":
+        assert plan["split"] in (1, 2, 4, 8, 16, 32)
+        assert plan["split"] <= K                 # every lane has codewords
+    if case == "decode":                          # 16 rows: lanes share K
+        assert plan["split"] == 32 and plan["rows_per_thread"] == 1
 
 
 def test_pq_assign_ties_go_to_the_first_codeword():
