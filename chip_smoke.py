@@ -15,10 +15,15 @@ Phases, one JSON line each:
            phase and read just after it;
   kernels  every kernel of that path against its plain PyTorch version on
            the operands the main path gave it (the serve_p99 batch at
-           nprobe 32, the flat-check batch, the subspace step's G and R),
-           in every LUT type (float32, int8, uint8) with and without the id
-           mask, plus gcd_score at n = 48, 200 and 520 (both tile widths,
-           ragged edges; bit-antisymmetric, within 1e-5); pq_assign on the
+           nprobe 32, the flat-check batch, the subspace step's G and R):
+           the two index scans bit for bit in every LUT type (float32,
+           int8, uint8) with and without the id mask, at b = 1, 5, 64 and
+           512 served queries, ivf_adc also on the Engine's bucket
+           schedules (8, 64, 128, 512), on a shuffled and a ragged
+           schedule, and both on rows of 24 code bytes; ivf_adc timed at
+           each bucket beside serve_p99; gcd_score at n = 48, 200 and
+           520 (both tile widths, ragged edges; bit-antisymmetric, within
+           1e-5); pq_assign on the
            build's encode of all N rows (coarse VQ, then PQ on the
            residuals) with its float32-tie flips counted; givens_rotate on
            the refresh's R, centroids and codebook rows, bit-equal to the
@@ -199,6 +204,44 @@ ASSIGN_GAP = 1e-5                  # a pq_assign flip this close is a tie
 BAG_RTOL = 1e-5
 DTHETA_RTOL = 1e-4
 
+
+def engine_buckets() -> list:
+    """The batches the engine phase's Engine pads ENGINE_SIZES' requests
+    to, asked of an Engine built as that phase builds it."""
+    from repro_torch import search
+
+    engine = search.Engine(search.make("ivf"), None, k=10)
+    return sorted({engine._bucket(s) for s in ENGINE_SIZES})
+
+
+def ivf_cases() -> dict:
+    """ivf_adc's cases, one table for this script and kernel_bench.py: b
+    queries at SERVE_NPROBE over the serving index, at serve_p99 (the
+    Engine's bucket 512 has the same shape) and at the Engine's other
+    buckets."""
+    return {"serve_p99": BATCHES[0],
+            **{f"bucket_{b}": b for b in engine_buckets() if b != BATCHES[0]}}
+
+
+def flat_cases() -> dict:
+    """adc_lookup's cases for kernel_bench.py, (b, Dp, rows): the flat
+    check over the serving index (rows None: its capacity) and the train
+    phase's eval retrieval over paper_twotower's corpus."""
+    from repro_torch.configs import paper_twotower
+
+    cfg = paper_twotower.make_config()
+    return {"flat_check": (FLAT_QUERIES, D, None),
+            "train_eval": (EVAL_QUERIES, cfg.index.num_subspaces,
+                           cfg.item_vocab)}
+
+
+#: batches at which the kernels phase holds both scans bit-equal to their
+#: plain versions, beside the Engine's buckets; and a code row that is not
+#: whole 16-byte words
+SCAN_CHECK_BATCHES = (1, 5, 64, 512)
+NARROW_DP = 24
+ODD_K = 200                        # codewords: not a multiple of 16
+
 # decode phase (cut to fit a run; see the module docstring)
 DECODE_ARCH, DECODE_SHAPE = "olmo-1b", "long_500k"
 PROMPT_LEN = 4096
@@ -299,6 +342,17 @@ def compare(got, want, atol: float, rtol: float) -> float:
     return max_err
 
 
+def bit_equal(got, want, what: str) -> float:
+    """0.0 if ``got`` equals ``want`` bit for bit (−inf at the same
+    places); raises otherwise."""
+    import torch
+
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and torch.equal(got, want),
+          f"{what} is not bit-equal to its plain version")
+    return 0.0
+
+
 def phase_env():
     import torch
 
@@ -397,6 +451,15 @@ def _code_flips(index, X) -> dict:
     return out
 
 
+def serve_config():
+    """The serving index's configuration (also kernel_bench.py's)."""
+    from repro_torch import search
+
+    return search.SearchConfig(num_lists=L, subspaces=D, codewords=K,
+                               block_size=BS, nprobe=SERVE_NPROBE,
+                               train_size=TRAIN)
+
+
 def phase_main(smi: str) -> dict:
     import torch
 
@@ -441,9 +504,7 @@ def phase_main(smi: str) -> dict:
 
     # build
     searcher = search.make("ivf")
-    cfg = search.SearchConfig(num_lists=L, subspaces=D, codewords=K,
-                              block_size=BS, nprobe=SERVE_NPROBE,
-                              train_size=TRAIN)
+    cfg = serve_config()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with _counted(own):
@@ -552,6 +613,39 @@ def _scan_bytes(lut, scales, codes, ids, tiles, bs, out_elems, sched):
             + sched * 4 + out_elems * 4)
 
 
+def ivf_work(lut, scales, codes, ids, bi, bs: int) -> dict:
+    """What one masked ivf_adc launch over schedule ``bi`` must do: its
+    steps, distinct tiles, live rows scored (one float32 add per looked-up
+    entry), the bytes it must move (``_scan_bytes``) and the bound."""
+    import torch
+
+    S = bi.numel()
+    tiles = torch.unique(bi)
+    nbytes = _scan_bytes(lut, scales, codes, ids, tiles, bs, S * bs, 2 * S)
+    live = int(torch.sum(ids.view(-1, bs)[bi.long()] >= 0))
+    flops = live * codes.shape[1]
+    return dict(S=S, unique_tiles=int(tiles.numel()), live_rows=live,
+                bytes=nbytes, flops=flops, **_bound(nbytes, flops))
+
+
+def ivf_library(lut32, codes, bi, bq, bs: int):
+    """The ivf_adc library yardstick: one embedding_bag over the scheduled
+    tiles' rows, each row a bag of its Dp entries of the flattened
+    (b·Dp·K) tables; unmasked, and its int32 index tensor is made here,
+    outside the call that is timed."""
+    import torch
+    import torch.nn.functional as F
+
+    _, Dp, Kc = lut32.shape
+    rows_s = (bi.long()[:, None] * bs
+              + torch.arange(bs, device=bi.device)).reshape(-1)
+    bag = codes[rows_s].int()                                 # (S·bs, Dp)
+    bag += (torch.arange(Dp, device=bag.device, dtype=torch.int32) * Kc)
+    bag += (bq.repeat_interleave(bs) * (Dp * Kc))[:, None]
+    return functools.partial(F.embedding_bag, bag, lut32.reshape(-1, 1),
+                             mode="sum")
+
+
 def _bound(nbytes: int, flops: int) -> dict:
     """The least time on the card: the larger of bytes over the memory rate
     and float32 operations over the float32 rate."""
@@ -582,23 +676,56 @@ def phase_kernels(ctx: dict) -> dict:
     codes, ids = index.codes, index.ids
     rows, errs, one_shot = {}, {}, {}
 
-    # ivf_adc: the serve_p99 batch at the index's default nprobe
+    # ivf_adc: bit-equal to its plain version in every LUT type, masked
+    # and not, on the schedules of b served queries at the index's default
+    # nprobe (SCAN_CHECK_BATCHES and the Engine's buckets), and on rows of
+    # NARROW_DP random codes and of ODD_K-word codes under the serve_p99
+    # schedule
+    mb = index.max_list_blocks()
+    scheds = {}
+    for b in sorted({*SCAN_CHECK_BATCHES, *ivf_cases().values()}):
+        QRb = ctx["Q"][:b] @ index.R
+        sb = index_search.scan_schedule(index, QRb, nprobe=SERVE_NPROBE,
+                                        max_blocks=mb)
+        scheds[b] = (sb.block_idx, sb.block_query,
+                     index_search.build_luts(index.quantizer, QRb))
+    g_narrow = torch.Generator(device=codes.device)
+    g_narrow.manual_seed(SEED + 6)
+    narrow = torch.randint(0, K, (index.capacity, NARROW_DP),
+                           generator=g_narrow, device=codes.device,
+                           dtype=torch.uint8)
+    lut_narrow = torch.randn((BATCHES[0], NARROW_DP, K), generator=g_narrow,
+                             device=codes.device)
+    ivf_checks = {f"b={b}": (codes, bi_b, bq_b, lut_b)
+                  for b, (bi_b, bq_b, lut_b) in scheds.items()}
+    ivf_checks[f"dp={NARROW_DP}"] = (narrow, *scheds[BATCHES[0]][:2],
+                                     lut_narrow)
+    odd = torch.randint(0, ODD_K, (index.capacity, D), generator=g_narrow,
+                        device=codes.device, dtype=torch.uint8)
+    ivf_checks[f"k={ODD_K}"] = (odd, *scheds[BATCHES[0]][:2], torch.randn(
+        (BATCHES[0], D, ODD_K), generator=g_narrow, device=codes.device))
+    # schedules that are not query-major: b = 64's steps shuffled (a
+    # multiple of b, so the plan still cuts runs per query and the kernel's
+    # window check must restage), and without its last step
+    bi64, bq64, lut64 = scheds[64]
+    perm = torch.randperm(bi64.numel(), generator=g_narrow,
+                          device=codes.device)
+    ivf_checks["shuffled"] = (codes, bi64[perm].contiguous(),
+                              bq64[perm].contiguous(), lut64)
+    ivf_checks["ragged"] = (codes, bi64[:-1], bq64[:-1], lut64)
+    for case, (cd, bi_c, bq_c, lut_c) in ivf_checks.items():
+        for dt, (lut, scales) in _lut_variants(lut_c).items():
+            for m in (None, ids):
+                got = ops.ivf_adc(lut, cd, bi_c, bq_c, scales, m,
+                                  block_size=BS)
+                want = ref.ivf_adc_ref(lut, cd, bi_c, bq_c, block_size=BS,
+                                       scales=scales, ids=m)
+                errs[f"ivf_adc/{case}/{dt}/mask={m is not None}"] = \
+                    bit_equal(got, want, f"ivf_adc {case} {dt}")
+                del got, want
     qb = ctx["Q"][:BATCHES[0]]
     QR = qb @ index.R
-    mb = index.max_list_blocks()
-    sched = index_search.scan_schedule(index, QR, nprobe=SERVE_NPROBE,
-                                       max_blocks=mb)
-    bi, bq = sched.block_idx, sched.block_query
-    lut32 = index_search.build_luts(index.quantizer, QR)
-    for dt, (lut, scales) in _lut_variants(lut32).items():
-        for m in (None, ids):
-            got = ops.ivf_adc(lut, codes, bi, bq, scales, m, block_size=BS)
-            want = ref.ivf_adc_ref(lut, codes, bi, bq, block_size=BS,
-                                   scales=scales, ids=m)
-            torch.cuda.synchronize()
-            errs[f"ivf_adc/{dt}/mask={m is not None}"] = compare(
-                got, want, ATOL, RTOL)
-            del got, want
+    bi, bq, lut32 = scheds[BATCHES[0]]
     S = bi.numel()
     one_shot["ivf_adc"] = time_ms(lambda: ops.ivf_adc(
         lut32, codes, bi, bq, None, ids, block_size=BS), reps=30)
@@ -607,20 +734,11 @@ def phase_kernels(ctx: dict) -> dict:
     p_ms = graph_ms(lambda: ref.ivf_adc_ref(lut32, codes, bi, bq,
                                             block_size=BS, ids=ids),
                     launches=2)
-    # the library yardstick: one embedding_bag over the scheduled tiles'
-    # rows, each row a bag of Dp entries of the flattened (b·Dp·K) tables;
-    # unmasked, and its int32 index tensor is made outside the timed call
-    rows_s = (bi.long()[:, None] * BS
-              + torch.arange(BS, device=bi.device)).reshape(-1)
-    bag = codes[rows_s].int()                                 # (S·bs, Dp)
-    bag += (torch.arange(D, device=bag.device, dtype=torch.int32) * K)
-    bag += (bq.repeat_interleave(BS) * (D * K))[:, None]
-    table = lut32.reshape(-1, 1)
-    lib = functools.partial(F.embedding_bag, bag, table, mode="sum")
+    lib = ivf_library(lut32, codes, bi, bq, BS)
     compare(lib().view(S, BS), ref.ivf_adc_ref(lut32, codes, bi, bq,
                                                block_size=BS), ATOL, RTOL)
     lib_ms = graph_ms(lib, launches=5)
-    del rows_s, bag, table, lib
+    del lib
     # one served batch, stage by stage, with a warm L2 as back-to-back
     # batches find it; "search" is the whole of search_prepared
     stages = {
@@ -638,28 +756,60 @@ def phase_kernels(ctx: dict) -> dict:
     tiny = torch.empty(1, device=codes.device)
     launch_floor_ms = graph_ms(tiny.zero_, launches=100)
     host_launch_ms = time_ms(tiny.zero_, reps=50, flush=False)
-    tiles = torch.unique(bi)
-    nbytes = _scan_bytes(lut32, None, codes, ids, tiles, BS, S * BS, 2 * S)
-    # one float32 add per looked-up entry of every live scored row
-    flops = int(torch.sum(ids.view(-1, BS)[bi.long()] >= 0)) * D
+    work = ivf_work(lut32, None, codes, ids, bi, BS)
     rows["ivf_adc"] = dict(
         shape=dict(b=qb.shape[0], nprobe=SERVE_NPROBE, max_blocks=mb, Dp=D,
                    K=K, cap=index.capacity, S=S, block_size=BS,
-                   unique_tiles=int(tiles.numel())),
-        ms=k_ms, plain_ms=p_ms, bytes=nbytes, flops=flops,
-        **_bound(nbytes, flops), library_ms=lib_ms)
+                   unique_tiles=work["unique_tiles"]),
+        ms=k_ms, plain_ms=p_ms, live_rows=work["live_rows"],
+        bytes=work["bytes"], flops=work["flops"], bound_ms=work["bound_ms"],
+        bound_by=work["bound_by"], library_ms=lib_ms)
+    # the Engine's other buckets, timed alike
+    case_rows = {}
+    for name, b in ivf_cases().items():
+        bi_b, bq_b, lut_b = scheds[b]
+        w = ivf_work(lut_b, None, codes, ids, bi_b, BS)
+        case_rows[name] = dict(
+            b=b, S=w["S"], live_rows=w["live_rows"],
+            bytes=w["bytes"], bound_ms=w["bound_ms"], bound_by=w["bound_by"])
+        if b == BATCHES[0]:
+            case_rows[name].update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms)
+            continue
+        case_rows[name].update(
+            ms=graph_ms(lambda: ops.ivf_adc(lut_b, codes, bi_b, bq_b, None,
+                                            ids, block_size=BS),
+                        launches=20),
+            plain_ms=graph_ms(lambda: ref.ivf_adc_ref(
+                lut_b, codes, bi_b, bq_b, block_size=BS, ids=ids),
+                launches=2),
+            library_ms=graph_ms(ivf_library(lut_b, codes, bi_b, bq_b, BS),
+                                launches=5))
+    del scheds, narrow, lut_narrow, ivf_checks
 
-    # adc_lookup: the flat-check batch over every CSR row
+    # adc_lookup: bit-equal in every LUT type, masked and not, on b served
+    # queries over every CSR row, and on 5 over rows of NARROW_DP codes
+    # and of ODD_K-word codes
+    narrow = torch.randint(0, K, (index.capacity, NARROW_DP),
+                           generator=g_narrow, device=codes.device,
+                           dtype=torch.uint8)
+    flat_checks = {f"b={b}": (codes, index_search.build_luts(
+        index.quantizer, ctx["Q"][:b] @ index.R))
+        for b in SCAN_CHECK_BATCHES}
+    flat_checks[f"dp={NARROW_DP}"] = (narrow, torch.randn(
+        (5, NARROW_DP, K), generator=g_narrow, device=codes.device))
+    flat_checks[f"k={ODD_K}"] = (odd, torch.randn(
+        (5, D, ODD_K), generator=g_narrow, device=codes.device))
+    for case, (cd, lut_c) in flat_checks.items():
+        for dt, (lut, scales) in _lut_variants(lut_c).items():
+            for m in (None, ids):
+                got = ops.adc_lookup(lut, cd, scales, m)
+                want = ref.adc_lookup_ref(lut, cd, scales, m)
+                errs[f"adc_lookup/{case}/{dt}/mask={m is not None}"] = \
+                    bit_equal(got, want, f"adc_lookup {case} {dt}")
+                del got, want
+    del flat_checks, narrow, odd
     QRf = ctx["Q"][:FLAT_QUERIES] @ index.R
     lutf = index_search.build_luts(index.quantizer, QRf)
-    for dt, (lut, scales) in _lut_variants(lutf).items():
-        for m in (None, ids):
-            got = ops.adc_lookup(lut, codes, scales, m)
-            want = ref.adc_lookup_ref(lut, codes, scales, m)
-            torch.cuda.synchronize()
-            errs[f"adc_lookup/{dt}/mask={m is not None}"] = compare(
-                got, want, ATOL, RTOL)
-            del got, want
     one_shot["adc_lookup"] = time_ms(
         lambda: ops.adc_lookup(lutf, codes, None, ids), reps=30)
     k_ms = graph_ms(lambda: ops.adc_lookup(lutf, codes, None, ids),
@@ -775,7 +925,7 @@ def phase_kernels(ctx: dict) -> dict:
     for name in rows:
         rows[name]["max_abs_err"] = max(v for key, v in errs.items()
                                         if key.startswith(name + "/"))
-    emit("kernels", max_abs_err=errs, kernels=rows,
+    emit("kernels", max_abs_err=errs, kernels=rows, ivf_adc_cases=case_rows,
          launches=ctx["launches"], one_shot_ms=one_shot,
          serve_p99_stage_ms=stage_ms, launch_floor_ms=launch_floor_ms,
          host_launch_ms=host_launch_ms, serve_pq_assign_flips=serve_flips,
@@ -1807,8 +1957,8 @@ def phase_train_kernels(ctx: dict) -> dict:
     got = ops.adc_lookup(lut, corpus)
     compare(got, ctx["adc_scores"], ATOL, RTOL)
     want = ref.adc_lookup_ref(lut, corpus)
-    torch.cuda.synchronize()
-    errs["adc_lookup/train_corpus"] = compare(got, want, ATOL, RTOL)
+    errs["adc_lookup/train_corpus"] = bit_equal(got, want,
+                                                "adc_lookup train corpus")
     del got, want
     extra["adc_lookup"] = dict(
         shape=dict(b=lut.shape[0], Dp=lut.shape[1], K=lut.shape[2],

@@ -1,31 +1,63 @@
 #!/usr/bin/env python3
-"""Time the gcd_score and pq_assign kernels of any checkout on one GPU.
+"""Time the port's kernels of any checkout on one GPU.
 
 Run from the repository root:
 
-    python3 kernel_bench.py [--src DIR]
-    python3 kernel_bench.py --split
+    python3 kernel_bench.py [--src DIR] [--only NAME ...]
+    python3 kernel_bench.py --split [--only NAME ...]
+    python3 kernel_bench.py --sweep
 
 Times each kernel as ``chip_smoke.py`` does (device time per launch from a
 CUDA graph of back-to-back launches) beside its plain version and its bound
 (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s), on seeded
-operands at the smoke's shapes: ``gcd_score`` at the serving width, the
-training width and ``chip_smoke.GCD_RAGGED``, with the one ``torch.matmul``
-that computes the same field; ``pq_assign`` at every entry of
-``chip_smoke.ASSIGN_SHAPES``. ``chip_smoke.py`` holds both kernels to their
-plain versions at these shapes; this script only times them, so that two
-checkouts can be timed at the same shapes in one call.
+operands at the smoke's shapes:
+
+  * ``gcd_score`` at the serving width, the training width and
+    ``chip_smoke.GCD_RAGGED``, with the one ``torch.matmul`` that computes
+    the same field;
+  * ``pq_assign`` at every entry of ``chip_smoke.ASSIGN_SHAPES``;
+  * ``ivf_adc`` at every entry of ``chip_smoke.ivf_cases()`` (serve_p99
+    and the Engine's buckets, nprobe 32) over the smoke's serving index (N
+    sift_like rows, the identity rotation in place of main's GCD steps),
+    masked as the search path calls it, with float32 tables (and their
+    ``embedding_bag`` yardstick) and with int8 tables, as the Engine's int8
+    requests send them;
+  * ``adc_lookup`` at every entry of ``chip_smoke.flat_cases()`` (the flat
+    check over that index, masked; the train eval's (256, 64, 256) tables
+    over 1,541,673 random codes, unmasked);
+  * ``adc_batch`` at the decode shape (g = 16, r = 1, Dp = 16,
+    S = 524,288), which shares the scans' source.
+
+Each scan row also prints its schedule (S, max_blocks, live rows), the
+table loads and lookups of one launch, and its shared-gather floor: the
+shared-memory wavefronts its lookups need on these codes (per warp and
+column, the most distinct entries any bank, or 16-byte bank group for a
+float4 table of four queries, must serve) over the SMs at their highest
+clock. ``chip_smoke.py`` holds every kernel to its plain version at these
+shapes; this script only times them, so that two checkouts can be timed
+at the same shapes in one call.
 
 ``--src`` imports ``repro_torch`` from another checkout's ``src/`` (a
 ``git archive`` of an earlier commit, say), whose kernels its own
-``_build`` compiles into that checkout. For parent against change on one
-card, run parent, change, change, parent in one call.
+``_build`` compiles into that checkout, and times them; the launch-plan
+columns of the scan rows (blocks, table loads) describe this checkout's
+plan and are left out. For parent against change on one card, run parent,
+change, change, parent in one call.
 
-``--split`` times where ``gcd_score``'s time goes instead, at n = 256 and
-512: the kernel as built, a copy of its source with the FMAs taken out
-(the copies alone) and one with every copy after the first ring stage
-taken out (the contraction alone, on stale data), built by ``nvcc`` with
-the port's flags into ``build/kernel_bench/``.
+``--split`` times where a kernel's time goes instead, on copies of its
+source edited by ``SPLITS`` and built by ``nvcc`` with the port's flags
+into ``build/kernel_bench/``: ``gcd_score`` at n = 256 and 512 with the
+FMAs taken out (the copies alone) and with every copy after the first ring
+stage taken out (the contraction alone, on stale data); the scans
+(``ivf_adc`` at serve_p99 and bucket 8, ``adc_lookup`` at the flat check)
+with only the table loads left, with the lookups replaced by a sum of the
+raw code bytes and no table loaded (the code and id reads alone), and with
+every row's codes read from one 4,096-row window that stays in cache (the
+lookups, with the table loads and id reads).
+
+``--sweep`` times the scans at their cases under each setting of the
+launch plans' constants in ``SWEEP`` (the other constants at their
+defaults), to show what the chosen values give.
 
 One JSON line per case, then the card's ``nvidia-smi`` name and power
 limit. Exits 1 without a CUDA device.
@@ -33,6 +65,7 @@ limit. Exits 1 without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -43,14 +76,51 @@ import chip_smoke as smoke
 #: the serving width, the training width (paper_twotower's 512) and the
 #: ragged widths the smoke checks
 GCD_NS = tuple(sorted({smoke.DIM, 512, *smoke.GCD_RAGGED}))
-#: --split: text edits of gcd_score.cu that leave one half of the work
-GCD_PARTS = {
+KERNELS = ("gcd_score", "pq_assign", "ivf_adc", "adc_lookup", "adc_batch")
+SPLIT_KERNELS = ("gcd_score", "ivf_adc", "adc_lookup")
+BATCH_SHAPE = (16, 1, 16, 524_288)  # adc_batch (g, r, Dp, S) at decode
+WINDOW = 4096                        # --split: rows of the cached window
+
+# --split: (source, {part: edit list}); an edit (old, new) is applied to
+# every occurrence of old, which must occur
+_GCD_PARTS = {
     "copies_only": [("    if (active) {", "    if (active && n < 0) {")],
     "contraction_only": [("    if (s < stages) stage(s);",
                           "    if (s == 0) stage(s);"),
                          ("    if (s + S - 1 < stages) stage(s + S - 1);",
                           "")],
 }
+_SCAN_PARTS = {
+    # no row read or scored: one entry of the staged table written a window
+    # (ivf_adc) or a block (adc_lookup)
+    "tables_only": [
+        ("      for (int f = threadIdx.x; f < nrows; f += blockDim.x) {",
+         "      if (threadIdx.x == 0) o[0] = lut_s[w0 % (Dp * K)];\n"
+         "      for (int f = nrows; f < nrows; f += blockDim.x) {"),
+        ("  for (long long row = r0 + threadIdx.x; row < r1; "
+         "row += blockDim.x) {",
+         "  if (threadIdx.x == 0) o[r0] = lut_s[r0 % (Dp * K)];\n"
+         "  for (long long row = r1; row < r1; row += blockDim.x) {")],
+    # no table staged, each lookup replaced by its index
+    "reads_only": [
+        ("  if constexpr (RC == 1) {\n    const LutT* src",
+         "  return;\n  if constexpr (RC == 1) {\n    const LutT* src"),
+        ("reinterpret_cast<const float4*>(lut_s)[at]",
+         "make_float4(at, at, at, at)"),
+        ("reinterpret_cast<const float2*>(lut_s)[at]", "make_float2(at, at)"),
+        ("__fadd_rn(acc[0], lut_s[at])",
+         "__fadd_rn(acc[0], static_cast<float>(at))")],
+    # every row's codes from a window of WINDOW rows
+    "lookups_only": [("codes + row * Dp",
+                      f"codes + (row & {WINDOW - 1}) * Dp")],
+}
+SPLITS = {"gcd_score": ("gcd_score.cu", _GCD_PARTS),
+          "scans": ("adc_scan.cu", _SCAN_PARTS)}
+#: --sweep: each launch-plan constant of kernels/ops.py and its settings
+SWEEP = {"ivf_adc": {"_IVF_WAVES": (1, 2, 4, 8),
+                     "_IVF_MIN_PASSES": (1, 2, 4, 8)},
+         "adc_lookup": {"_FLAT_WAVES": (2, 4, 8, 16),
+                        "_FLAT_MIN_ROWS": (1, 4, 16)}}
 
 
 def _gcd_operands(g, n: int):
@@ -59,6 +129,10 @@ def _gcd_operands(g, n: int):
     G = torch.randn((n, n), generator=g, device=g.device)
     R = torch.linalg.qr(torch.randn((n, n), generator=g, device=g.device))[0]
     return G, R.contiguous()
+
+
+def _emit(**row) -> None:
+    print(json.dumps(row), flush=True)
 
 
 def time_gcd(g, n: int) -> None:
@@ -70,15 +144,13 @@ def time_gcd(g, n: int) -> None:
     lhs = torch.cat([G, -R], dim=0).T.contiguous()
     rhs = torch.cat([R, G], dim=0).contiguous()
     flops, nbytes = 2 * n ** 3 + n * n, 3 * n * n * 4
-    print(json.dumps(dict(
-        kernel="gcd_score", n=n,
-        ms=smoke.graph_ms(lambda: ops.gcd_score(G, R), launches=100),
-        plain_ms=smoke.graph_ms(lambda: ref.gcd_score_ref(G, R),
-                                launches=100),
-        library_ms=smoke.graph_ms(lambda: torch.matmul(lhs, rhs),
+    _emit(kernel="gcd_score", n=n,
+          ms=smoke.graph_ms(lambda: ops.gcd_score(G, R), launches=100),
+          plain_ms=smoke.graph_ms(lambda: ref.gcd_score_ref(G, R),
                                   launches=100),
-        bytes=nbytes, flops=flops, **smoke._bound(nbytes, flops))),
-        flush=True)
+          library_ms=smoke.graph_ms(lambda: torch.matmul(lhs, rhs),
+                                    launches=100),
+          bytes=nbytes, flops=flops, **smoke._bound(nbytes, flops))
 
 
 def time_assign(g, name: str) -> None:
@@ -88,40 +160,263 @@ def time_assign(g, name: str) -> None:
     X, C = smoke.assign_operands(g, m, D, K, sub)
     nbytes = m * D * sub * 4 + D * K * sub * 4 + m * D * 4
     flops = 2 * m * D * sub * K
-    print(json.dumps(dict(
-        kernel="pq_assign", case=name, m=m, D=D, K=K, sub=sub,
-        ms=smoke.graph_ms(lambda: ops.pq_assign(X, C),
-                          launches=5 if flops > 2e10 else 20),
-        plain_ms=smoke.graph_ms(lambda: ref.pq_assign_ref(X, C), launches=2),
-        bytes=nbytes, flops=flops, **smoke._bound(nbytes, flops))),
-        flush=True)
+    _emit(kernel="pq_assign", case=name, m=m, D=D, K=K, sub=sub,
+          ms=smoke.graph_ms(lambda: ops.pq_assign(X, C),
+                            launches=5 if flops > 2e10 else 20),
+          plain_ms=smoke.graph_ms(lambda: ref.pq_assign_ref(X, C),
+                                  launches=2),
+          bytes=nbytes, flops=flops, **smoke._bound(nbytes, flops))
+
+
+# -- the scans ---------------------------------------------------------------
+
+
+def _sm_clock_hz() -> float:
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
+def gather_wavefronts(codes, active, lanes: int, units: int):
+    """Shared-memory wavefronts of the table lookups of ``codes`` (W, 32,
+    Dp) uint8, one warp of 32 rows per entry, a column at a time, summed
+    over the columns -> (W,) int64: each phase of ``lanes`` lanes costs
+    the most distinct codes that fall in one of ``units`` bank units (code
+    mod ``units``); inactive lanes read nothing. 4-byte entries: lanes 32,
+    units 32; float2 entries (two queries interleaved): 16 and 16; float4
+    (four): 8 and 8."""
+    import torch
+
+    out = []
+    for lo in range(0, codes.shape[0], 2048):
+        c = codes[lo:lo + 2048].long()
+        W, _, Dp = c.shape
+        c = torch.where(active[lo:lo + 2048, :, None], c,
+                        torch.full_like(c, 256))
+        # (W, phases, Dp, lanes) -> presence of each of the 256 codes
+        c = c.view(W, 32 // lanes, lanes, Dp).transpose(2, 3)
+        seen = torch.zeros((*c.shape[:3], 257), dtype=torch.int32,
+                           device=c.device)
+        seen.scatter_(3, c, 1)
+        distinct = seen[..., :256].reshape(*c.shape[:3], 256 // units,
+                                           units).sum(3)
+        out.append(distinct.amax(3).sum((1, 2)))
+    return torch.cat(out)
+
+
+def _serving(g):
+    """The smoke's serving index over N sift_like rows (the identity
+    rotation) and the largest case's queries."""
+    import torch
+
+    from repro_torch import search
+    from repro_torch.data import synthetic
+
+    nq = max(smoke.ivf_cases().values())
+    allx = synthetic.sift_like(g, smoke.N + nq, smoke.DIM)
+    R = torch.eye(smoke.DIM, device=allx.device)
+    state = search.make("ivf").build(g, allx[:smoke.N], R,
+                                     smoke.serve_config())
+    return state.index, allx[smoke.N:]
+
+
+def ivf_operands(index, Q, names=None):
+    """(name, b, max_blocks, block_idx, block_query, float32 tables) of
+    chip_smoke.ivf_cases() over the serving index."""
+    from repro_torch.index import search as index_search
+
+    mb = index.max_list_blocks()
+    for name, b in smoke.ivf_cases().items():
+        if names is not None and name not in names:
+            continue
+        QR = Q[:b] @ index.R
+        sched = index_search.scan_schedule(
+            index, QR, nprobe=smoke.SERVE_NPROBE, max_blocks=mb)
+        lut = index_search.build_luts(index.quantizer, QR)
+        yield name, b, mb, sched.block_idx, sched.block_query, lut
+
+
+def _ivf_plan_stats(index, bi, bq, b: int, Dp: int, K: int,
+                    clock_hz: float) -> dict:
+    """Blocks and table loads of one launch under this checkout's plan, and
+    the lookups' shared-gather floor on the index's codes."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    codes, ids, bs = index.codes, index.ids, smoke.BS
+    S, sms = bi.numel(), ops._sms(codes.device)
+    plan = ops.ivf_adc_plan(S, b, bs, Dp, K, sms)
+    starts = ops.ivf_adc_run_starts(plan, S, device=bi.device)
+    first = torch.zeros(S, dtype=torch.bool, device=bi.device)
+    first[starts] = True
+    first[1:] |= bq[1:] != bq[:-1]
+    # each distinct tile's wavefronts, times the steps that scan it
+    tiles = codes.view(-1, bs // 32, 32, Dp)
+    live = (ids >= 0).view(-1, bs // 32, 32)
+    uniq, mult = torch.unique(bi.long(), return_counts=True)
+    per_tile = gather_wavefronts(
+        tiles[uniq].reshape(-1, 32, Dp), live[uniq].reshape(-1, 32),
+        32, 32).view(uniq.numel(), -1).sum(1)
+    wf = int((per_tile * mult).sum())
+    return dict(blocks=int(starts.numel()), table_loads=int(first.sum()),
+                wavefronts=wf, gather_floor_ms=wf / (sms * clock_hz) * 1e3)
+
+
+def time_ivf(index, Q, clock_hz: float, plan_stats: bool) -> None:
+    """ivf_adc at each case with float32 and with int8 tables."""
+    from repro_torch.kernels import ops, ref
+
+    codes, ids, bs = index.codes, index.ids, smoke.BS
+    for name, b, mb, bi, bq, lut in ivf_operands(index, Q):
+        S, (_, Dp, K) = bi.numel(), lut.shape
+        case = dict(case=name, b=b, nprobe=smoke.SERVE_NPROBE,
+                    max_blocks=mb, S=S)
+        if plan_stats:
+            case.update(_ivf_plan_stats(index, bi, bq, b, Dp, K, clock_hz))
+        for dt, (tab, scales) in (("float32", (lut, None)),
+                                  ("int8", ops.quantize_luts(lut, "int8"))):
+            work = smoke.ivf_work(tab, scales, codes, ids, bi, bs)
+            row = dict(kernel="ivf_adc", lut=dt, **case,
+                       lookups=work["flops"], live_rows=work["live_rows"],
+                       unique_tiles=work["unique_tiles"],
+                       ms=smoke.graph_ms(lambda: ops.ivf_adc(
+                           tab, codes, bi, bq, scales, ids, block_size=bs),
+                           launches=20),
+                       plain_ms=smoke.graph_ms(lambda: ref.ivf_adc_ref(
+                           tab, codes, bi, bq, block_size=bs, scales=scales,
+                           ids=ids), launches=2),
+                       bytes=work["bytes"], flops=work["flops"],
+                       bound_ms=work["bound_ms"], bound_by=work["bound_by"])
+            if scales is None:
+                lib = smoke.ivf_library(tab, codes, bi, bq, bs)
+                row["library_ms"] = smoke.graph_ms(lib, launches=5)
+                del lib
+            _emit(**row)
+
+
+def flat_operands(index, Q, g):
+    """(name, tables, codes, ids) of chip_smoke.flat_cases(): the flat
+    check over the serving index (masked) and the train eval's random
+    tables over random codes (unmasked)."""
+    import torch
+
+    from repro_torch.index import search as index_search
+
+    for name, (b, Dp, rows) in smoke.flat_cases().items():
+        if rows is None:
+            lut = index_search.build_luts(index.quantizer,
+                                          Q[:b] @ index.R)
+            yield name, lut, index.codes, index.ids
+        else:
+            dev = index.codes.device
+            lut = torch.randn((b, Dp, smoke.K), generator=g, device=dev)
+            codes = torch.randint(0, smoke.K, (rows, Dp), generator=g,
+                                  device=dev, dtype=torch.uint8)
+            yield name, lut, codes, None
+
+
+def time_flat(index, Q, g, clock_hz: float) -> None:
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    sms = torch.cuda.get_device_properties(
+        index.codes.device).multi_processor_count
+    for name, lut, codes, ids in flat_operands(index, Q, g):
+        (b, Dp, K), N = lut.shape, codes.shape[0]
+        live = (torch.ones(N, dtype=torch.bool, device=codes.device)
+                if ids is None else ids >= 0)
+        whole = N // 32 * 32
+        warps = codes[:whole].view(-1, 32, Dp)
+        act = live[:whole].view(-1, 32)
+        # 4-byte tables, one query a pass; float4 of four queries; float2
+        floors = {f"gather_floor_{kind}_ms": passes * int(gather_wavefronts(
+            warps, act, lanes, lanes).sum()) / (sms * clock_hz) * 1e3
+            for kind, passes, lanes in (("scalar", b, 32),
+                                        ("float4", -(-b // 4), 8),
+                                        ("float2", -(-b // 2), 16))}
+        n_live = int(live.sum())
+        nbytes = (lut.numel() * 4 + (0 if ids is None else N * 4)
+                  + n_live * Dp + b * N * 4)
+        flops = b * n_live * Dp
+        _emit(kernel="adc_lookup", case=name, b=b, Dp=Dp, K=K, N=N,
+              masked=ids is not None, live_rows=n_live, lookups=flops,
+              **floors,
+              ms=smoke.graph_ms(lambda: ops.adc_lookup(lut, codes, None,
+                                                       ids), launches=5),
+              plain_ms=smoke.graph_ms(lambda: ref.adc_lookup_ref(
+                  lut, codes, None, ids), launches=1),
+              bytes=nbytes, flops=flops, **smoke._bound(nbytes, flops))
+        del codes
+
+
+def time_batch(g) -> None:
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    G, r, Dp, S = BATCH_SHAPE
+    lut = torch.randn((G, r, Dp, smoke.K), generator=g, device=g.device)
+    codes = torch.randint(0, smoke.K, (G, S, Dp), generator=g,
+                          device=g.device, dtype=torch.uint8)
+    nbytes = codes.numel() + G * r * S * 4 + lut.numel() * 4
+    flops = G * r * S * Dp
+    _emit(kernel="adc_batch", g=G, r=r, Dp=Dp, S=S,
+          ms=smoke.graph_ms(lambda: ops.adc_batch(lut, codes), launches=20),
+          plain_ms=smoke.graph_ms(lambda: ref.adc_batch_ref(lut, codes),
+                                  launches=2),
+          bytes=nbytes, flops=flops, **smoke._bound(nbytes, flops))
+
+
+# -- --split -----------------------------------------------------------------
+
+
+class _Swapped:
+    """The kernel library with some entry points taken from another build:
+    ``_build._lib`` set to this sends the wrappers' launches there."""
+
+    def __init__(self, base, variant, names):
+        self._base, self._variant, self._names = base, variant, names
+
+    def __getattr__(self, name):
+        return getattr(self._variant if name in self._names else self._base,
+                       name)
+
+
+def _variant(source: str, part: str, edits) -> ctypes.CDLL:
+    """Build a copy of csrc/``source`` edited by ``edits``."""
+    from repro_torch.kernels import _build
+
+    out_dir = _build.BUILD_DIR.parent / "kernel_bench"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    text = (_build.CSRC / source).read_text()
+    for old, new in edits:
+        if old not in text:
+            raise RuntimeError(f"--split {part}: {old!r} is not in {source}")
+        text = text.replace(old, new)
+    stem = f"{Path(source).stem}_{part}"
+    (out_dir / f"{stem}.cu").write_text(text)
+    lib = out_dir / f"lib{stem}.so"
+    subprocess.run([_build.nvcc_path(), *_build.FLAGS, "-I",
+                    str(_build.CSRC), "-shared", "-o", str(lib),
+                    str(out_dir / f"{stem}.cu")], check=True,
+                   capture_output=True)
+    return ctypes.CDLL(str(lib))
 
 
 def gcd_split(g) -> None:
     """Time gcd_score beside its two halves (see the module docstring)."""
-    import ctypes
-
     import torch
 
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import ops
 
-    out_dir = _build.BUILD_DIR.parent / "kernel_bench"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    src = (_build.CSRC / "gcd_score.cu").read_text()
-    nvcc, libs = _build.nvcc_path(), {}
-    for part, edits in GCD_PARTS.items():
-        text = src
-        for old, new in edits:
-            if old not in text:
-                raise RuntimeError(f"--split: {old!r} not in gcd_score.cu")
-            text = text.replace(old, new)
-        cu = out_dir / f"gcd_{part}.cu"
-        cu.write_text(text)
-        lib = out_dir / f"libgcd_{part}.so"
-        subprocess.run([nvcc, *_build.FLAGS, "-I", str(_build.CSRC),
-                        "-shared", "-o", str(lib), str(cu)], check=True,
-                       capture_output=True)
-        libs[part] = ctypes.CDLL(str(lib)).repro_gcd_score
+    source, parts = SPLITS["gcd_score"]
+    libs = {}
+    for part, edits in parts.items():
+        libs[part] = _variant(source, part, edits).repro_gcd_score
         libs[part].argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
             ctypes.c_void_p]
     for n in (256, 512):
@@ -136,7 +431,88 @@ def gcd_split(g) -> None:
                                tile, torch.cuda.current_stream().cuda_stream)
                             == 0, f"gcd_score {part} launch")
             row[f"{part}_ms"] = smoke.graph_ms(call, launches=100)
-        print(json.dumps(row), flush=True)
+        _emit(**row)
+
+
+def scan_split(index, Q, g) -> None:
+    """Time the two scans beside their parts (see the module docstring):
+    each variant library stands in for the scans' entry points while the
+    wrappers launch it, so every part runs the imported tree's own launch
+    plan."""
+    from repro_torch.kernels import _build, ops
+
+    source, parts = SPLITS["scans"]
+    base = _build.library()
+    names = ("repro_ivf_adc", "repro_adc_lookup")
+    libs = {"full": base}
+    for part, edits in parts.items():
+        libs[part] = _Swapped(base, _variant(source, part, edits), names)
+        _build._declare(libs[part])
+    cases = []
+    for name, b, mb, bi, bq, lut in ivf_operands(
+            index, Q, names=("serve_p99", "bucket_8")):
+        cases.append((dict(kernel="ivf_adc", case=name, b=b),
+                      lambda lut=lut, bi=bi, bq=bq: ops.ivf_adc(
+                          lut, index.codes, bi, bq, None, index.ids,
+                          block_size=smoke.BS), 20))
+    for name, lut, codes, ids in flat_operands(index, Q, g):
+        if name == "flat_check":
+            cases.append((dict(kernel="adc_lookup", case=name,
+                               b=lut.shape[0]),
+                          lambda lut=lut, codes=codes, ids=ids:
+                          ops.adc_lookup(lut, codes, None, ids), 5))
+    try:
+        for row, fn, launches in cases:
+            for part, lib in libs.items():
+                _build._lib = lib
+                row[f"{part}_ms"] = smoke.graph_ms(fn, launches=launches)
+            _emit(**row)
+    finally:
+        _build._lib = base
+
+
+def sweep(index, Q, g, only) -> None:
+    """Time the scans at their cases under every combination of the
+    settings in SWEEP of their launch plans' constants."""
+    import itertools
+
+    from repro_torch.kernels import ops
+
+    codes, ids, bs = index.codes, index.ids, smoke.BS
+    sms = ops._sms(codes.device)
+    ivf = list(ivf_operands(index, Q)) if "ivf_adc" in only else []
+    flat = list(flat_operands(index, Q, g)) if "adc_lookup" in only else []
+    for kernel, consts in SWEEP.items():
+        if kernel not in only:
+            continue
+        defaults = {c: getattr(ops, c) for c in consts}
+        try:
+            for values in itertools.product(*consts.values()):
+                setting = dict(zip(consts, values))
+                for c, v in setting.items():
+                    setattr(ops, c, v)
+                row = dict(kernel=kernel, **setting)
+                if kernel == "ivf_adc":
+                    for name, b, mb, bi, bq, lut in ivf:
+                        row[f"{name}_ms"] = smoke.graph_ms(
+                            lambda: ops.ivf_adc(lut, codes, bi, bq, None,
+                                                ids, block_size=bs),
+                            launches=20)
+                        row[f"{name}_blocks"] = ops.ivf_adc_plan(
+                            bi.numel(), b, bs, *lut.shape[1:], sms)["blocks"]
+                else:
+                    for name, lut, cd, idv in flat:
+                        row[f"{name}_ms"] = smoke.graph_ms(
+                            lambda: ops.adc_lookup(lut, cd, None, idv),
+                            launches=5)
+                        b, Dp, K = lut.shape
+                        row[f"{name}_blocks"] = ops.adc_lookup_plan(
+                            b, cd.shape[0], Dp, K, sms)["blocks"]
+                row["defaults"] = setting == defaults
+                _emit(**row)
+        finally:
+            for c, v in defaults.items():
+                setattr(ops, c, v)
 
 
 def main() -> int:
@@ -144,7 +520,11 @@ def main() -> int:
     ap.add_argument("--src", type=Path, default=None,
                     help="import repro_torch from this src/ directory")
     ap.add_argument("--split", action="store_true",
-                    help="time gcd_score's copies and contraction apart")
+                    help="time the kernels' parts apart")
+    ap.add_argument("--sweep", action="store_true",
+                    help="time the scans under other launch-plan constants")
+    ap.add_argument("--only", nargs="+", choices=KERNELS, default=None,
+                    help="time only these kernels")
     args = ap.parse_args()
     import torch
 
@@ -159,15 +539,34 @@ def main() -> int:
     _build.library()
     print(json.dumps(dict(repro_torch=ops.__file__,
                           build=_build.build_info)), flush=True)
+    only = set(args.only or (SPLIT_KERNELS if args.split else
+                             tuple(SWEEP) if args.sweep else KERNELS))
     g = torch.Generator(device="cuda")
     g.manual_seed(smoke.SEED + 5)
-    if args.split:
-        gcd_split(g)
+    scans = only & {"ivf_adc", "adc_lookup"}
+    if scans:
+        index, Q = _serving(g)
+        clock_hz = _sm_clock_hz()
+    if args.sweep:
+        sweep(index, Q, g, only)
+    elif args.split:
+        if "gcd_score" in only:
+            gcd_split(g)
+        if scans:
+            scan_split(index, Q, g)
     else:
-        for n in GCD_NS:
-            time_gcd(g, n)
-        for name in smoke.ASSIGN_SHAPES:
-            time_assign(g, name)
+        if "gcd_score" in only:
+            for n in GCD_NS:
+                time_gcd(g, n)
+        if "pq_assign" in only:
+            for name in smoke.ASSIGN_SHAPES:
+                time_assign(g, name)
+        if "ivf_adc" in only:
+            time_ivf(index, Q, clock_hz, plan_stats=args.src is None)
+        if "adc_lookup" in only:
+            time_flat(index, Q, g, clock_hz)
+        if "adc_batch" in only:
+            time_batch(g)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

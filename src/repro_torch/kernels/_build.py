@@ -95,9 +95,11 @@ def _compile(digest: str) -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.repro_ivf_adc.argtypes = [p, i, p, p, p, p, p, p, ll, i, i, i, i, p]
+    lib.repro_ivf_adc.argtypes = [p, i, p, p, p, p, p, p, ll, i, i, i, i,
+                                  i, ll, ll, i, ll, p]
     lib.repro_ivf_adc.restype = i
-    lib.repro_adc_lookup.argtypes = [p, i, p, p, p, p, i, ll, i, i, i, p]
+    lib.repro_adc_lookup.argtypes = [p, i, p, p, p, p, i, ll, i, i, i, i, ll,
+                                     i, ll, p]
     lib.repro_adc_lookup.restype = i
     lib.repro_gcd_score.argtypes = [p, p, p, i, i, p]
     lib.repro_gcd_score.restype = i

@@ -35,7 +35,8 @@ from repro_torch.kernels.adc_common import (  # noqa: F401
 
 __all__ = ["gcd_score", "gcd_score_tile", "givens_rotate",
            "apply_pair_rotations", "pq_assign", "pq_assign_plan",
-           "embedding_bag", "adc_lookup", "adc_batch", "ivf_adc", "fused_lut",
+           "embedding_bag", "adc_lookup", "adc_lookup_plan", "adc_batch",
+           "ivf_adc", "ivf_adc_plan", "ivf_adc_run_starts", "fused_lut",
            "lut_column_map", "topk_merge",
            "quantize_luts", "dequantize_luts", "LUT_DTYPES", "LAUNCHES",
            "reset_launches"]
@@ -44,8 +45,18 @@ __all__ = ["gcd_score", "gcd_score_tile", "givens_rotate",
 LAUNCHES = {"ivf_adc": 0, "adc_lookup": 0, "gcd_score": 0, "givens_rotate": 0,
             "pq_assign": 0, "embedding_bag": 0, "fused_lut": 0, "adc_batch": 0}
 
-_FLAT_ROWS = 4096        # rows per block of the flat scan
 _SMEM_LIMIT = 232_448    # shared memory one H100 block may use (bytes)
+_SM_SMEM = 233_472       # shared memory of one H100 SM (bytes)
+_SM_THREADS = 2048       # resident threads of one SM
+_BLOCK_SMEM = 1024       # shared memory the card reserves for each block
+_IVF_THREADS = 512       # threads per block of the IVF scan (kIvfThreads)
+_IVF_BLOCKS = 3          # of them an SM holds (kIvfMinBlocks, registers)
+_IVF_WINDOW = 256        # schedule steps a block holds at once (kIvfWindow)
+_IVF_WAVES = 4           # resident waves of blocks the IVF scan's grid fills
+_IVF_MIN_PASSES = 2      # passes of a block over its run, at least
+_FLAT_RC = (4, 2, 1)     # queries per block of the flat scan, widest first
+_FLAT_WAVES = 4          # resident waves of blocks of the flat scan's grid
+_FLAT_MIN_ROWS = 4       # code rows per thread of a flat-scan block, least
 _LUT_KIND = {torch.float32: 0, torch.int8: 1, torch.uint8: 2}
 _ROTATE_ROWS = 8         # rows per block of the plane rotation
 _LUT_TILE = 32           # queries per block of the fused LUT build
@@ -87,6 +98,10 @@ def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
 
 def _stream(dev: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _require(t: torch.Tensor, name: str, dtype, shape) -> None:
@@ -386,24 +401,65 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
                                int(num_bags))
 
 
+def _resident(threads: int, smem: int) -> int:
+    """Blocks of ``threads`` threads and ``smem`` bytes of shared memory
+    that one SM holds at once (registers aside)."""
+    return max(1, min(_SM_THREADS // threads,
+                      _SM_SMEM // (smem + _BLOCK_SMEM)))
+
+
+def adc_lookup_plan(b: int, N: int, Dp: int, K: int, sms: int) -> dict:
+    """Launch plan of the flat scan of b (Dp, K) tables over N code rows on
+    a card with ``sms`` SMs.
+
+    A block stages ``rc`` queries' tables, interleaved (entry (d, k) of four
+    queries in one float4), and scores each code row it reads against all
+    of them: rc = 4 from b = 3 up where four float32 tables fit in shared
+    memory, else 2, else 1 (Dp = 64, K = 256: 2), and b itself below 3.
+    The last of the ``chunks`` = ⌈b / rc⌉ chunks may be partial. Blocks of
+    1024 threads where one block fills an SM's shared memory, else 512;
+    each takes a run of ``rows`` code rows (a multiple of its threads, at
+    least ``_FLAT_MIN_ROWS`` a thread), cut so that the grid of chunks × row
+    runs is about ``_FLAT_WAVES`` resident waves (``kernel_bench.py
+    --sweep`` times the alternatives)."""
+    fits = [rc for rc in _FLAT_RC if 4 * rc * Dp * K <= _SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"a (Dp={Dp}, K={K}) float32 table does not fit in "
+                         "one block's shared memory")
+    rc = next(r for r in fits if r <= (4 if b >= 3 else max(b, 1)))
+    smem = 4 * rc * Dp * K
+    threads = 1024 if 2 * (smem + _BLOCK_SMEM) > _SM_SMEM else 512
+    chunks = -(-b // rc)
+    runs = max(1, -(-_FLAT_WAVES * sms * _resident(threads, smem) // chunks))
+    rows = -(-max(1, -(-N // runs)) // threads) * threads
+    rows = max(rows, _FLAT_MIN_ROWS * threads)
+    return dict(rc=rc, threads=threads, smem=smem, chunks=chunks, rows=rows,
+                blocks=chunks * -(-N // rows))
+
+
 def adc_lookup(lut: torch.Tensor, codes: torch.Tensor,
                scales: torch.Tensor | None = None,
                ids: torch.Tensor | None = None) -> torch.Tensor:
     """Flat ADC scores (b, Dp, K) × (N, Dp) -> (b, N) float32. ``scales``
     (b, Dp, 2): int8/uint8 LUT pack. ``ids`` (N,): rows with id < 0 score
-    −inf."""
+    −inf. On the card each code row is read once for up to four queries
+    (``adc_lookup_plan``)."""
     if not _on_card(lut, codes, scales, ids):
         return ref.adc_lookup_ref(lut, codes, scales, ids)
     N = codes.shape[0]
     b, Dp, K, kind = _check_scan_operands(lut, scales, codes, ids, N)
-    if b > 65535:
-        raise ValueError(f"adc_lookup: b={b} exceeds the grid's y limit")
     out = torch.empty((b, N), dtype=torch.float32, device=lut.device)
     if b and N:
+        plan = adc_lookup_plan(b, N, Dp, K, _sms(lut.device))
+        if plan["blocks"] > 2**31 - 1:
+            raise ValueError(f"adc_lookup: {plan['blocks']} blocks exceed "
+                             "the grid's x limit")
         with torch.cuda.device(lut.device):
             err = _build.library().repro_adc_lookup(
                 _ptr(lut), kind, _ptr(scales), _ptr(codes), _ptr(ids),
-                _ptr(out), b, N, Dp, K, _FLAT_ROWS, _stream(lut.device))
+                _ptr(out), b, N, Dp, K, plan["rc"], plan["rows"],
+                plan["blocks"], plan["threads"], plan["smem"],
+                _stream(lut.device))
         _build.check(err, "adc_lookup")
         LAUNCHES["adc_lookup"] += 1
     return out
@@ -471,12 +527,51 @@ def adc_batch(lut: torch.Tensor, codes: torch.Tensor,
     return out
 
 
-def _steps_per_block(S: int, device: torch.device) -> int:
-    """Schedule steps per CUDA block of the IVF scan: enough blocks for
-    about eight per SM, and at most 64 steps so a block's LUT load is
-    spread over many tiles without starving the card of blocks."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(64, S // (8 * sms)))
+def ivf_adc_plan(S: int, b: int, block_size: int, Dp: int, K: int,
+                 sms: int) -> dict:
+    """Launch plan of the IVF scan of an S-step schedule over b queries on
+    a card with ``sms`` SMs; blocks of 512 threads, each holding one query's
+    float32 table and a window of ``_IVF_WINDOW`` schedule steps in shared
+    memory.
+
+    A block takes a run of consecutive steps and scores 512 of its rows at
+    a time (four 128-row tiles). Where S is a multiple of b the plan takes
+    the schedule for query-major, S / b steps a query, as the search layer
+    lays it out, and cuts each query's steps into ``runs_per_query`` runs
+    that never cross a query, so a block stages one table: as many runs as
+    give the grid about ``_IVF_WAVES`` resident waves (``_IVF_BLOCKS``
+    blocks an SM), none shorter than ``_IVF_MIN_PASSES`` passes of the
+    block. Otherwise runs of ``run`` steps in schedule order, sized alike.
+    The kernel checks each window of its run and restages the table
+    wherever the query changes, so every step is scored with its own
+    query's table whatever the schedule: the plan moves only the cost.
+    ``kernel_bench.py --sweep`` times other values of the constants at
+    serve_p99 and the Engine's buckets."""
+    smem = 4 * Dp * K + 8 * _IVF_WINDOW
+    threads = _IVF_THREADS
+    target = _IVF_WAVES * sms * min(_IVF_BLOCKS, _resident(threads, smem))
+    min_run = _IVF_MIN_PASSES * max(1, threads // block_size)
+    if b and S % b == 0:
+        spq = S // b
+        per_q = max(1, min(-(-target // b), spq // min_run))
+        run = -(-spq // per_q)
+        per_q = -(-spq // run)
+        return dict(threads=threads, smem=smem, run=run,
+                    runs_per_query=per_q, steps_per_query=spq,
+                    blocks=b * per_q)
+    run = max(min_run, -(-S // target))
+    return dict(threads=threads, smem=smem, run=run, runs_per_query=0,
+                steps_per_query=0, blocks=-(-S // run))
+
+
+def ivf_adc_run_starts(plan: dict, S: int, device=None) -> torch.Tensor:
+    """The first schedule step of each block of an ``ivf_adc_plan``."""
+    blk = torch.arange(plan["blocks"], device=device)
+    if plan["steps_per_query"]:
+        per_q = plan["runs_per_query"]
+        return (blk // per_q * plan["steps_per_query"]
+                + blk % per_q * plan["run"])
+    return blk * plan["run"]
 
 
 def ivf_adc(lut: torch.Tensor, codes: torch.Tensor, block_idx: torch.Tensor,
@@ -486,7 +581,9 @@ def ivf_adc(lut: torch.Tensor, codes: torch.Tensor, block_idx: torch.Tensor,
     """Selected-block IVF-ADC scan: (b, Dp, K) LUTs × (cap, Dp) CSR codes ×
     (S,) tile schedule -> (S, block_size) float32. ``block_idx`` may repeat
     and may point at the sentinel block. ``scales``: int8/uint8 LUT pack.
-    ``ids`` (cap,): rows with id < 0 score −inf."""
+    ``ids`` (cap,): rows with id < 0 score −inf. Any schedule gives the
+    same scores; the card's launch plan (``ivf_adc_plan``) is fastest for
+    the search layer's query-major one."""
     if not _on_card(lut, codes, block_idx, block_query, scales, ids):
         return ref.ivf_adc_ref(lut, codes, block_idx, block_query,
                                block_size=block_size, scales=scales, ids=ids)
@@ -501,12 +598,21 @@ def ivf_adc(lut: torch.Tensor, codes: torch.Tensor, block_idx: torch.Tensor,
     out = torch.empty((S, block_size), dtype=torch.float32,
                       device=lut.device)
     if S:
+        plan = ivf_adc_plan(S, b, block_size, Dp, K, _sms(lut.device))
+        if plan["smem"] > _SMEM_LIMIT:
+            raise ValueError(f"ivf_adc: a (Dp={Dp}, K={K}) table and the "
+                             "schedule window do not fit in one block's "
+                             "shared memory")
+        if plan["blocks"] > 2**31 - 1:
+            raise ValueError(f"ivf_adc: {plan['blocks']} blocks exceed the "
+                             "grid's x limit")
         with torch.cuda.device(lut.device):
             err = _build.library().repro_ivf_adc(
                 _ptr(lut), kind, _ptr(scales), _ptr(codes), _ptr(block_idx),
                 _ptr(block_query), _ptr(ids), _ptr(out), S, Dp, K,
-                block_size, _steps_per_block(S, lut.device),
-                _stream(lut.device))
+                block_size, plan["run"], plan["runs_per_query"],
+                plan["steps_per_query"], plan["blocks"], plan["threads"],
+                plan["smem"], _stream(lut.device))
         _build.check(err, "ivf_adc")
         LAUNCHES["ivf_adc"] += 1
     return out

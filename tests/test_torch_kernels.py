@@ -8,8 +8,8 @@ because the tensors lie on the CPU. The CUDA kernels themselves are held
 against these plain versions on the card by ``chip_smoke.py``.
 
 Tolerances: ``gcd_score`` to 1e-5 (one float32 product of n terms); the
-scans to atol 1e-4, rtol 1e-5, since the Dp float32 terms are summed in
-another order; their −inf positions exactly. ``pq_assign`` exactly, on
+scans to atol 1e-4, rtol 1e-5, since the JAX kernels sum the Dp float32
+terms in another order (a one-hot product); their −inf positions exactly. ``pq_assign`` exactly, on
 dyadic inputs whose scores are exact in float32, ties and all;
 ``embedding_bag`` to 1e-5; ``apply_pair_rotations`` and its gradients to
 1e-6.
@@ -75,11 +75,25 @@ def test_gcd_score_matches_jax_kernel(n):
         atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("lut_dtype", ["float32", "int8", "uint8"])
-def test_adc_lookup_matches_jax_kernel(lut_dtype, masked):
+def _scan_params(shapes):
+    """(lut_dtype, masked, shape) cases; the first shape keeps the ids the
+    tests had before the others were added."""
+    return [pytest.param(dt, m, shape, id="-".join(
+                [dt, str(m)] + ([shape] if shape != shapes[0] else [])))
+            for shape in shapes for m in (False, True)
+            for dt in ("float32", "int8", "uint8")]
+
+
+# (b, N, Dp, K): small codes; 256 uint8 codewords in rows of 24 bytes (not
+# whole 16-byte words) for 5 queries, one chunk of four and a partial one
+ADC_LOOKUP_SHAPES = {"small": (3, 2000, 8, 16), "k256_dp24": (5, 1000, 24, 256)}
+
+
+@pytest.mark.parametrize("lut_dtype,masked,shape",
+                         _scan_params(list(ADC_LOOKUP_SHAPES)))
+def test_adc_lookup_matches_jax_kernel(lut_dtype, masked, shape):
     rng = np.random.RandomState(11 + masked)
-    b, N, Dp, K = 3, 2000, 8, 16
+    b, N, Dp, K = ADC_LOOKUP_SHAPES[shape]
     lut, scales = _lut_pack(rng, (b, Dp, K), lut_dtype)
     codes = rng.randint(0, K, size=(N, Dp)).astype(np.uint8)
     ids = np.where(rng.rand(N) < 0.3, -1, np.arange(N)).astype(np.int32)
@@ -94,23 +108,44 @@ def test_adc_lookup_matches_jax_kernel(lut_dtype, masked):
         assert np.all(np.isneginf(got.numpy()[:, ids < 0]))
 
 
-@pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("lut_dtype", ["float32", "int8", "uint8"])
-def test_ivf_adc_matches_jax_kernel(lut_dtype, masked):
-    """A schedule with repeated tiles, sentinel tiles and queries that come
-    back after others, as the CUDA body's LUT reload must handle."""
+# (b, Dp, K, bs, nblocks, S): a random schedule with repeated tiles,
+# sentinel tiles and queries that come back after others; and a
+# query-major one of 6 steps a query over 256 uint8 codewords in rows of
+# 24 bytes, query 2's steps all on the sentinel tile
+IVF_ADC_SHAPES = {"small": (4, 8, 16, 16, 10, 40),
+                  "k256_dp24": (5, 24, 256, 16, 10, 30)}
+
+
+def _ivf_schedule(rng, shape):
+    b, _, _, _, nblocks, S = IVF_ADC_SHAPES[shape]
+    block_idx = rng.randint(0, nblocks, size=S).astype(np.int32)
+    if shape == "small":
+        block_idx[::7] = nblocks - 1
+        block_query = np.sort(rng.randint(0, b, size=S)).astype(np.int32)
+        block_query[-5:] = 0                           # a query returns
+        return block_idx, block_query, None
+    spq = S // b
+    block_query = np.repeat(np.arange(b), spq).astype(np.int32)
+    block_idx[2 * spq:3 * spq] = nblocks - 1
+    return block_idx, block_query, spq
+
+
+@pytest.mark.parametrize("lut_dtype,masked,shape",
+                         _scan_params(list(IVF_ADC_SHAPES)))
+def test_ivf_adc_matches_jax_kernel(lut_dtype, masked, shape):
+    """Schedules with repeated tiles, sentinel tiles, a query that comes
+    back after others (S a multiple of b all the same, so the card's plan
+    takes it for query-major and its window check must restage) and a
+    query with only sentinel steps."""
     rng = np.random.RandomState(21 + masked)
-    b, Dp, K, bs, nblocks, S = 4, 8, 16, 16, 10, 40
+    b, Dp, K, bs, nblocks, S = IVF_ADC_SHAPES[shape]
     lut, scales = _lut_pack(rng, (b, Dp, K), lut_dtype)
     cap = nblocks * bs
     codes = rng.randint(0, K, size=(cap, Dp)).astype(np.uint8)
     ids = np.where(rng.rand(cap) < 0.3, -1, np.arange(cap)).astype(np.int32)
     ids[-bs:] = -1                                     # sentinel block
     ids = ids if masked else None
-    block_idx = rng.randint(0, nblocks, size=S).astype(np.int32)
-    block_idx[::7] = nblocks - 1
-    block_query = np.sort(rng.randint(0, b, size=S)).astype(np.int32)
-    block_query[-5:] = 0                               # a query returns
+    block_idx, block_query, spq = _ivf_schedule(rng, shape)
     j_scales, t_scales = _pair(scales)
     j_ids, t_ids = _pair(ids)
     want = jops.ivf_adc(jnp.asarray(lut), jnp.asarray(codes),
@@ -119,6 +154,93 @@ def test_ivf_adc_matches_jax_kernel(lut_dtype, masked):
     got = tops.ivf_adc(_t(lut), _t(codes), _t(block_idx), _t(block_query),
                        t_scales, t_ids, block_size=bs)
     _assert_scores(got, want)
+    if masked and spq:
+        assert np.all(np.isneginf(got.numpy()[2 * spq:3 * spq]))
+
+
+# (b, steps_per_query) of the ivf_adc launches on the main path: serve_p99
+# and the Engine's buckets 8, 64, 128 (and 512) at nprobe 32 over the
+# N = 1M index (about 18 tiles in its longest list), one query, and a
+# schedule with more steps a query than the grid has blocks
+IVF_PLAN_CASES = {"serve_p99": (512, 32 * 18), "bucket_8": (8, 32 * 18),
+                  "bucket_64": (64, 32 * 18), "bucket_128": (128, 32 * 18),
+                  "one_query": (1, 32 * 18), "bucket_4096": (4096, 32 * 18),
+                  "long_query": (3, 5000), "nprobe_1": (512, 1)}
+
+
+@pytest.mark.parametrize("case", sorted(IVF_PLAN_CASES))
+def test_ivf_adc_plan_query_aligned_runs(case):
+    """Every step lies in exactly one block's run, no run crosses a query,
+    and the grid is about ``_IVF_WAVES`` resident waves of the card's 132
+    SMs (at least one run a query, none shorter than ``_IVF_MIN_PASSES``
+    passes of a block unless its query is), at least a block an SM on the
+    main path."""
+    b, spq = IVF_PLAN_CASES[case]
+    S, sms, bs, Dp, K = b * spq, 132, 128, 32, 256
+    plan = tops.ivf_adc_plan(S, b, bs, Dp, K, sms=sms)
+    assert plan["smem"] == 4 * Dp * K + 8 * tops._IVF_WINDOW
+    assert plan["smem"] <= tops._SMEM_LIMIT
+    assert plan["steps_per_query"] == spq
+    starts = tops.ivf_adc_run_starts(plan, S).numpy()
+    assert len(starts) == plan["blocks"] == b * plan["runs_per_query"]
+    query = starts // spq
+    ends = np.minimum(starts + plan["run"], (query + 1) * spq)
+    assert np.all((ends - 1) // spq == query)          # within its query
+    steps = np.concatenate([np.arange(s, e) for s, e in zip(starts, ends)])
+    np.testing.assert_array_equal(np.sort(steps), np.arange(S))
+    target = tops._IVF_WAVES * sms * min(
+        tops._IVF_BLOCKS, tops._resident(plan["threads"], plan["smem"]))
+    assert plan["blocks"] <= max(b, target + b)        # one run a query
+    assert plan["run"] >= min(spq, tops._IVF_MIN_PASSES * plan["threads"]
+                              // bs)
+    if case.startswith(("serve", "bucket")):           # the main path's
+        assert plan["blocks"] >= sms
+
+
+@pytest.mark.parametrize("S,b", [(41, 4), (31, 5), (100_001, 512)])
+def test_ivf_adc_plan_any_schedule(S, b):
+    """A schedule whose steps are not a multiple of its queries is cut into
+    runs in schedule order that cover it once; the kernel then restages its
+    table wherever the query changes."""
+    plan = tops.ivf_adc_plan(S, b, 16, 8, 16, sms=132)
+    assert plan["steps_per_query"] == 0 and plan["runs_per_query"] == 0
+    starts = tops.ivf_adc_run_starts(plan, S).numpy()
+    ends = np.minimum(starts + plan["run"], S)
+    steps = np.concatenate([np.arange(s, e) for s, e in zip(starts, ends)])
+    np.testing.assert_array_equal(np.sort(steps), np.arange(S))
+
+
+# (b, N, Dp, K): the flat check (64 queries over the N = 1M index's
+# 1,071,872 CSR rows), the train eval (256 over 1,541,673 rows, Dp = 64),
+# and small batches on either side of the four-query chunk
+ADC_LOOKUP_PLAN_CASES = {"b1": (1, 1_071_872, 32, 256),
+                         "b3": (3, 1_071_872, 32, 256),
+                         "b4": (4, 1_071_872, 32, 256),
+                         "b5": (5, 1_071_872, 32, 256),
+                         "flat_check": (64, 1_071_872, 32, 256),
+                         "train_eval": (256, 1_541_673, 64, 256),
+                         "dp24": (5, 1000, 24, 256)}
+
+
+@pytest.mark.parametrize("case", sorted(ADC_LOOKUP_PLAN_CASES))
+def test_adc_lookup_plan_chunks(case):
+    """The chunks of rc queries cover the batch once (the last may be
+    partial), the staged tables fit one block's shared memory, the row runs
+    cover every code row once, and the main path's shapes fill the card."""
+    b, N, Dp, K = ADC_LOOKUP_PLAN_CASES[case]
+    plan = tops.adc_lookup_plan(b, N, Dp, K, sms=132)
+    rc = plan["rc"]
+    # four queries a chunk from b = 3 on; two where four 64 KiB tables do
+    # not fit
+    assert rc == (2 if case == "train_eval" else 4 if b >= 3 else b)
+    assert plan["chunks"] * rc >= b > (plan["chunks"] - 1) * rc
+    assert plan["smem"] == 4 * rc * Dp * K <= tops._SMEM_LIMIT
+    assert plan["rows"] % plan["threads"] == 0
+    runs = -(-N // plan["rows"])
+    assert runs * plan["rows"] >= N > (runs - 1) * plan["rows"]
+    assert plan["blocks"] == plan["chunks"] * runs
+    if N > 10_000:
+        assert plan["blocks"] >= 132
 
 
 @pytest.mark.parametrize("dtype", ["int8", "uint8"])
