@@ -45,9 +45,11 @@ Phases, one JSON line each:
            backends against the plain Q·Xᵀ; counts are set to 0 just
            before the path and read just after it. Then fused_lut against
            its plain version on the path's operands (b = 512 at two
-           rotations, b = 1, 37, 300, a depth-2 RQ column map, n = 512),
-           and its time beside the two library calls that compute the same
-           tables and the eager LUT stage. The 1M-row index is freed after;
+           rotations, b = 1, 37, 300 and the Engine's buckets 8, 64, 128,
+           a depth-2 RQ column map, n = 512, and its launch plan's edges:
+           Dp = 31, K = 250, a Q that is not 16-byte aligned), and its
+           time beside the two library calls that compute the same tables
+           and the eager LUT stage. The 1M-row index is freed after;
   train    the training slice at the full width of the paper's two-tower
            model (configs/paper_twotower.make_config: 1,541,673 items,
            embedding 512, towers (512, 512), history 16, D = 64, K = 256)
@@ -65,11 +67,13 @@ Phases, one JSON line each:
   train_kernels
            givens_rotate, pq_assign and embedding_bag against their plain
            versions on the operands the train phase gave them, plus ragged
-           shapes (odd n with unpaired columns, the coarse-VQ shape with a
-           row of its own, m not a multiple of the tile, one row, sub = 16
-           and 17 on either side of pq_assign's two bodies, weights,
-           padding and empty bags) and the rotation's backward, timed like
-           the others; adc_lookup on the eval retrieval's own tables
+           shapes (odd n with unpaired columns, givens_rotate's run edges
+           at (8192, 256), 8,197 and 15 rows and an unaligned X, the
+           coarse-VQ shape with a row of its own, m not a multiple of the
+           tile, one row, sub = 16 and 17 on either side of pq_assign's
+           two bodies, weights, padding and empty bags) and the
+           rotation's backward, timed like the others; adc_lookup on the
+           eval retrieval's own tables
            (Dp = 64) over the encoded corpus, and gcd_score on the last GCD
            step's (G, R) at n = 512 beside its torch.matmul yardstick;
   decode   PQ-compressed KV-cache decode of olmo-1b at the full width of
@@ -233,6 +237,20 @@ def flat_cases() -> dict:
     return {"flat_check": (FLAT_QUERIES, D, None),
             "train_eval": (EVAL_QUERIES, cfg.index.num_subspaces,
                            cfg.item_vocab)}
+
+
+def rotate_cases() -> dict:
+    """givens_rotate's (m, n) on the paths, one table for train_kernels'
+    holds and kernel_bench.py: training's R at paper_twotower's index
+    width, the serving refresh's R, coarse centroids and codebook rows (the
+    Engine's fused refresh rotates two matrices of R's shape), and the
+    (TRAIN_BATCH, 512) batch of the backward train_kernels holds."""
+    from repro_torch.configs import paper_twotower
+
+    nt = paper_twotower.make_config().index.dim
+    return {"train_R": (nt, nt), "serve_R": (DIM, DIM),
+            "centroids": (L, DIM), "codebook_rows": (D * K, DIM),
+            "backward": (TRAIN_BATCH, nt)}
 
 
 #: batches at which the kernels phase holds both scans bit-equal to their
@@ -646,6 +664,21 @@ def ivf_library(lut32, codes, bi, bq, bs: int):
                              mode="sum")
 
 
+def flat_library(lut, codes):
+    """The adc_lookup library yardstick: one embedding_bag, each code row a
+    bag of its Dp entries of the (Dp·K, b) table, giving the scores
+    transposed; unmasked, and its int32 index tensor is made here, outside
+    the call that is timed."""
+    import torch
+    import torch.nn.functional as F
+
+    _, Dp, Kc = lut.shape
+    bag = codes.int() + torch.arange(Dp, device=codes.device,
+                                     dtype=torch.int32) * Kc
+    table = lut.permute(1, 2, 0).reshape(Dp * Kc, -1).contiguous()
+    return functools.partial(F.embedding_bag, bag, table, mode="sum")
+
+
 def _bound(nbytes: int, flops: int) -> dict:
     """The least time on the card: the larger of bytes over the memory rate
     and float32 operations over the float32 rate."""
@@ -666,7 +699,6 @@ def _lut_variants(lut):
 def phase_kernels(ctx: dict) -> dict:
     """Each kernel against its plain version on the main path's operands."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.index import ivf
     from repro_torch.index import search as index_search
@@ -816,16 +848,10 @@ def phase_kernels(ctx: dict) -> dict:
                     launches=20)
     p_ms = graph_ms(lambda: ref.adc_lookup_ref(lutf, codes, None, ids),
                     launches=2)
-    # the library yardstick: one embedding_bag, each CSR row a bag of its
-    # Dp entries of the (Dp·K, b) table, giving the scores transposed;
-    # unmasked, and its int32 index tensor is made outside the timed call
-    bag = codes.int() + torch.arange(D, device=codes.device,
-                                     dtype=torch.int32) * K
-    table = lutf.permute(1, 2, 0).reshape(D * K, -1).contiguous()
-    lib = functools.partial(F.embedding_bag, bag, table, mode="sum")
+    lib = flat_library(lutf, codes)
     compare(lib().T, ref.adc_lookup_ref(lutf, codes), ATOL, RTOL)
     lib_ms = graph_ms(lib, launches=5)
-    del bag, table, lib
+    del lib
     all_tiles = torch.arange(index.capacity // BS, device=codes.device)
     qf = QRf.shape[0]
     nbytes = _scan_bytes(lutf, None, codes, ids, all_tiles, BS,
@@ -1280,10 +1306,29 @@ def phase_engine(ctx: dict, smi: str):
     for name, qd in (("b512_attach", state0.qdelta),
                      ("b512_after_gcd_g", state.qdelta)):
         _hold_fused_lut(name, QR512, qd, cb, colmap, errs, rel, fails)
-    for b in (1, 37, 300):
+    # one query, ragged batches (b not a multiple of the plan's query
+    # tile) and the Engine's smaller buckets
+    buckets = [b for b in engine_buckets() if b != BATCHES[0]]
+    for b in (1, 37, 300, *buckets):
         qb = ivf.rotate_queries(state, pool[:b])
         _hold_fused_lut(f"b{b}", qb, state.qdelta, cb, colmap, errs, rel,
                         fails)
+    # the layout's edges: Dp = 31 (not a multiple of the column group the
+    # plan takes at b = 300 and 512), K = 250 (scalar stores; a span that
+    # runs past K), and Q at an address that is not 16-byte aligned
+    # (4-byte copies)
+    q300 = ivf.rotate_queries(state, pool[:300])
+    for name, qb in (("b512", QR512), ("b300", q300)):
+        _hold_fused_lut(f"dp31_{name}", qb, state.qdelta,
+                        cb[:31].contiguous(), colmap[:31], errs, rel, fails)
+    for name, qb in (("b512", QR512), ("b37", q300[:37]), ("b1", q300[:1])):
+        _hold_fused_lut(f"k250_{name}", qb.contiguous(), state.qdelta,
+                        cb[:, :250].contiguous(), colmap, errs, rel, fails)
+    spill = torch.empty(37 * DIM + 1, device=cb.device)
+    q_odd = spill[1:].view(37, DIM)
+    q_odd.copy_(q300[:37])
+    _hold_fused_lut("unaligned_q", q_odd, state.qdelta, cb, colmap, errs,
+                    rel, fails)
     levels = torch.cat([cb, 0.5 * cb.flip(1)])            # (2D, K, sub)
     rq_map = torch.eye(D, device=cb.device)[
         torch.arange(2 * D, device=cb.device) % D]
@@ -1795,6 +1840,21 @@ def phase_train_kernels(ctx: dict) -> dict:
                       perm[:200].int().contiguous(),
                       perm[200:400].int().contiguous(),
                       torch.cos(th), torch.sin(th))
+    # the plan's edges at the serving width: (8192, 256) (the codebook
+    # rows' shape, 16-row runs), a last run cut short (8197 rows), fewer
+    # rows than that run (15), and X at an address that is not 16-byte
+    # aligned (4-byte copies)
+    mc, nc = rotate_cases()["codebook_rows"]
+    perm = torch.randperm(nc, generator=g, device=dev)
+    th = 0.1 * torch.randn(nc // 2, generator=g, device=dev)
+    pairs = (perm[:nc // 2].int().contiguous(),
+             perm[nc // 2:].int().contiguous(), torch.cos(th), torch.sin(th))
+    for name, m in (("rows_8192", mc), ("ragged_run", mc + 5),
+                    ("rows_15", 15)):
+        cases[name] = (torch.randn((m, nc), generator=g, device=dev),
+                       *pairs)
+    spill = torch.randn(100 * nc + 1, generator=g, device=dev)
+    cases["unaligned_x"] = (spill[1:].view(100, nc), *pairs)
     for name, args in cases.items():
         got = ops.givens_rotate(*args)
         want = ref.pair_rotate_ref(*args)

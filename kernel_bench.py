@@ -24,9 +24,19 @@ operands at the smoke's shapes:
     requests send them;
   * ``adc_lookup`` at every entry of ``chip_smoke.flat_cases()`` (the flat
     check over that index, masked; the train eval's (256, 64, 256) tables
-    over 1,541,673 random codes, unmasked);
+    over 1,541,673 random codes, unmasked), with the smoke's
+    ``flat_library`` yardstick (one ``F.embedding_bag``, unmasked);
   * ``adc_batch`` at the decode shape (g = 16, r = 1, Dp = 16,
-    S = 524,288), which shares the scans' source.
+    S = 524,288), which shares the scans' source;
+  * ``fused_lut`` at ``chip_smoke.ivf_cases()``' batches (serve_p99 and
+    the Engine's buckets) at the serving width (n = 256, Dp = 32,
+    K = 256, sub = 8), with the two library calls that compute the same
+    tables (``torch.matmul`` by qdelta, then ``torch.bmm`` over the
+    subspaces);
+  * ``givens_rotate`` at every entry of ``chip_smoke.rotate_cases()``
+    (training's R, the serving refresh's R, centroids and codebook rows,
+    the backward's batch) with n / 2 pairs, with one ``torch.matmul`` by
+    the dense rotation.
 
 Each scan row also prints its schedule (S, max_blocks, live rows), the
 table loads and lookups of one launch, and its shared-gather floor: the
@@ -53,11 +63,15 @@ stage taken out (the contraction alone, on stale data); the scans
 with only the table loads left, with the lookups replaced by a sum of the
 raw code bytes and no table loaded (the code and id reads alone), and with
 every row's codes read from one 4,096-row window that stays in cache (the
-lookups, with the table loads and id reads).
+lookups, with the table loads and id reads); ``fused_lut`` at its batches
+with the table entries neither formed nor written (the rotation alone) and
+with nothing staged or rotated and every entry stored as a constant (the
+table write alone). The ``fused_lut`` edits carry a second list for the
+source before its redesign, so ``--src`` splits the parent alike.
 
-``--sweep`` times the scans at their cases under each setting of the
-launch plans' constants in ``SWEEP`` (the other constants at their
-defaults), to show what the chosen values give.
+``--sweep`` times the scans, ``fused_lut`` and ``givens_rotate`` at their
+cases under each setting of the launch plans' constants in ``SWEEP`` (the
+other constants at their defaults), to show what the chosen values give.
 
 One JSON line per case, then the card's ``nvidia-smi`` name and power
 limit. Exits 1 without a CUDA device.
@@ -76,8 +90,9 @@ import chip_smoke as smoke
 #: the serving width, the training width (paper_twotower's 512) and the
 #: ragged widths the smoke checks
 GCD_NS = tuple(sorted({smoke.DIM, 512, *smoke.GCD_RAGGED}))
-KERNELS = ("gcd_score", "pq_assign", "ivf_adc", "adc_lookup", "adc_batch")
-SPLIT_KERNELS = ("gcd_score", "ivf_adc", "adc_lookup")
+KERNELS = ("gcd_score", "pq_assign", "ivf_adc", "adc_lookup", "adc_batch",
+           "fused_lut", "givens_rotate")
+SPLIT_KERNELS = ("gcd_score", "ivf_adc", "adc_lookup", "fused_lut")
 BATCH_SHAPE = (16, 1, 16, 524_288)  # adc_batch (g, r, Dp, S) at decode
 WINDOW = 4096                        # --split: rows of the cached window
 
@@ -114,13 +129,56 @@ _SCAN_PARTS = {
     "lookups_only": [("codes + row * Dp",
                       f"codes + (row & {WINDOW - 1}) * Dp")],
 }
+# fused_lut: each part is a tuple of edit lists, the first whose texts all
+# occur applies: this checkout's source, then the source before its
+# redesign (the two-stage kernel of one code column a block), so that
+# parent and change split alike
+_LUT_PARTS = {
+    # the rotation alone: no table entry formed or written, one entry of
+    # the rotated sub-queries stored so they stay live
+    "rotation_only": (
+        [("  for (int e = tid; e < items * qs; e += kThreads) {",
+          "  if (tid == 0) lut[b0] = q_s[0];\n"
+          "  for (int e = items * qs; e < items * qs; e += kThreads) {")],
+        [("  for (int k = tid; k < K; k += blockDim.x) {",
+          "  if (tid == 0) lut[b0] = qr_s[0];\n"
+          "  for (int k = K; k < K; k += blockDim.x) {")]),
+    # the table write alone: nothing staged or rotated, every entry
+    # stored as a constant by the kernel's own stores
+    "write_only": (
+        [("  if (vec_in) {\n    const int n4 = n / 4;",
+          "  if (vec_in && n < 0) {\n    const int n4 = n / 4;"),
+         ("  } else {\n    for (int e = tid; e < tile * n; e += kThreads) {",
+          "  } else if (n < 0) {\n"
+          "    for (int e = tid; e < tile * n; e += kThreads) {"),
+         ("    for (int c = lo; c < hi; ++c) {",
+          "    for (int c = hi; c < hi; ++c) {"),
+         ("  for (int o = tid; o < tile * gs; o += kThreads) {",
+          "  for (int o = tile * gs; o < tile * gs; o += kThreads) {"),
+         ("make_float4(a[0], a[1], a[2], a[3])",
+          "make_float4(1.f, 1.f, 1.f, 1.f)"),
+         ("if (k + kk < k1) out[kk] = a[kk];",
+          "if (k + kk < k1) out[kk] = 1.f;")],
+        [("  for (int e = tid; e < n * SUB; e += blockDim.x) {",
+          "  for (int e = n * SUB; e < n * SUB; e += blockDim.x) {"),
+         ("    if (i < rows) {", "    if (i < 0) {"),
+         ("  for (int o = tid; o < tile * SUB; o += blockDim.x) {",
+          "  for (int o = tile * SUB; o < tile * SUB; o += blockDim.x) {"),
+         ("      out[static_cast<long long>(i) * Dp * K] = acc;",
+          "      out[static_cast<long long>(i) * Dp * K] = 1.f;")]),
+}
 SPLITS = {"gcd_score": ("gcd_score.cu", _GCD_PARTS),
-          "scans": ("adc_scan.cu", _SCAN_PARTS)}
+          "scans": ("adc_scan.cu", _SCAN_PARTS),
+          "fused_lut": ("fused_lut.cu", _LUT_PARTS)}
 #: --sweep: each launch-plan constant of kernels/ops.py and its settings
 SWEEP = {"ivf_adc": {"_IVF_WAVES": (1, 2, 4, 8),
                      "_IVF_MIN_PASSES": (1, 2, 4, 8)},
          "adc_lookup": {"_FLAT_WAVES": (2, 4, 8, 16),
-                        "_FLAT_MIN_ROWS": (1, 4, 16)}}
+                        "_FLAT_MIN_ROWS": (1, 4, 16)},
+         "fused_lut": {"_LUT_FILL": (0.45, 0.9, 1.8),
+                       "_LUT_MAX_RUNS": (8, 16, 32)},
+         "givens_rotate": {"_ROTATE_WAVES": (1, 2, 4),
+                           "_ROTATE_RUN_BYTES": (4096, 8192, 32_768)}}
 
 
 def _gcd_operands(g, n: int):
@@ -342,6 +400,7 @@ def time_flat(index, Q, g, clock_hz: float) -> None:
         nbytes = (lut.numel() * 4 + (0 if ids is None else N * 4)
                   + n_live * Dp + b * N * 4)
         flops = b * n_live * Dp
+        lib = smoke.flat_library(lut, codes)
         _emit(kernel="adc_lookup", case=name, b=b, Dp=Dp, K=K, N=N,
               masked=ids is not None, live_rows=n_live, lookups=flops,
               **floors,
@@ -349,8 +408,9 @@ def time_flat(index, Q, g, clock_hz: float) -> None:
                                                        ids), launches=5),
               plain_ms=smoke.graph_ms(lambda: ref.adc_lookup_ref(
                   lut, codes, None, ids), launches=1),
+              library_ms=smoke.graph_ms(lib, launches=2),
               bytes=nbytes, flops=flops, **smoke._bound(nbytes, flops))
-        del codes
+        del codes, lib
 
 
 def time_batch(g) -> None:
@@ -371,6 +431,109 @@ def time_batch(g) -> None:
           bytes=nbytes, flops=flops, **smoke._bound(nbytes, flops))
 
 
+# -- fused_lut and givens_rotate --------------------------------------------
+
+
+def lut_operands(g, b: int):
+    """Seeded operands of fused_lut at the serving width: b queries, an
+    orthogonal qdelta, (D, K, DIM / D) codebooks, the identity column map
+    and its integer form."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    n, dev = smoke.DIM, g.device
+    Q = torch.randn((b, n), generator=g, device=dev)
+    qd = torch.linalg.qr(torch.randn((n, n), generator=g,
+                                     device=dev))[0].contiguous()
+    cb = torch.randn((smoke.D, smoke.K, n // smoke.D), generator=g,
+                     device=dev)
+    colmap = torch.eye(smoke.D, device=dev)
+    return Q, qd, cb, colmap, ops.lut_column_map(colmap)
+
+
+def lut_work(b: int, n: int, Dp: int, K: int, sub: int) -> dict:
+    """Bytes (operands read once, the table written once) and float32
+    operations of one fused_lut call, as chip_smoke.py counts them."""
+    nbytes = 4 * (b * n + n * n + Dp * K * sub + b * Dp * K + Dp)
+    flops = 2 * b * n * n + 2 * b * Dp * K * sub
+    return dict(bytes=nbytes, flops=flops, **smoke._bound(nbytes, flops))
+
+
+def time_lut(g, plan_stats: bool) -> None:
+    """fused_lut at chip_smoke.ivf_cases()' batches (serve_p99 and the
+    Engine's buckets), beside its plain version and the two library calls
+    that compute the same tables."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    for name, b in smoke.ivf_cases().items():
+        Q, qd, cb, colmap, cols = lut_operands(g, b)
+        Dp, K, sub = cb.shape
+        cbT = cb.transpose(1, 2).contiguous()
+
+        def two_calls():
+            QL = torch.matmul(Q, qd).view(b, Dp, sub).transpose(0, 1)
+            return torch.bmm(QL, cbT)
+
+        row = dict(kernel="fused_lut", case=name, b=b, n=Q.shape[1], Dp=Dp,
+                   K=K, sub=sub)
+        if plan_stats:
+            row["plan"] = ops.fused_lut_plan(b, Q.shape[1], Dp, K, sub,
+                                             ops._sms(Q.device))
+        _emit(**row,
+              ms=smoke.graph_ms(lambda: ops.fused_lut(Q, qd, cb, colmap,
+                                                      cols=cols),
+                                launches=50),
+              plain_ms=smoke.graph_ms(
+                  lambda: ref.fused_lut_ref(Q, qd, cb, colmap), launches=20),
+              library_ms=smoke.graph_ms(two_calls, launches=20),
+              **lut_work(b, Q.shape[1], Dp, K, sub))
+
+
+def rotate_operands(g, m: int, n: int):
+    """Seeded X (m, n) and n // 2 disjoint pairs with small angles."""
+    import torch
+
+    dev = g.device
+    X = torch.randn((m, n), generator=g, device=dev)
+    perm = torch.randperm(n, generator=g, device=dev)
+    p = n // 2
+    th = 0.1 * torch.randn(p, generator=g, device=dev)
+    return (X, perm[:p].int().contiguous(), perm[p:2 * p].int().contiguous(),
+            torch.cos(th), torch.sin(th))
+
+
+def time_rotate(g, plan_stats: bool) -> None:
+    """givens_rotate at every entry of chip_smoke.rotate_cases(), beside
+    its plain version and one torch.matmul by the dense rotation."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    for name, (m, n) in smoke.rotate_cases().items():
+        X, pi, pj, c, s = rotate_operands(g, m, n)
+        delta = ref.pair_rotate_ref(torch.eye(n, device=X.device), pi, pj,
+                                    c, s)
+        p = pi.numel()
+        nbytes, flops = 2 * m * n * 4 + 4 * p * 4, 6 * m * p
+        launches = 100 if m * n <= 1 << 20 else 20
+        row = dict(kernel="givens_rotate", case=name, m=m, n=n, pairs=p)
+        if plan_stats:
+            row["plan"] = ops.givens_rotate_plan(m, n, ops._sms(X.device))
+        _emit(**row,
+              ms=smoke.graph_ms(lambda: ops.givens_rotate(X, pi, pj, c, s),
+                                launches=launches),
+              plain_ms=smoke.graph_ms(
+                  lambda: ref.pair_rotate_ref(X, pi, pj, c, s),
+                  launches=launches),
+              library_ms=smoke.graph_ms(lambda: torch.matmul(X, delta),
+                                        launches=launches),
+              bytes=nbytes, flops=flops, **smoke._bound(nbytes, flops))
+        del X, delta
+
+
 # -- --split -----------------------------------------------------------------
 
 
@@ -387,12 +550,16 @@ class _Swapped:
 
 
 def _variant(source: str, part: str, edits) -> ctypes.CDLL:
-    """Build a copy of csrc/``source`` edited by ``edits``."""
+    """Build a copy of csrc/``source`` edited by ``edits``: an edit list,
+    or a tuple of them of which the first whose texts all occur applies."""
     from repro_torch.kernels import _build
 
     out_dir = _build.BUILD_DIR.parent / "kernel_bench"
     out_dir.mkdir(parents=True, exist_ok=True)
     text = (_build.CSRC / source).read_text()
+    options = edits if isinstance(edits, tuple) else (edits,)
+    edits = next((opt for opt in options
+                  if all(old in text for old, _ in opt)), options[0])
     for old, new in edits:
         if old not in text:
             raise RuntimeError(f"--split {part}: {old!r} is not in {source}")
@@ -471,6 +638,32 @@ def scan_split(index, Q, g) -> None:
         _build._lib = base
 
 
+def lut_split(g) -> None:
+    """Time fused_lut beside its rotation alone and its table write alone
+    (see the module docstring) at chip_smoke.ivf_cases()' batches."""
+    from repro_torch.kernels import _build, ops
+
+    source, parts = SPLITS["fused_lut"]
+    base = _build.library()
+    libs = {"full": base}
+    for part, edits in parts.items():
+        libs[part] = _Swapped(base, _variant(source, part, edits),
+                              ("repro_fused_lut",))
+        _build._declare(libs[part])
+    try:
+        for name, b in smoke.ivf_cases().items():
+            Q, qd, cb, colmap, cols = lut_operands(g, b)
+            row = dict(kernel="fused_lut", case=name, b=b)
+            for part, lib in libs.items():
+                _build._lib = lib
+                row[f"{part}_ms"] = smoke.graph_ms(
+                    lambda: ops.fused_lut(Q, qd, cb, colmap, cols=cols),
+                    launches=50)
+            _emit(**row)
+    finally:
+        _build._lib = base
+
+
 def sweep(index, Q, g, only) -> None:
     """Time the scans at their cases under every combination of the
     settings in SWEEP of their launch plans' constants."""
@@ -478,10 +671,14 @@ def sweep(index, Q, g, only) -> None:
 
     from repro_torch.kernels import ops
 
-    codes, ids, bs = index.codes, index.ids, smoke.BS
-    sms = ops._sms(codes.device)
+    sms = ops._sms(g.device)
     ivf = list(ivf_operands(index, Q)) if "ivf_adc" in only else []
     flat = list(flat_operands(index, Q, g)) if "adc_lookup" in only else []
+    luts = ([(name, lut_operands(g, b)) for name, b in
+             smoke.ivf_cases().items()] if "fused_lut" in only else [])
+    rots = ([(name, rotate_operands(g, m, n)) for name, (m, n) in
+             smoke.rotate_cases().items()] if "givens_rotate" in only
+            else [])
     for kernel, consts in SWEEP.items():
         if kernel not in only:
             continue
@@ -493,6 +690,7 @@ def sweep(index, Q, g, only) -> None:
                     setattr(ops, c, v)
                 row = dict(kernel=kernel, **setting)
                 if kernel == "ivf_adc":
+                    codes, ids, bs = index.codes, index.ids, smoke.BS
                     for name, b, mb, bi, bq, lut in ivf:
                         row[f"{name}_ms"] = smoke.graph_ms(
                             lambda: ops.ivf_adc(lut, codes, bi, bq, None,
@@ -500,6 +698,22 @@ def sweep(index, Q, g, only) -> None:
                             launches=20)
                         row[f"{name}_blocks"] = ops.ivf_adc_plan(
                             bi.numel(), b, bs, *lut.shape[1:], sms)["blocks"]
+                elif kernel == "fused_lut":
+                    for name, (Qb, qd, cb, colmap, cols) in luts:
+                        row[f"{name}_ms"] = smoke.graph_ms(
+                            lambda: ops.fused_lut(Qb, qd, cb, colmap,
+                                                  cols=cols), launches=50)
+                        row[f"{name}_blocks"] = ops.fused_lut_plan(
+                            Qb.shape[0], Qb.shape[1], *cb.shape,
+                            sms)["blocks"]
+                elif kernel == "givens_rotate":
+                    for name, (X, pi, pj, c, s) in rots:
+                        m, n = X.shape
+                        row[f"{name}_ms"] = smoke.graph_ms(
+                            lambda: ops.givens_rotate(X, pi, pj, c, s),
+                            launches=100 if m * n <= 1 << 20 else 20)
+                        row[f"{name}_blocks"] = ops.givens_rotate_plan(
+                            m, n, sms)["blocks"]
                 else:
                     for name, lut, cd, idv in flat:
                         row[f"{name}_ms"] = smoke.graph_ms(
@@ -548,12 +762,14 @@ def main() -> int:
         index, Q = _serving(g)
         clock_hz = _sm_clock_hz()
     if args.sweep:
-        sweep(index, Q, g, only)
+        sweep(index if scans else None, Q if scans else None, g, only)
     elif args.split:
         if "gcd_score" in only:
             gcd_split(g)
         if scans:
             scan_split(index, Q, g)
+        if "fused_lut" in only:
+            lut_split(g)
     else:
         if "gcd_score" in only:
             for n in GCD_NS:
@@ -567,6 +783,10 @@ def main() -> int:
             time_flat(index, Q, g, clock_hz)
         if "adc_batch" in only:
             time_batch(g)
+        if "fused_lut" in only:
+            time_lut(g, plan_stats=args.src is None)
+        if "givens_rotate" in only:
+            time_rotate(g, plan_stats=args.src is None)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

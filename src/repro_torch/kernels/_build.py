@@ -103,14 +103,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_adc_lookup.restype = i
     lib.repro_gcd_score.argtypes = [p, p, p, i, i, p]
     lib.repro_gcd_score.restype = i
-    lib.repro_givens_rotate.argtypes = [p, p, p, p, p, p, ll, i, i, i, p]
+    lib.repro_givens_rotate.argtypes = [p, p, p, p, p, p, ll, i, i, i, i,
+                                        ll, p]
     lib.repro_givens_rotate.restype = i
     lib.repro_pq_assign.argtypes = [p, p, p, ll, i, i, i, i, i, i, i, i, i,
                                      p]
     lib.repro_pq_assign.restype = i
     lib.repro_embedding_bag.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.repro_embedding_bag.restype = i
-    lib.repro_fused_lut.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.repro_fused_lut.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
+                                    i, i, ll, p]
     lib.repro_fused_lut.restype = i
     lib.repro_adc_batch.argtypes = [p, i, p, p, p, i, i, ll, i, i, i, i, i,
                                     p]

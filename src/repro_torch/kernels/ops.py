@@ -23,6 +23,7 @@ kernel for it either).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -34,12 +35,12 @@ from repro_torch.kernels.adc_common import (  # noqa: F401
 )
 
 __all__ = ["gcd_score", "gcd_score_tile", "givens_rotate",
-           "apply_pair_rotations", "pq_assign", "pq_assign_plan",
-           "embedding_bag", "adc_lookup", "adc_lookup_plan", "adc_batch",
-           "ivf_adc", "ivf_adc_plan", "ivf_adc_run_starts", "fused_lut",
-           "lut_column_map", "topk_merge",
-           "quantize_luts", "dequantize_luts", "LUT_DTYPES", "LAUNCHES",
-           "reset_launches"]
+           "givens_rotate_plan", "apply_pair_rotations", "pq_assign",
+           "pq_assign_plan", "embedding_bag", "adc_lookup",
+           "adc_lookup_plan", "adc_batch", "ivf_adc", "ivf_adc_plan",
+           "ivf_adc_run_starts", "fused_lut", "fused_lut_plan",
+           "lut_column_map", "topk_merge", "quantize_luts",
+           "dequantize_luts", "LUT_DTYPES", "LAUNCHES", "reset_launches"]
 
 #: Kernel launches per kernel in this process (see module docstring).
 LAUNCHES = {"ivf_adc": 0, "adc_lookup": 0, "gcd_score": 0, "givens_rotate": 0,
@@ -58,9 +59,13 @@ _FLAT_RC = (4, 2, 1)     # queries per block of the flat scan, widest first
 _FLAT_WAVES = 4          # resident waves of blocks of the flat scan's grid
 _FLAT_MIN_ROWS = 4       # code rows per thread of a flat-scan block, least
 _LUT_KIND = {torch.float32: 0, torch.int8: 1, torch.uint8: 2}
-_ROTATE_ROWS = 8         # rows per block of the plane rotation
-_LUT_TILE = 32           # queries per block of the fused LUT build
+_ROTATE_THREADS = 256    # threads per block of the plane rotation, most
+_ROTATE_WAVES = 1        # blocks per SM its grid has, at least
+_ROTATE_RUN_BYTES = 8192  # bytes of X one block of it stages, most
+_LUT_TILES = (32, 16, 8, 4, 2, 1)  # query tiles of the fused LUT build
 _LUT_THREADS = 256       # threads per block of it (kThreads in the source)
+_LUT_MAX_RUNS = 16       # runs of the inputs of its rotation, most
+_LUT_FILL = 0.9          # blocks per SM its grid has, at least
 _BATCH_ROWS = (8192, 1024)  # longest and shortest row run of a block of
 #                             the grouped scan
 _BATCH_TABLES = 8        # tables of a group per block (kMaxTables)
@@ -162,12 +167,30 @@ def gcd_score(G: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def givens_rotate_plan(m: int, n: int, sms: int) -> dict:
+    """Launch plan of the givens_rotate kernel for X (m, n) on a card with
+    ``sms`` SMs: each block stages a run of ``rows`` whole rows in shared
+    memory, as many as still give the grid ``_ROTATE_WAVES`` blocks an SM
+    (one row a block at (256, 256), three at (512, 512)) and no more than
+    ``_ROTATE_RUN_BYTES`` of X (8 rows at (8192, 256)), with one thread per
+    four columns of the run up to ``_ROTATE_THREADS``. Each block builds
+    the column map anew, so fewer, longer runs win where the card is
+    filled (``kernel_bench.py --sweep`` times other values of the
+    constants). ``smem`` is the column map (12 bytes a column) and the
+    run, which the kernel's entry checks against its own count."""
+    rows = max(1, min(m // (_ROTATE_WAVES * sms),
+                      _ROTATE_RUN_BYTES // (4 * max(n, 1))))
+    threads = min(_ROTATE_THREADS, max(32, -(-rows * -(-n // 4) // 32) * 32))
+    return dict(rows=rows, threads=threads, smem=12 * n + 4 * rows * n,
+                blocks=-(-m // rows))
+
+
 def givens_rotate(X: torch.Tensor, pi: torch.Tensor, pj: torch.Tensor,
                   c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """X (m, n) with column pairs (pi[l], pj[l]) rotated by cos/sin (p,):
     y_i = c·x_i + s·x_j, y_j = c·x_j − s·x_i; other columns copied. The
     pairs must be disjoint (``apply_pair_rotations`` checks it). Bit-equal
-    to its plain version on the card."""
+    to its plain version on the card (``givens_rotate_plan``)."""
     if not _on_card(X, pi, pj, c, s):
         return ref.pair_rotate_ref(X, pi, pj, c, s)
     m, n = X.shape
@@ -177,15 +200,20 @@ def givens_rotate(X: torch.Tensor, pi: torch.Tensor, pj: torch.Tensor,
     _require(pj, "pj", torch.int32, (p,))
     _require(c, "c", torch.float32, (p,))
     _require(s, "s", torch.float32, (p,))
-    if 12 * n > _SMEM_LIMIT:
-        raise ValueError(f"givens_rotate: n={n} column map does not fit in "
-                         "one block's shared memory")
+    if 16 * n > _SMEM_LIMIT:
+        raise ValueError(f"givens_rotate: n={n}: the column map and one row "
+                         "do not fit in one block's shared memory")
     out = torch.empty_like(X)
     if m and n:
+        plan = givens_rotate_plan(m, n, _sms(X.device))
+        if plan["blocks"] > 2**31 - 1:
+            raise ValueError(f"givens_rotate: {plan['blocks']} blocks exceed "
+                             "the grid's x limit")
         with torch.cuda.device(X.device):
             err = _build.library().repro_givens_rotate(
                 _ptr(X), _ptr(out), _ptr(pi), _ptr(pj), _ptr(c), _ptr(s), m,
-                n, p, _ROTATE_ROWS, _stream(X.device))
+                n, p, plan["rows"], plan["threads"], plan["smem"],
+                _stream(X.device))
         _build.check(err, "givens_rotate")
         LAUNCHES["givens_rotate"] += 1
     return out
@@ -634,6 +662,87 @@ def lut_column_map(colmap: torch.Tensor) -> torch.Tensor:
     return colmap.argmax(dim=1).to(torch.int32).contiguous()
 
 
+def _lut_rotation(n: int, sub: int, tile: int, group: int, max_runs: int):
+    """(rq, runs, smem) of a fused_lut block of ``tile`` queries and
+    ``group`` columns: register tiles of rq queries × 4 slab columns, rq
+    the most (up to 8) that still keeps every thread busy with at most
+    ``max_runs`` runs of the inputs, and ``runs`` of them; ``smem``
+    (``smem_bytes`` in the source) the (n, group·sub) slab and the larger
+    of the padded (tile, n + 4) query tile and the runs' partial sums.
+    None where the register tiles alone outnumber the threads."""
+    gs4 = group * sub // 4
+    rq = min(8, tile)
+    while rq > 1 and (tile // rq) * gs4 * max_runs < _LUT_THREADS:
+        rq //= 2
+    t1 = (tile // rq) * gs4
+    if t1 > _LUT_THREADS:
+        return None
+    runs = min(_LUT_THREADS // t1, max_runs)
+    smem = 4 * (n * 4 * gs4 + max(tile * (n + 4), runs * tile * 4 * gs4))
+    return rq, runs, smem
+
+
+def fused_lut_plan(b: int, n: int, Dp: int, K: int, sub: int,
+                   sms: int) -> dict | None:
+    """Launch plan of the fused_lut kernel for b queries of width n, Dp
+    code columns of K codewords of width sub, on a card with ``sms`` SMs;
+    every block has 256 threads.
+
+    A block owns a ``tile`` of queries (a power of two up to 32, no wider
+    than b needs), a ``group`` of code columns (a power of two, at most as
+    many as give each thread four codewords of one column: 4 at K = 256)
+    and a span of ``kc`` codewords (a multiple of 4; K split in ``ksplit``
+    spans); ``_lut_rotation`` lays out its rotation. Of the layouts whose
+    shared memory fits, the plan takes the one that reads the fewest bytes
+    from L2 (each block reads its query tile, the group's qdelta slab and
+    its codewords) among those whose grid has at least ``_LUT_FILL`` × sms
+    blocks (128 on an H100: the grid comes in powers of two, and one block
+    an SM stages, rotates and writes faster than two that read the same
+    operands twice); where none has, the one with the most blocks. Ties go
+    to the wider group, then the wider tile. None where no layout fits.
+    ``kernel_bench.py --sweep`` times other values of the constants. The
+    plan is worked out once per shape and setting of the constants (a few
+    tens of µs of Python, more than the kernel takes at small b)."""
+    plan = _lut_plan(b, n, Dp, K, sub, sms, _LUT_FILL, _LUT_MAX_RUNS)
+    return None if plan is None else dict(plan)
+
+
+@functools.lru_cache(maxsize=256)
+def _lut_plan(b: int, n: int, Dp: int, K: int, sub: int, sms: int,
+              fill: float, max_runs: int) -> dict | None:
+    k4 = -(-K // 4)
+    target = fill * sms
+    g0 = 1 << (max(1, min(Dp, _LUT_THREADS // max(k4, 1))).bit_length() - 1)
+    best, best_key = None, None
+    for tile in _LUT_TILES:
+        if tile > 1 and tile // 2 >= b:
+            continue
+        group = g0
+        while group >= 1:
+            rot = _lut_rotation(n, sub, tile, group, max_runs)
+            if rot is not None and rot[2] <= _SMEM_LIMIT:
+                ks = 1
+                while ks <= max(k4, 1):
+                    kc = 4 * -(-k4 // ks)
+                    ksplit = -(-K // kc) if K else 1
+                    blocks = -(-b // tile) * -(-Dp // group) * ksplit
+                    reads = 4 * blocks * (n * group * sub + tile * n
+                                          + group * kc * sub)
+                    key = ((0, reads, 0, -group, -tile) if blocks >= target
+                           else (1, -blocks, reads, -group, -tile))
+                    if best_key is None or key < best_key:
+                        best_key = key
+                        best = dict(tile=tile, group=group, kc=kc,
+                                    ksplit=ksplit, rq=rot[0], runs=rot[1],
+                                    threads=_LUT_THREADS, smem=rot[2],
+                                    blocks=blocks)
+                    if blocks >= target:
+                        break
+                    ks *= 2
+            group //= 2
+    return best
+
+
 def fused_lut(Q: torch.Tensor, qdelta: torch.Tensor, cb_flat: torch.Tensor,
               colmap: torch.Tensor, *,
               cols: torch.Tensor | None = None) -> torch.Tensor:
@@ -644,7 +753,8 @@ def fused_lut(Q: torch.Tensor, qdelta: torch.Tensor, cb_flat: torch.Tensor,
     ``cols`` is ``lut_column_map(colmap)``, made once by the caller; the
     card's kernel reads it in place of the one-hot matrix (made here, with
     a host synchronisation, when it is not given). On the card the
-    subspace width must be 4, 8 or 16 and ``cb_flat`` 16-byte aligned."""
+    subspace width must be 4, 8 or 16 and ``cb_flat`` 16-byte aligned;
+    ``fused_lut_plan`` lays out the launch."""
     if not _on_card(Q, qdelta, cb_flat, colmap, cols):
         return ref.fused_lut_ref(Q, qdelta, cb_flat, colmap)
     b, n = Q.shape
@@ -663,20 +773,21 @@ def fused_lut(Q: torch.Tensor, qdelta: torch.Tensor, cb_flat: torch.Tensor,
                          f"16 columns, not {sub}")
     if cb_flat.data_ptr() % 16:
         raise ValueError("fused_lut: cb_flat must be 16-byte aligned")
-    parts = _LUT_THREADS // _LUT_TILE
-    smem = 4 * (n * sub + (1 + parts) * _LUT_TILE * sub)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"fused_lut: a tile of {_LUT_TILE} queries at n={n} "
-                         f"and sub={sub} needs {smem} bytes of shared memory, "
-                         "more than one block has")
-    if Dp > 65535:
-        raise ValueError(f"fused_lut: Dp={Dp} exceeds the grid's y limit")
     out = torch.empty((b, Dp, K), dtype=torch.float32, device=Q.device)
     if b and Dp and K:
+        plan = fused_lut_plan(b, n, Dp, K, sub, _sms(Q.device))
+        if plan is None:
+            raise ValueError(f"fused_lut: at n={n} and sub={sub} not even one "
+                             "query and one column fit in one block's shared "
+                             "memory")
+        if plan["blocks"] > 2**31 - 1:
+            raise ValueError(f"fused_lut: {plan['blocks']} blocks exceed the "
+                             "grid's x limit")
         with torch.cuda.device(Q.device):
             err = _build.library().repro_fused_lut(
                 _ptr(Q), _ptr(qdelta), _ptr(cb_flat), _ptr(cols), _ptr(out),
-                b, n, Dp, K, sub, _LUT_TILE, _stream(Q.device))
+                b, n, Dp, K, sub, plan["tile"], plan["group"], plan["kc"],
+                plan["rq"], plan["runs"], plan["smem"], _stream(Q.device))
         _build.check(err, "fused_lut")
         LAUNCHES["fused_lut"] += 1
     return out

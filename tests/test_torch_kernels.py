@@ -596,3 +596,123 @@ def test_lut_column_maps_are_one_hot():
                 torch.ones((4, 4)), torch.eye(4)[:, :, None]):
         with pytest.raises(ValueError):
             tops.lut_column_map(bad)
+
+
+# (b, n, Dp, K, sub) of the fused_lut launches on the main path (the
+# Engine's buckets 8, 64, 128 and 512 at the serving width, 512 also the
+# serve_p99 batch) and of the edges chip_smoke.py holds on the card: one
+# query, ragged batches, a depth-2 RQ column map, n = 512, Dp not a
+# multiple of the column group, K not a multiple of 4, sub = 4 and 16
+LUT_PLAN_CASES = {"bucket_8": (8, 256, 32, 256, 8),
+                  "bucket_64": (64, 256, 32, 256, 8),
+                  "bucket_128": (128, 256, 32, 256, 8),
+                  "bucket_512": (512, 256, 32, 256, 8),
+                  "b1": (1, 256, 32, 256, 8), "b37": (37, 256, 32, 256, 8),
+                  "b300": (300, 256, 32, 256, 8),
+                  "rq_depth2": (512, 256, 64, 256, 8),
+                  "n512_D64": (300, 512, 64, 256, 8),
+                  "dp30": (512, 256, 30, 256, 8),
+                  "k250": (512, 256, 32, 250, 8),
+                  "k250_b37": (37, 256, 32, 250, 8),
+                  "sub4": (100, 256, 64, 256, 4),
+                  "sub16": (100, 256, 16, 256, 16)}
+
+
+def _lut_cover(plan: dict, b: int, Dp: int, K: int) -> np.ndarray:
+    """How many times each lut[b, p, k] is written under ``plan``: the
+    fused_lut kernel's decode of a block (codeword span fastest, then
+    column group, then query tile) and of its write stage's items (four
+    codewords of one column; qs threads an item, each every qs-th query),
+    mirrored in numpy."""
+    tile, group, kc = plan["tile"], plan["group"], plan["kc"]
+    ksplit, groups = -(-K // kc), -(-Dp // group)
+    assert plan["ksplit"] == ksplit
+    assert plan["blocks"] == -(-b // tile) * groups * ksplit
+    count = np.zeros((b, Dp, K), np.int64)
+    for blk in range(plan["blocks"]):
+        k0, rest = blk % ksplit * kc, blk // ksplit
+        p0, b0 = rest % groups * group, rest // groups * tile
+        k1 = min(K, k0 + kc)
+        kc4 = -(-(k1 - k0) // 4)
+        items = group * kc4
+        qs = max(1, plan["threads"] // items)
+        e = np.arange(items * qs)
+        item, i0 = e % items, e // items
+        p = p0 + item // kc4
+        k = k0 + 4 * (item % kc4)
+        for i in range(min(tile, b - b0)):
+            sel = (i0 == i % qs) & (p < Dp)
+            for kk in range(4):
+                on = sel & (k + kk < k1)
+                np.add.at(count, (b0 + i, p[on], k[on] + kk), 1)
+    return count
+
+
+@pytest.mark.parametrize("case", sorted(LUT_PLAN_CASES))
+def test_fused_lut_plan_covers_the_table_once(case):
+    """Every table entry is written exactly once, the layout obeys the
+    kernel's limits (power-of-two tile up to 32 and group, register tiles
+    that keep the 256 threads busy, spans a multiple of 4) and fits one
+    block's shared memory, and the main path's batches give 128 of the
+    132 SMs one block each."""
+    b, n, Dp, K, sub = LUT_PLAN_CASES[case]
+    plan = tops.fused_lut_plan(b, n, Dp, K, sub, sms=132)
+    tile, group = plan["tile"], plan["group"]
+    assert tile in tops._LUT_TILES and tile < 2 * b or tile == 1
+    assert group & (group - 1) == 0
+    assert plan["rq"] in (1, 2, 4, 8) and tile % plan["rq"] == 0
+    # register tiles × runs: no more than the block's threads, and all of
+    # them unless the register tiles are down to one query
+    busy = (tile // plan["rq"]) * group * sub // 4 * plan["runs"]
+    assert busy <= plan["threads"]
+    assert busy == plan["threads"] or plan["rq"] == 1
+    assert plan["kc"] % 4 == 0
+    assert (plan["rq"], plan["runs"], plan["smem"]) == tops._lut_rotation(
+        n, sub, tile, group, tops._LUT_MAX_RUNS)
+    assert plan["smem"] <= tops._SMEM_LIMIT
+    assert np.all(_lut_cover(plan, b, Dp, K) == 1)
+    if case.startswith("bucket"):
+        # a block for 128 of the 132 SMs: a grid of 256 reads the operands
+        # twice as often and was slower on an H100 (PERF.md)
+        assert 128 <= plan["blocks"] < 2 * 132
+
+
+# (m, n) of the givens_rotate launches on the main path: training's R, the
+# serving refresh's R, centroids and codebook rows, the Engine's fused
+# refresh (rot and wacc, both (256, 256)); and the smoke's other holds:
+# the backward on a (16384, 512) batch, an odd n, one row, fewer rows
+# than a block's run
+ROTATE_PLAN_CASES = {"train_R": (512, 512), "serve_R": (256, 256),
+                     "centroids": (1024, 256), "codebook_rows": (8192, 256),
+                     "backward": (16384, 512), "odd_n": (1000, 513),
+                     "one_row": (1, 512), "m_below_rows": (15, 256)}
+
+
+@pytest.mark.parametrize("case", sorted(ROTATE_PLAN_CASES))
+def test_givens_rotate_plan_covers_x_once(case):
+    """Every (row, column) of Y is written exactly once by the kernel's
+    walk (a block's run of rows, four columns a step, or one where n is
+    not a multiple of 4), the run and the column map fit one block's
+    shared memory, the path's small shapes give the 132 SMs a block each,
+    and (8192, 256) keeps runs of at least 8 rows."""
+    m, n = ROTATE_PLAN_CASES[case]
+    plan = tops.givens_rotate_plan(m, n, sms=132)
+    rows = plan["rows"]
+    assert plan["smem"] == 12 * n + 4 * rows * n <= tops._SMEM_LIMIT
+    assert 4 * rows * n <= tops._ROTATE_RUN_BYTES or rows == 1
+    assert plan["threads"] % 32 == 0 and plan["threads"] <= 256
+    assert plan["blocks"] == -(-m // rows)
+    W = 4 if n % 4 == 0 else 1
+    count = np.zeros((m, n), np.int64)
+    for blk in range(plan["blocks"]):
+        r0 = blk * rows
+        e = np.arange(min(rows, m - r0) * (n // W))
+        row = e // (n // W)
+        col = (e - row * (n // W)) * W
+        for w in range(W):
+            np.add.at(count, (r0 + row, col + w), 1)
+    assert np.all(count == 1)
+    if case in ("train_R", "serve_R"):
+        assert plan["blocks"] >= 132
+    if case == "codebook_rows":
+        assert rows >= 8
