@@ -25,6 +25,7 @@ from repro_torch.core import index_layer as il
 from repro_torch.index.ivf import IVFPQIndex
 from repro_torch.models import recsys
 from repro_torch.models import transformer as tfm
+from repro_torch.rotations.cayley import CayleyState
 from repro_torch.rotations.gcd import GCDState
 from repro_torch.search import exact as search_exact
 from repro_torch.search import flat as search_flat
@@ -107,7 +108,7 @@ def _check_zero_accumulators(arrays: dict, what: str) -> None:
         if np.any(np.asarray(arrays.get(key, 0.0))):
             raise NotImplementedError(
                 f"{what}: a nonzero {key!r} belongs to a preconditioned GCD, "
-                "not ported yet (ROADMAP.md queue 1, slice 7)")
+                "not ported yet (ROADMAP.md queue 1, item 7)")
 
 
 def gcd_state_from_numpy(arrays: dict, *, device=None) -> GCDState:
@@ -119,6 +120,14 @@ def gcd_state_from_numpy(arrays: dict, *, device=None) -> GCDState:
     _check_zero_accumulators(arrays, "gcd_state_from_numpy")
     return GCDState(R=_t(arrays["R"], dev, np.float32),
                     step=_t(arrays.get("step", 0), dev, np.int32))
+
+
+def cayley_state_from_numpy(arrays: dict, *, device=None) -> CayleyState:
+    """A ``CayleyState`` on ``device`` from numpy arrays: ``R`` and
+    optionally ``step``, the fields of the JAX ``CayleyState``."""
+    dev = _device.resolve(device)
+    return CayleyState(R=_t(arrays["R"], dev, np.float32),
+                       step=_t(arrays.get("step", 0), dev, np.int32))
 
 
 def twotower_params_from_numpy(arrays: dict, cfg: recsys.TwoTowerConfig, *,
@@ -154,8 +163,8 @@ def opt_state_from_numpy(arrays: dict, cfg: opt_lib.OptimizerConfig, *,
                          device=None) -> opt_lib.OptState:
     """An ``OptState`` on ``device`` from the JAX one: ``mu`` and ``nu``
     (path key -> array), ``step``, and ``rot`` (path key -> the learner
-    state's fields, ``R`` and ``step``; GCD's accumulators only as
-    zeros)."""
+    state's fields, ``R`` and ``step``, for GCD, Cayley-SGD or frozen;
+    GCD's accumulators only as zeros)."""
     dev = _device.resolve(device)
     learner = rot_lib.from_config(cfg.rotation)
     rot = {}

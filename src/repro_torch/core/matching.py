@@ -1,17 +1,45 @@
 """Coordinate-pair selection for Givens coordinate descent (port of
-``repro/core/matching.py``: GCD-G).
+``repro/core/matching.py``): a perfect matching of the n coordinate axes,
+by one of the paper's three strategies.
 
-The matching is a serial scan over sorted edges, so it runs on the host in
-numpy whatever the device of ``A``: at the slice's n = 256 the (n, n)
-score field is 256 KiB, and a scan of a few thousand edges costs well
-under a millisecond on the host, where a device loop would pay one
-synchronisation per edge. Ties in |A| go to the lower flat edge index, as
-``jax.lax.top_k`` orders them in the JAX package.
+  * GCD-R  ``random_matching``    a ``torch.randperm`` drawn from an
+           explicit generator, its halves paired;
+  * GCD-G  ``greedy_matching_fast``  sort |A|, greedy disjoint scan;
+  * GCD-S  ``steepest_matching``  GCD-G's matching refined by
+           ``two_opt_refine``, the JAX package's vectorised 2-opt.
+
+The greedy scan is serial over sorted edges, so it runs on the host in
+numpy whatever the device of ``A``: a device loop would pay one
+synchronisation per edge. It is not cheap: at n = 512 each round sorts all
+262,144 entries of |A| on the host (about 15 ms on a CPU for a random
+field), and with an NVIDIA H100 the copy and the rounds take 43–55 ms of
+a 119–132 ms GCD-G joint step of the paper's two-tower model
+(``chip_smoke.py`` train). Ties in |A| go to the lower flat edge index,
+as ``jax.lax.top_k`` orders them in the JAX package.
+
+``two_opt_refine`` runs on A's device and its sweeps never wait for the
+host, as the JAX ``fori_loop`` does not. Its
+16 sweeps of about 30 small launches each are bound by the host's launch
+rate: on an NVIDIA H100 they take 5.5 ms at n = 512, against 38.5 ms for
+the greedy matching they refine (``chip_smoke.py`` train_kernels, one
+CUDA-event pair around each call).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch import device as _device
+
+
+def random_matching(generator: torch.Generator, n: int, device=None):
+    """GCD-R: a uniformly random perfect matching of {0..n-1} from
+    ``generator`` (on ``device``, the card by default)."""
+    dev = _device.resolve(device)
+    _device.check_generator(generator, dev)
+    perm = torch.randperm(n, generator=generator, device=dev)
+    p = n // 2
+    return perm[:p], perm[p:2 * p]
 
 
 def _weights(A: torch.Tensor) -> np.ndarray:
@@ -56,7 +84,8 @@ def greedy_matching_fast(A: torch.Tensor):
     """The same matching as ``greedy_matching``, in rounds: mask the used
     nodes out of |A|, sort, scan only the top ``8n`` edges. Restricting
     greedy to the free nodes and re-sorting yields exactly the same
-    matching, and every round matches at least one pair."""
+    matching, pair for pair in the same order, and every round matches at
+    least one pair."""
     n = A.shape[0]
     p = n // 2
     m = min(8 * n, n * n)
@@ -72,6 +101,54 @@ def greedy_matching_fast(A: torch.Tensor):
         order = np.argsort(-flat, kind="stable")[:m]
         _scan(order, n, used, pi, pj, p)
     return _as_pairs(pi, pj, A.device)
+
+
+def two_opt_refine(A: torch.Tensor, pi: torch.Tensor, pj: torch.Tensor,
+                   sweeps: int = 16):
+    """Vectorised 2-opt (``repro/core/matching.py:135-169``): each sweep
+    takes the single best pair swap over all pairs of pairs. For pairs
+    (i₁, j₁), (i₂, j₂) the rewirings are (i₁, i₂), (j₁, j₂) and
+    (i₁, j₂), (j₁, i₂); a swap is applied only if it gains more than
+    1e-12, so the total |A| weight never falls below the start's.
+
+    The gains are the JAX package's float32 sums in the same order, the
+    argmax takes the first flat index of a tie, and the rewiring is
+    applied by ``torch.where`` on the device: no sweep reads a value back
+    to the host."""
+    w = torch.abs(A.float())
+    pi, pj = pi.long(), pj.long()
+    p = pi.shape[0]
+    eye = torch.eye(p, dtype=torch.bool, device=w.device)
+    for _ in range(sweeps):
+        cur = w[pi, pj]
+        pair_w = cur[:, None] + cur[None, :]
+        alt1 = w[pi[:, None], pi[None, :]] + w[pj[:, None], pj[None, :]]
+        alt2 = w[pi[:, None], pj[None, :]] + w[pj[:, None], pi[None, :]]
+        gain = torch.maximum(alt1, alt2) - pair_w
+        gain = gain.masked_fill(eye, -torch.inf)
+        idx = torch.argmax(gain.reshape(-1)).reshape(1)
+        a, b = idx // p, idx % p
+        use1 = alt1[a, b] >= alt2[a, b]
+        improving = gain[a, b] > 1e-12
+        # new pair a: (pi[a], pi[b] or pj[b]); new pair b: (pj[a], pj[b]
+        # or pi[b])
+        pia, pja, pib, pjb = pi[a], pj[a], pi[b], pj[b]
+        na_j = torch.where(use1, pib, pjb)
+        nb_j = torch.where(use1, pjb, pib)
+        new_pi = pi.scatter(0, b, pja)
+        new_pj = pj.scatter(0, a, na_j).scatter(0, b, nb_j)
+        pi = torch.where(improving, new_pi, pi)
+        pj = torch.where(improving, new_pj, pj)
+    return pi, pj
+
+
+def steepest_matching(A: torch.Tensor, sweeps: int = 16):
+    """GCD-S: the greedy matching refined by ``sweeps`` 2-opt sweeps. It
+    starts from ``greedy_matching_fast``, which gives the JAX package's
+    ``greedy_matching`` pair for pair, so it does not pay that function's
+    one-edge-at-a-time scan."""
+    pi, pj = greedy_matching_fast(A)
+    return two_opt_refine(A, pi, pj, sweeps=sweeps)
 
 
 def matching_weight(A: torch.Tensor, pi: torch.Tensor,

@@ -269,7 +269,8 @@ def _disjoint_pairs(pi: torch.Tensor, pj: torch.Tensor, n: int):
         if bool(bad):
             raise ValueError(
                 "apply_pair_rotations: pairs overlap or leave [0, n): the "
-                "overlapping-Givens delta is not ported (ROADMAP.md slice 7)")
+                "overlapping-Givens delta is not ported (ROADMAP.md queue "
+                "1, item 7)")
     return pi.to(torch.int32).contiguous(), pj.to(torch.int32).contiguous()
 
 

@@ -34,7 +34,7 @@ def alternating_minimization(generator: torch.Generator, X: torch.Tensor,
     if rotation not in ROTATIONS:
         raise NotImplementedError(
             f"OPQ rotation {rotation!r} is not ported yet (ROADMAP.md queue "
-            f"1, slice 7); the port has {ROTATIONS}")
+            f"1, item 7); the port has {ROTATIONS}")
     n = X.shape[-1]
     R = torch.eye(n, dtype=X.dtype, device=X.device)
     codebooks, _ = km.kmeans(generator, X, cfg, iters=kmeans_iters)

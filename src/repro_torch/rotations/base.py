@@ -1,11 +1,13 @@
 """Rotation deltas (port of ``repro/rotations/base.py``).
 
 A learner's ``update`` returns the new state and a delta Δ with
-R_new = R_old·Δ. This slice carries the disjoint ``GivensDelta`` that GCD
-emits; ``apply`` right-multiplies any (..., n) tensor by it, so a trainer
-and a live index fed the same delta stay in sync; on the card it runs the
-givens_rotate kernel (``core.givens.apply_pair_rotations``). The overlapping ablation
-and ``DenseDelta`` (Cayley, Procrustes) wait for a later slice.
+R_new = R_old·Δ: the disjoint ``GivensDelta`` that GCD emits, or the dense
+factor ``DenseDelta`` of Cayley-SGD. ``apply`` right-multiplies any
+(..., n) tensor by either, so a trainer and a live index fed the same
+delta stay in sync. A ``GivensDelta`` runs the givens_rotate kernel on the
+card (``core.givens.apply_pair_rotations``); a ``DenseDelta`` is a plain
+``torch.matmul``. The overlapping ablation waits for a later slice
+(ROADMAP.md queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -29,7 +31,20 @@ class GivensDelta:
         return givens.apply_pair_rotations(X, self.pi, self.pj, self.theta)
 
 
-def apply(X: torch.Tensor, delta: GivensDelta) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class DenseDelta:
+    """Δ as a dense (n, n) factor (Cayley-SGD)."""
+
+    dR: torch.Tensor
+
+    def apply(self, X: torch.Tensor) -> torch.Tensor:
+        return X @ self.dR.to(X.dtype)
+
+
+RotationDelta = GivensDelta | DenseDelta
+
+
+def apply(X: torch.Tensor, delta: RotationDelta) -> torch.Tensor:
     """Right-multiply X (..., n) by the delta's group element Δ."""
     return delta.apply(X)
 

@@ -3,7 +3,7 @@ paper Algorithm 2):
 
     G  = ∇_R L
     A  = GᵀR − RᵀG                  (directional derivatives, Prop. 1)
-    (pi, pj) ← greedy disjoint matching on |A|
+    (pi, pj) ← n/2 disjoint pairs     (GCD-R / GCD-G / GCD-S)
     θℓ = −λ · A[iℓ, jℓ] / √2
     R  ← R · ∏ℓ R_{iℓ jℓ}(θℓ)
 
@@ -13,10 +13,13 @@ index exactly (``index.maintain.refresh_delta``). A goes through
 ``kernels.ops.gcd_score`` at every n: the gcd_score kernel on the card, its
 plain version on the CPU.
 
-The port has pair selection ``method="greedy"`` with preconditioner
-``"none"`` only, so neither is a field here; the registry names of the
-other methods raise NotImplementedError until a later slice ports them.
-``Frozen`` is the frozen-R control of the paper's Table 1.
+``method`` picks the pair selection of ``core.matching``: "random"
+(GCD-R, from the generator ``update`` is given), "greedy" (GCD-G) or
+"steepest" (GCD-S, greedy and ``sweeps`` 2-opt sweeps). The overlapping
+ablations, the adagrad/adam preconditioners and
+``reorthonormalize_every`` are not ported yet (ROADMAP.md queue 1, item
+7): the preconditioner is "none", so it is not a field here. ``Frozen`` is
+the frozen-R control of the paper's Table 1.
 """
 from __future__ import annotations
 
@@ -30,6 +33,9 @@ from repro_torch.core import givens, matching
 from repro_torch.kernels import ops as kops
 from repro_torch.rotations import base
 
+METHODS = ("random", "greedy", "steepest")
+_OVERLAP = ("overlap_greedy", "overlap_random")
+
 
 class GCDState(NamedTuple):
     """State of a GCD-trained rotation."""
@@ -40,7 +46,18 @@ class GCDState(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class GCD:
-    """The paper's GCD learner with greedy pair selection (GCD-G)."""
+    """The paper's GCD family; ``method`` picks the pair selection."""
+
+    method: str = "greedy"           # one of METHODS
+    sweeps: int = 16                 # 2-opt sweeps for method="steepest"
+
+    def __post_init__(self):
+        if self.method in _OVERLAP:
+            raise NotImplementedError(
+                f"GCD method {self.method!r} is not ported yet (ROADMAP.md "
+                "queue 1, item 7)")
+        if self.method not in METHODS:
+            raise ValueError(f"unknown GCD method {self.method!r}")
 
     def init(self, n: int, dtype=torch.float32, device=None) -> GCDState:
         """Fresh state at R = I_n on ``device`` (the card by default)."""
@@ -57,16 +74,30 @@ class GCD:
     def materialize(self, state: GCDState) -> torch.Tensor:
         return state.R
 
+    def select_pairs(self, A: torch.Tensor,
+                     generator: torch.Generator | None = None):
+        """The matching step: (pi, pj) from the score field A. GCD-R draws
+        from ``generator``, which must be on A's device; the port uses no
+        global random state, so GCD-R without one raises ValueError."""
+        if self.method == "random":
+            if generator is None:
+                raise ValueError("GCD-R (method='random') needs a "
+                                 "torch.Generator on the rotation's device")
+            return matching.random_matching(generator, A.shape[-1],
+                                            device=A.device)
+        if self.method == "greedy":
+            return matching.greedy_matching_fast(A)
+        return matching.steepest_matching(A, sweeps=self.sweeps)
+
     def update(self, state: GCDState, grad: torch.Tensor, lr: float,
                generator: torch.Generator | None = None
                ) -> tuple[GCDState, base.GivensDelta]:
         """One manifold step from ``grad = ∇_R L``; returns (state, Δ).
-        ``generator`` is accepted for the learner protocol; greedy pair
-        selection draws no random numbers."""
-        del generator
+        ``generator`` feeds GCD-R's pairs; the other methods draw no random
+        numbers."""
         A = self._mask(kops.gcd_score(grad.float().contiguous(),
                                       state.R.float().contiguous()))
-        pi, pj = matching.greedy_matching_fast(A)
+        pi, pj = self.select_pairs(A, generator)
         theta = -float(lr) * A[pi, pj] / givens.SQRT2
         delta = base.GivensDelta(pi=pi, pj=pj, theta=theta)
         new = GCDState(R=delta.apply(state.R), step=state.step + 1)
@@ -84,6 +115,9 @@ class SubspaceGCD(GCD):
     sub: int = 0
 
     def __post_init__(self):
+        if self.method in _OVERLAP:
+            raise ValueError("SubspaceGCD requires a disjoint matching")
+        super().__post_init__()
         if self.sub <= 0:
             raise ValueError("SubspaceGCD needs sub > 0 (the subspace width)")
 

@@ -2,7 +2,7 @@
 
 The closed-form solve OPQ alternates with k-means. The port has it as a
 function, not yet as a learner with a projected-SGD ``update``: that one
-waits with the rest of the learner registry (ROADMAP.md queue 1, slice 7).
+waits with the rest of the learner registry (ROADMAP.md queue 1, item 7).
 The SVD is ``torch.linalg.svd``, a library call: it is no Pallas kernel in
 the JAX package either. It is taken in float64 and the rotation rounded to
 float32 after: in float32 on an H100 the (512, 512) solve of the OPQ warm

@@ -9,8 +9,10 @@ added to the update, not decoupled; the rate follows a cosine schedule with
 a linear warm-up. This is not ``torch.optim.AdamW``, which decouples the
 decay and places ε elsewhere. A leaf whose name is in ``MANIFOLD_LEAVES``
 is an SO(n) rotation and goes to the learner of ``OptimizerConfig.rotation``
-(GCD: Algorithm 2 through the gcd_score and givens_rotate kernels; or the
-frozen control) instead.
+instead: GCD-R, GCD-G or GCD-S (Algorithm 2 through the gcd_score and
+givens_rotate kernels, a ``GivensDelta``), Cayley-SGD (a linear solve and a
+``DenseDelta``) or the frozen control. The routing does not look at the
+delta's kind; ``update_with_deltas`` hands it on as the learner made it.
 
 Parameters are a dict of tensors keyed by the JAX path keys (``item_table``,
 ``index/R``, ...) or an ``nn.Module``, whose ``named_parameters`` give them.

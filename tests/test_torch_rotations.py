@@ -19,9 +19,11 @@ import torch
 from repro import rotations as jrot
 from repro.core import givens as jgivens
 from repro.core import matching as jmatching
+from repro.rotations import cayley as jcayley
 from repro_torch import rotations as trot
 from repro_torch.core import givens as tgivens
 from repro_torch.core import matching as tmatching
+from repro_torch.rotations import cayley as tcayley
 
 
 def _t(a: np.ndarray) -> torch.Tensor:
@@ -154,17 +156,267 @@ def test_delta_apply_and_identity():
 
 
 def test_registry_ports_only_the_slice():
+    """The Table 1 learners build through ``make`` (aliases and
+    ``method=`` included) with the JAX registry's order in ``names()``;
+    the names still in ``_LATER`` raise."""
     assert isinstance(trot.make("gcd_greedy"), trot.GCD)
     assert isinstance(trot.make("subspace_gcd", sub=4), trot.SubspaceGCD)
+    for spec, method in (("gcd_random", "random"), ("gcd_greedy", "greedy"),
+                         ("gcd_steepest", "steepest"), ("gcd", "greedy")):
+        learner = trot.make(spec)
+        assert type(learner) is trot.GCD and learner.method == method
+    assert trot.make("gcd", method="steepest", sweeps=3) == trot.GCD(
+        method="steepest", sweeps=3)
+    assert trot.make("subspace_gcd", sub=4, method="random").method == \
+        "random"
+    assert isinstance(trot.make("cayley_sgd"), trot.CayleySGD)
+    assert isinstance(trot.make("cayley"), trot.CayleySGD)
+    assert trot.names() == tuple(
+        n for n in jrot.names()
+        if n not in ("procrustes", "gcd_overlap_greedy",
+                     "gcd_overlap_random"))
+    for spec in ("procrustes", "svd", "gcd_overlap_greedy",
+                 "gcd_overlap_random"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            trot.make(spec)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trot.make("cayley_sgd")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trot.make("gcd_random")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trot.make("gcd_steepest")
+        trot.make("gcd", method="overlap_random")
+    with pytest.raises(ValueError, match="disjoint"):
+        trot.make("subspace_gcd", sub=4, method="overlap_greedy")
+    with pytest.raises(ValueError):
+        trot.make("gcd", method="no_such_method")
     with pytest.raises(TypeError):
-        trot.make("gcd_greedy", preconditioner="adam")   # greedy/none only
+        trot.make("gcd_greedy", preconditioner="adam")   # "none" only
     with pytest.raises(ValueError):
         trot.make("no_such_learner")
     with pytest.raises(ValueError):
         trot.make("subspace_gcd")                       # needs sub
+
+
+# -- GCD-S: 2-opt ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [16, 64, 256])
+def test_two_opt_refine_matches_jax(n):
+    """From the same pairs on a random float A, the same pair arrays (order
+    included) after 16 sweeps: both compute the gains by the same float32
+    operations and break argmax ties at the first index. Started from a
+    random pairing (which 2-opt improves) and from the greedy matching,
+    which the port's ``greedy_matching_fast`` gives pair for pair."""
+    rng = np.random.RandomState(100 + n)
+    M = rng.randn(n, n).astype(np.float32)
+    A = M - M.T
+    perm = rng.permutation(n).astype(np.int32)
+    gpi, gpj = jmatching.greedy_matching_fast(jnp.asarray(A))
+    tgpi, tgpj = tmatching.greedy_matching_fast(_t(A))
+    np.testing.assert_array_equal(tgpi.numpy(), np.asarray(gpi))
+    np.testing.assert_array_equal(tgpj.numpy(), np.asarray(gpj))
+    for pi, pj in ((perm[:n // 2], perm[n // 2:]), (gpi, gpj)):
+        jpi, jpj = jmatching.two_opt_refine(jnp.asarray(A), jnp.asarray(pi),
+                                            jnp.asarray(pj), sweeps=16)
+        tpi, tpj = tmatching.two_opt_refine(_t(A), _t(pi), _t(pj),
+                                            sweeps=16)
+        np.testing.assert_array_equal(tpi.numpy(), np.asarray(jpi))
+        np.testing.assert_array_equal(tpj.numpy(), np.asarray(jpj))
+        assert (float(tmatching.matching_weight(_t(A), tpi, tpj))
+                >= float(tmatching.matching_weight(_t(A), _t(pi), _t(pj))))
+    assert _pair_set(jpi, jpj) != _pair_set(perm[:n // 2], perm[n // 2:])
+
+
+@pytest.mark.parametrize("n", [16, 64])
+def test_steepest_matching_matches_jax(n):
+    """On a Hadamard R and a dyadic G (A exact, ties and all) GCD-S picks
+    the JAX package's pairs, and weighs at least as much as greedy."""
+    rng = np.random.RandomState(n + 7)
+    R, G = _hadamard(n), _dyadic_grad(rng, n)
+    A = np.asarray(jgivens.directional_derivs(jnp.asarray(G),
+                                              jnp.asarray(R)))
+    jpi, jpj = jmatching.steepest_matching(jnp.asarray(A))
+    tpi, tpj = tmatching.steepest_matching(_t(A))
+    assert _pair_set(tpi, tpj) == _pair_set(jpi, jpj)
+    gpi, gpj = tmatching.greedy_matching_fast(_t(A))
+    assert (float(tmatching.matching_weight(_t(A), tpi, tpj))
+            >= float(tmatching.matching_weight(_t(A), gpi, gpj)))
+
+
+@pytest.mark.parametrize("n,seed", [(6, 0), (8, 1), (10, 2), (12, 3),
+                                    (12, 4)])
+def test_greedy_le_steepest_le_exact(n, seed):
+    """Greedy ≤ 2-opt ≤ the exact maximum (the JAX package's bitmask DP),
+    on fixed seeds; every result is a perfect matching."""
+    rng = np.random.RandomState(seed)
+    M = rng.randn(n, n).astype(np.float32)
+    A = _t(M - M.T)
+    gpi, gpj = tmatching.greedy_matching_fast(A)
+    spi, spj = tmatching.steepest_matching(A)
+    assert sorted(spi.tolist() + spj.tolist()) == list(range(n))
+    _, _, best = jmatching.exact_matching_dp(A.numpy())
+    w_g = float(tmatching.matching_weight(A, gpi, gpj))
+    w_s = float(tmatching.matching_weight(A, spi, spj))
+    assert w_g <= w_s <= best + 1e-5
+
+
+# -- GCD-R ---------------------------------------------------------------------
+
+
+def test_random_matching_is_a_seeded_perfect_matching():
+    for n in (8, 9, 64):
+        pi, pj = tmatching.random_matching(
+            torch.Generator().manual_seed(0), n, device="cpu")
+        assert len(pi) == len(pj) == n // 2
+        both = pi.tolist() + pj.tolist()
+        assert len(set(both)) == len(both) and set(both) <= set(range(n))
+    a = tmatching.random_matching(torch.Generator().manual_seed(5), 64,
+                                  device="cpu")
+    b = tmatching.random_matching(torch.Generator().manual_seed(5), 64,
+                                  device="cpu")
+    c = tmatching.random_matching(torch.Generator().manual_seed(6), 64,
+                                  device="cpu")
+    assert _pair_set(*a) == _pair_set(*b)
+    assert _pair_set(*a) != _pair_set(*c)
+
+
+def test_gcd_random_step_matches_jax_delta_from_its_pairs():
+    """JAX's threefry cannot be drawn in torch, so the port's GCD-R step is
+    held to the JAX delta built from the port's own pairs: θ and R_new to
+    1e-6. Without a generator GCD-R raises."""
+    n = 64
+    rng = np.random.RandomState(11)
+    R = np.linalg.qr(rng.randn(n, n))[0].astype(np.float32)
+    G = (0.05 * rng.randn(n, n)).astype(np.float32)
+    lr = 3e-3
+    learner = trot.make("gcd_random")
+    with pytest.raises(ValueError, match="Generator"):
+        learner.update(learner.init_from(_t(R)), _t(G), lr)
+    tstate, tdelta = learner.update(learner.init_from(_t(R)), _t(G), lr,
+                                    torch.Generator().manual_seed(3))
+    pi = jnp.asarray(tdelta.pi.numpy())
+    pj = jnp.asarray(tdelta.pj.numpy())
+    A = jgivens.directional_derivs(jnp.asarray(G), jnp.asarray(R))
+    theta = -jnp.float32(lr) * A[pi, pj] / jgivens.SQRT2
+    jdelta = jrot.GivensDelta(pi=pi, pj=pj, theta=theta)
+    np.testing.assert_allclose(tdelta.theta.numpy(), np.asarray(theta),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_allclose(tstate.R.numpy(),
+                               np.asarray(jdelta.apply(jnp.asarray(R))),
+                               atol=1e-6, rtol=0)
+    _, again = learner.update(learner.init_from(_t(R)), _t(G), lr,
+                              torch.Generator().manual_seed(3))
+    assert torch.equal(again.pi, tdelta.pi) and torch.equal(again.pj,
+                                                             tdelta.pj)
+
+
+# -- Cayley ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [8, 32])
+def test_cayley_and_inverse_match_jax(n):
+    rng = np.random.RandomState(n)
+    p = (0.1 * rng.randn(n, n)).astype(np.float32)
+    want = np.asarray(jcayley.cayley(jnp.asarray(p)))
+    got = tcayley.cayley(_t(p))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(
+        tcayley.inverse_cayley(got).numpy(),
+        np.asarray(jcayley.inverse_cayley(jnp.asarray(want))),
+        atol=1e-5, rtol=0)
+    np.testing.assert_allclose(tcayley.skew_from_params(_t(p)).numpy(),
+                               np.asarray(jcayley.skew_from_params(
+                                   jnp.asarray(p))), atol=0, rtol=0)
+    assert torch.equal(tcayley.init(n, device="cpu"), torch.zeros(n, n))
+
+
+def _near_minus_one(theta: float, n: int = 8) -> np.ndarray:
+    """tests/test_rotations.py's block rotation: its leading plane turns by
+    ``theta`` (eigenvalues e^{±iθ} → −1 as θ → π)."""
+    R = np.eye(n, dtype=np.float32)
+    c, s = np.cos(theta), np.sin(theta)
+    R[0, 0], R[0, 1], R[1, 0], R[1, 1] = c, -s, s, c
+    return R
+
+
+@pytest.mark.parametrize("theta", [np.pi - 1e-2, np.pi])
+def test_inverse_cayley_near_minus_one_matches_jax(theta):
+    """Near the −1 eigenvalue the direct solve is kept; at it, the
+    regularised one: the port takes the same branch (values to 1e-5) and
+    stays finite."""
+    R = _near_minus_one(theta)
+    want = np.asarray(jcayley.inverse_cayley(jnp.asarray(R)))
+    got = tcayley.inverse_cayley(_t(R))
+    assert bool(torch.all(torch.isfinite(got)))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    assert bool(torch.all(torch.isfinite(tcayley.cayley(got))))
+
+
+@pytest.mark.parametrize("case", ["random", "near", "singular"])
+def test_stable_solve_matches_jax(case):
+    """The direct branch (a random well-posed M, and I + R a hundredth of
+    a radian from R's −1 eigenvalue) and the regularised one (I + R for
+    an exact half-turn, which is singular), against JAX to 1e-5. An arbitrary singular M is left out: its
+    regularised normal equations have a condition number near 1e9, and
+    any two float32 solvers disagree there."""
+    rng = np.random.RandomState(3)
+    B = rng.randn(8, 8).astype(np.float32)
+    if case == "random":
+        M = rng.randn(8, 8).astype(np.float32) + 3 * np.eye(8,
+                                                           dtype=np.float32)
+    elif case == "near":
+        M = np.eye(8, dtype=np.float32) + _near_minus_one(np.pi - 1e-2).T
+    else:                 # an exact half-turn: I + R has two zero rows
+        M = np.eye(8, dtype=np.float32) + np.diag(
+            [-1, -1, 1, 1, 1, 1, 1, 1]).astype(np.float32)
+    want = np.asarray(jcayley.stable_solve(jnp.asarray(M), jnp.asarray(B)))
+    got = tcayley.stable_solve(_t(M), _t(B))
+    assert bool(torch.all(torch.isfinite(got)))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    direct = torch.linalg.solve_ex(_t(M), _t(B))[0]
+    assert torch.equal(got, direct) == (case != "singular")
+
+
+@pytest.mark.parametrize("n", [16, 64])
+def test_cayley_sgd_update_matches_jax(n):
+    """One Cayley-SGD step from the same (R, G, lr): R_new and the dense
+    Δ to 1e-5, R_new no further from orthogonal than 2× the reference."""
+    rng = np.random.RandomState(n + 1)
+    R = np.linalg.qr(rng.randn(n, n))[0].astype(np.float32)
+    G = (0.05 * rng.randn(n, n)).astype(np.float32)
+    lr = 3e-3
+    jl, tl = jrot.make("cayley_sgd"), trot.make("cayley_sgd")
+    jstate, jdelta = jl.update(jl.init_from(jnp.asarray(R)), jnp.asarray(G),
+                               lr, jax.random.PRNGKey(0))
+    with torch.no_grad():                       # as the optimizer calls it
+        tstate, tdelta = tl.update(tl.init_from(_t(R)), _t(G), lr)
+    assert isinstance(tdelta, trot.DenseDelta)
+    np.testing.assert_allclose(tdelta.dR.numpy(), np.asarray(jdelta.dR),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(tstate.R.numpy(), np.asarray(jstate.R),
+                               atol=1e-5, rtol=0)
+    assert int(tstate.step) == int(jstate.step) == 1
+    assert float(np.abs(tstate.R.numpy() - R).max()) > 1e-6
+    assert (float(trot.orthogonality_error(tstate.R))
+            <= 2 * float(jgivens.orthogonality_error(jstate.R)))
+    X = _t(rng.randn(5, n).astype(np.float32))
+    np.testing.assert_allclose(trot.apply(X, tdelta).numpy(),
+                               (X @ tdelta.dR).numpy(), atol=0, rtol=0)
+
+
+def test_cayley_state_round_trip_from_jax():
+    from repro_torch import convert
+
+    rng = np.random.RandomState(2)
+    n = 16
+    jl = jrot.make("cayley_sgd")
+    R = np.linalg.qr(rng.randn(n, n))[0].astype(np.float32)
+    jstate, _ = jl.update(jl.init_from(jnp.asarray(R)),
+                          jnp.asarray(rng.randn(n, n).astype(np.float32)),
+                          1e-3, jax.random.PRNGKey(0))
+    st = convert.cayley_state_from_numpy(
+        {k: np.asarray(v) for k, v in jstate._asdict().items()},
+        device="cpu")
+    assert isinstance(st, trot.CayleyState)
+    assert set(st._fields) == set(jstate._fields)
+    np.testing.assert_array_equal(st.R.numpy(), np.asarray(jstate.R))
+    assert st.R.dtype == torch.float32 and st.step.dtype == torch.int32
+    assert int(st.step) == int(jstate.step) == 1
+    back = {k: np.asarray(v) for k, v in st._asdict().items()}
+    np.testing.assert_array_equal(back["R"], np.asarray(jstate.R))

@@ -380,6 +380,8 @@ def test_opq_procrustes_lowers_distortion_and_frozen_keeps_identity():
 
 
 def test_registry_from_config_and_frozen():
+    """``from_config`` builds every Table 1 learner (the frozen control
+    steps without moving R); the names still in ``_LATER`` raise."""
     learner = rotations.from_config(rotations.RotationConfig("frozen"))
     assert isinstance(learner, rotations.Frozen)
     R = torch.eye(4)
@@ -387,6 +389,56 @@ def test_registry_from_config_and_frozen():
     assert st.R is R and int(st.step) == 1 and delta.theta.numel() == 0
     assert isinstance(rotations.from_config(rotations.RotationConfig()),
                       rotations.GCD)
-    for spec in ("gcd_random", "gcd_overlap_greedy", "cayley_sgd"):
+    for spec, method in (("gcd_random", "random"),
+                         ("gcd_steepest", "steepest")):
+        learner = rotations.from_config(rotations.RotationConfig(spec))
+        assert isinstance(learner, rotations.GCD) and learner.method == method
+    assert isinstance(rotations.from_config(rotations.RotationConfig(
+        "cayley_sgd")), rotations.CayleySGD)
+    for spec in ("gcd_overlap_greedy", "gcd_overlap_random", "procrustes"):
         with pytest.raises(NotImplementedError):
             rotations.from_config(rotations.RotationConfig(spec))
+
+
+@pytest.mark.parametrize("spec", ["cayley_sgd", "gcd_steepest"])
+def test_three_learner_train_steps_match_jax(setup, spec):
+    """make_train_step with Cayley-SGD and with GCD-S, three steps from the
+    same parameters and batches: loss and grad norm to 1e-4 each step, R
+    moved, orthogonal to 1e-5, and the delta's kind the learner's. GCD-S
+    picks its pairs from each package's own A: R's gradient differs in the
+    last bits, and a near tie in |A| could pick other pairs, but their
+    angles are −lr·A/√2 (about 1e-6 here), far below what the loss
+    tolerance resolves."""
+    params, jlog, _ = setup
+    kw = _ocfg(spec)
+    jcfg = jopt.OptimizerConfig(**{**kw, "rotation": jrot.RotationConfig
+                                   .from_spec(spec, lr=3e-3)})
+    tcfg = opt_lib.OptimizerConfig(**{**kw, "rotation": rotations
+                                      .RotationConfig(spec, lr=3e-3)})
+
+    def jloss_fn(p, h, pos):
+        return jrecsys.twotower_loss(p, h, pos, JCFG, use_index=True)
+
+    def tloss_fn(p, h, pos):
+        return recsys.twotower_loss(p, h, pos, TCFG, use_index=True)
+
+    jstate = jts.init_state(jax.random.PRNGKey(3), params, jcfg)
+    jstep = jax.jit(jts.make_train_step(jloss_fn, jcfg))
+    model = _model(params)
+    R0 = model.index.R.detach().clone()
+    tstate = ts.init_state(None, model, tcfg)
+    tstep = ts.make_train_step(tloss_fn, tcfg, emit_deltas=True)
+    kind = (rotations.DenseDelta if spec == "cayley_sgd"
+            else rotations.GivensDelta)
+    for i in range(3):
+        h, pos = jlog.batch(2000 + i, BATCH, JCFG.hist_len)
+        jstate, jm = jstep(jstate, h, pos)
+        tstate, tm = tstep(tstate, _t(h), _t(pos))
+        _close(tm["loss"], jm["loss"], 1e-4)
+        _close(tm["grad_norm"], jm["grad_norm"], 1e-4)
+        assert isinstance(tm["rotation_deltas"]["index/R"], kind)
+    R = model.index.R.detach()
+    assert float((R - R0).abs().max()) > 0
+    assert float(rotations.orthogonality_error(R)) <= 1e-5
+    _close(R, jstate.params["index"].R, 1e-4)
+    assert tstate.step == 3 and tstate.opt_state.step == 3
