@@ -51,9 +51,15 @@ Phases, one JSON line each:
            its plain version on the path's operands (b = 512 at two
            rotations, b = 1, 37, 300 and the Engine's buckets 8, 64, 128,
            a depth-2 RQ column map, n = 512, and its launch plan's edges:
-           Dp = 31, K = 250, a Q that is not 16-byte aligned), and its
-           time beside the two library calls that compute the same tables
-           and the eager LUT stage. The 1M-row index is freed after;
+           Dp = 31, K = 250, a Q that is not 16-byte aligned); the 512
+           serve_p99 queries' tables bit-equal whether built at b = 512
+           or in slices of b = 1, 8, 37, 64, 128 and 300 (LUT_SLICES), at
+           n = 256 and at n = 512 (a query's table does not depend on its
+           batch); its time at b = 512 and at the Engine's buckets beside
+           its times when its order of sums still moved with the batch
+           (LUT_BEFORE_MS), the two library calls that compute the
+           same tables and the eager LUT stage. The 1M-row index is freed
+           after;
   train    the training slice at the full width of the paper's two-tower
            model (configs/paper_twotower.make_config: 1,541,673 items,
            embedding 512, towers (512, 512), history 16, D = 64, K = 256)
@@ -96,6 +102,25 @@ Phases, one JSON line each:
            those in TABLE1_HELD held, the launches its steps imply
            checked, and each of its five kernels held against its plain
            version on the operands of its last call in the run;
+  fig4     repro_torch.bench.fig4_runtime.run() at the JAX script's dims
+           (n = 64, 128, 256, 512): every registry learner's update at
+           batch 1 (wall µs, the paper's quantity, and CUDA-event µs), the
+           serial and round-wise greedy matchings and the Procrustes solve.
+           Held: gcd_r_faster_than_cayley_at_512 and gcd_scales_better,
+           every R orthogonal to 1e-5 after its learner's timed calls
+           (Cayley-SGD to CAYLEY_RTOL of how far it moved R), the launches
+           the calls imply, and gcd_score and givens_rotate on the last
+           operands of each n. Reported: the SVD-projected update over
+           GCD-R at 512, and GCD-R's step at 512 split into score, pair
+           draw, angles, the disjointness check's host sync and apply;
+  fig2     repro_torch.bench.fig2a_convergence.run() and
+           fig2bc_stability.run() at the JAX scripts' defaults and seeds,
+           under deterministic algorithms. Held: every trace finite,
+           every final R orthogonal to 1e-4, the frozen R the identity,
+           the launches the OPQ loops imply, and gcd_score, givens_rotate
+           and pq_assign on the last operands of each shape. Reported, as
+           the JAX scripts report them: the six fig2a checks and
+           gcd_more_stable, each with its margin;
   decode   PQ-compressed KV-cache decode of olmo-1b at the full width of
            configs.get("olmo-1b").config_for_shape("long_500k") (16
            layers, d_model 2048, 16 heads of 128, KVQuantConfig(128, 16,
@@ -131,8 +156,8 @@ nvidia-smi line, the per-kernel JSON summary and the device JSON. A
 kernel's launches there are those of the paths' own calls, summed,
 with the split by path: serving's learn, build, serve and refresh; the
 Engine's attach, requests and refreshes (with the learner steps that give
-their deltas); train's parts; table1's run; decode's prefill and greedy
-tokens. The
+their deltas); train's parts; table1's run; fig4's and fig2's runs;
+decode's prefill and greedy tokens. The
 checks that run beside them in a phase's window are left out.
 """
 from __future__ import annotations
@@ -218,6 +243,12 @@ TRAIN_KERNELS = ("gcd_score", "givens_rotate", "pq_assign", "embedding_bag",
 ENGINE_REQUESTS = 48
 ENGINE_SIZES = (512, 100, 37, 1, 300, 64)
 LUT_RTOL = 1e-5                    # fused_lut: of the table's max |entry|
+#: the batch sizes whose slices of one 512-query batch must give that
+#: batch's fused_lut tables bit for bit
+LUT_SLICES = (1, 8, 37, 64, 128, 300)
+#: fused_lut's device ms per launch at serve_p99 and the Engine's
+#: buckets while its runs of sums still moved with the batch (PERF.md §6)
+LUT_BEFORE_MS = {512: 0.01203, 8: 0.00503, 64: 0.00559, 128: 0.00626}
 
 # train phase (cut to fit a run; see the module docstring)
 #: table1 phase: benchmarks/fig3_table1_e2e.py run()'s default sizes and
@@ -1395,6 +1426,36 @@ def phase_engine(ctx: dict, smi: str):
     _hold_fused_lut("n512_D64", q2, qd2, cb2,
                     torch.eye(D2, device=cb.device), errs, rel, fails)
 
+    # a query's table does not depend on its batch: the 512 serve_p99
+    # queries' tables built at b = 512 in one call, and again in slices of
+    # each of LUT_SLICES, must be bit-equal (n = 256 on the path's
+    # operands; n = 512 on the D = 64 operands above, 512 queries)
+    q512 = torch.randn((BATCHES[0], n2), generator=g, device=cb.device)
+    eye2 = torch.eye(D2, device=cb.device)
+    lut_cases = {
+        "n256": (QR512, state.qdelta, cb, colmap, state.lut_cols),
+        "n512": (q512, qd2, cb2, eye2, ops.lut_column_map(eye2))}
+    lut_batch = {}
+    for name, (qb, qd_b, cb_b, cm_b, cols_b) in lut_cases.items():
+        whole = ops.fused_lut(qb, qd_b, cb_b, cm_b, cols=cols_b)
+        lut_differ = {}
+        for b in LUT_SLICES:
+            parts = torch.cat([
+                ops.fused_lut(qb[s:s + b], qd_b, cb_b, cm_b, cols=cols_b)
+                for s in range(0, qb.shape[0], b)])
+            lut_differ[b] = int((parts != whole).sum())
+        plans = {b: ops.fused_lut_plan(b, qb.shape[1], *cb_b.shape,
+                                       ops._sms(cb.device))
+                 for b in (*LUT_SLICES, qb.shape[0])}
+        lut_batch[name] = dict(
+            entries_differing=lut_differ,
+            runs={b: p["runs"] for b, p in plans.items()},
+            layouts={b: [p["tile"], p["group"], p["rq"], p["kc"]]
+                     for b, p in plans.items()})
+        if any(lut_differ.values()):
+            fails.append(f"fused_lut {name}: a query's table depends on "
+                         f"its batch: entries differing by b {lut_differ}")
+
     # times per launch at b = 512
     qd = state.qdelta
     cols = state.lut_cols
@@ -1414,6 +1475,12 @@ def phase_engine(ctx: dict, smi: str):
     lib_ms = graph_ms(two_calls, launches=20)
     eager_lut_ms = graph_ms(lambda: index.quantizer.adc_tables(QR512),
                             launches=20)
+    bucket_ms = {}
+    for b in buckets:
+        qb = ivf.rotate_queries(state, pool[:b])
+        bucket_ms[b] = graph_ms(
+            lambda qb=qb: ops.fused_lut(qb, qd, cb, colmap, cols=cols),
+            launches=50)
     Dp, _, sub = cb.shape
     nbytes = 4 * (b512 * DIM + DIM * DIM + Dp * K * sub + b512 * Dp * K + Dp)
     flops = 2 * b512 * DIM * DIM + 2 * b512 * Dp * K * sub
@@ -1424,7 +1491,8 @@ def phase_engine(ctx: dict, smi: str):
                        "over the subspaces",
                library_max_abs_err=lib_err, eager_lut_ms=eager_lut_ms,
                max_abs_err=max(v for v in errs.values()),
-               rel_err=rel)
+               rel_err=rel, bucket_ms=bucket_ms, before_ms=LUT_BEFORE_MS,
+               batch_independence=lut_batch)
 
     def per_bucket(reqs):
         out = {}
@@ -1498,12 +1566,14 @@ class _StepTimer:
 
 
 @contextlib.contextmanager
-def _last_call(name: str, into: dict, module=None):
+def _last_call(name: str, into: dict, module=None, by_shape: bool = False):
     """Inside the block, keep a copy of the positional operands of the last
     call of ``module.<name>`` (default: ``kernels.ops``; a class for a
     method, whose first operand is then the instance) in ``into[name]``,
-    tensors and the tensors of a NamedTuple state copied; the call itself
-    goes on as before and launches (and counts) as it would."""
+    or with ``by_shape`` the last call at each shape of the first operand
+    in ``into[(name, shape)]``; tensors and the tensors of a NamedTuple
+    state copied. The call itself goes on as before and launches (and
+    counts) as it would."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1519,7 +1589,8 @@ def _last_call(name: str, into: dict, module=None):
         return a
 
     def spy(*args, **kwargs):
-        into[name] = tuple(map(copy, args))
+        key = (name, tuple(args[0].shape)) if by_shape else name
+        into[key] = tuple(map(copy, args))
         return real(*args, **kwargs)
 
     setattr(module, name, spy)
@@ -2317,6 +2388,184 @@ def phase_table1(smi: str) -> tuple[dict, dict]:
     return own, errs
 
 
+# -- fig4 and fig2 -----------------------------------------------------------
+
+
+def _hold_rotation_kernels(phase: str, seen: dict, errs: dict) -> dict:
+    """gcd_score, givens_rotate and pq_assign against their plain versions
+    on the operands of the last call at each shape a phase launched them
+    at (``_last_call(..., by_shape=True)``): gcd_score within GCD_ATOL and
+    bit-antisymmetric, givens_rotate bit for bit, pq_assign's flips all
+    float32 ties. Returns the shapes held, by kernel, and pq_assign's
+    flips."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    shapes, flips = {}, {}
+    for (name, shape), args in sorted(seen.items()):
+        tag = f"{name}/{phase}_{'x'.join(map(str, shape))}"
+        if name == "gcd_score":
+            got = ops.gcd_score(*args)
+            torch.cuda.synchronize()
+            errs[tag] = compare(got, ref.gcd_score_ref(*args), GCD_ATOL, 0.0)
+            check(torch.equal(got, -got.T), f"{tag} not antisymmetric")
+        elif name == "givens_rotate":
+            check(torch.equal(ops.givens_rotate(*args),
+                              ref.pair_rotate_ref(*args)),
+                  f"{tag} is not bit-equal to its plain version")
+            errs[tag] = 0.0
+        else:
+            X, C = args
+            f = _assign_flips(X, C, ops.pq_assign(X, C),
+                              ref.pq_assign_ref(X, C))
+            errs[tag] = f["max_abs_gap"]
+            flips[tag] = f
+        shapes.setdefault(name, []).append(list(shape))
+    return dict(shapes=shapes, pq_assign_flips=flips)
+
+
+def phase_fig4(smi: str) -> tuple[dict, dict]:
+    """The port's fig4_runtime.run() at the JAX script's dims: every
+    learner's update at batch 1 (wall and CUDA-event µs), the two greedy
+    matchings and the Procrustes solve; both checks held, every learner's
+    R orthogonal to 1e-5 after its timed calls (Cayley-SGD to CAYLEY_RTOL
+    of how far it moved R), the launches its calls imply checked, and
+    gcd_score and givens_rotate held on the last operands of each n.
+    Then GCD-R's step at n = 512 split into its parts (outside the path's
+    count). Returns the path's own launches and the kernels' errors."""
+    import torch
+
+    from repro_torch.bench import fig4_runtime as fig4
+
+    own, seen, detail = {}, {}, {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as spies:
+        for name in ("gcd_score", "givens_rotate"):
+            spies.enter_context(_last_call(name, seen, by_shape=True))
+        with _counted(own):
+            out, checks = fig4.run(verbose=False, detail=detail)
+            torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    # every timed function is called 2 + 5 times an n; the GCD family
+    # scores once a call, and its disjoint members rotate R once
+    calls = 7 * len(fig4.DIMS)
+    gcd = [s for s in fig4.SWEEP if s.startswith("gcd_")
+           or s == "subspace_gcd"]
+    want = dict(gcd_score=calls * len(gcd),
+                givens_rotate=calls * sum("overlap" not in s for s in gcd))
+    bad = {}
+    for n, errs_n in detail["orth_err"].items():
+        for spec, err in errs_n.items():
+            limit = (CAYLEY_RTOL * detail["move"][n][spec]
+                     if spec == "cayley_sgd" else 1e-5)
+            if not err <= limit:
+                bad[f"{spec}@{n}"] = (err, limit)
+    errs = {}
+    held = _hold_rotation_kernels("fig4", seen, errs)
+    del seen
+    top = max(fig4.DIMS)
+    split = fig4.gcd_random_split(top)
+    emit("fig4", dims=list(fig4.DIMS), lr=fig4.LR, wall_us=out,
+         device_us=detail["device_us"], orth_err=detail["orth_err"],
+         move=detail["move"], checks=checks,
+         svd_update_over_gcd_r=out[top]["procrustes"]
+         / out[top]["gcd_random"],
+         cayley_over_gcd_r=out[top]["cayley_sgd"] / out[top]["gcd_random"],
+         gcd_random_split=split,
+         seconds=seconds, launches=own, max_abs_err=errs, kernels=held,
+         card=smi)
+    _expect("fig4", own, want)
+    check(not bad, f"fig4: R off orthogonal after the timed calls: {bad}")
+    failed = [k for k, ok in checks.items() if not ok]
+    check(not failed, f"fig4 checks failed: {failed}")
+    return own, errs
+
+
+def phase_fig2(smi: str) -> tuple[dict, dict]:
+    """The port's fig2a_convergence.run() and fig2bc_stability.run() at
+    the JAX scripts' defaults and seeds, under deterministic algorithms.
+    Held: every trace finite, every final R orthogonal to 1e-4, the frozen
+    R the identity, the launches the OPQ loops imply, and gcd_score,
+    givens_rotate and pq_assign on the last operands of each shape.
+    Reported, not held (the JAX scripts only report them): the six fig2a
+    checks and gcd_more_stable, each with its margin."""
+    import numpy as np
+    import torch
+
+    from repro_torch.bench import fig2a_convergence as fig2a
+    from repro_torch.bench import fig2bc_stability as fig2bc
+
+    own, seen = {}, {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as spies:
+        for name in ("gcd_score", "givens_rotate", "pq_assign"):
+            spies.enter_context(_last_call(name, seen, by_shape=True))
+        with _counted(own):
+            ra, checks_a = fig2a.run(verbose=False)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rb, stable = fig2bc.run(verbose=False)
+            torch.cuda.synchronize()
+    t2 = time.perf_counter()
+
+    # launches: an OPQ loop of `it` iterations assigns once for its k-means
+    # init, then each iteration once for the k-means refresh, once for the
+    # distortion, and once (procrustes) or once an inner step (gradient
+    # learners) for the rotation step; a GCD inner step scores once, and
+    # rotates R once unless its pairs overlap
+    def loop(spec, it, inner):
+        step = (1 if spec == "procrustes" else 0 if spec == "frozen"
+                else inner)
+        gcd = spec.startswith("gcd_")
+        return dict(pq_assign=1 + it * (2 + step),
+                    gcd_score=it * inner if gcd else 0,
+                    givens_rotate=(it * inner if gcd and "overlap" not in spec
+                                   else 0))
+
+    want = {}
+    runs = [(s, 25, 5) for s in fig2a.SOLVERS] + [
+        (s, 20, 5) for _ in fig2bc.FRACTIONS for _ in range(5)
+        for s in fig2bc.SOLVERS]
+    for spec, it, inner in runs:
+        for k, v in loop(spec, it, inner).items():
+            want[k] = want.get(k, 0) + v
+    bad = []
+    for s, r in ra.items():
+        if not np.all(np.isfinite(r["trace"])):
+            bad.append(f"fig2a {s}: trace not finite")
+        if not r["orth_err"] <= 1e-4:
+            bad.append(f"fig2a {s}: R off orthogonal by {r['orth_err']}")
+    if ra["frozen"]["dR_from_identity"] != 0.0:
+        bad.append("fig2a frozen: R moved")
+    for frac, stats in rb.items():
+        for s, st in stats.items():
+            if not st["finite"]:
+                bad.append(f"fig2bc {frac} {s}: a trace not finite")
+            if not st["orth_err"] <= 1e-4:
+                bad.append(f"fig2bc {frac} {s}: R off orthogonal by "
+                           f"{st['orth_err']}")
+    errs = {}
+    held = _hold_rotation_kernels("fig2", seen, errs)
+    del seen
+    emit("fig2", fig2a=dict(
+        final={s: r["final"] for s, r in ra.items()},
+        us_per_iter={s: r["us_per_iter"] for s, r in ra.items()},
+        orth_err={s: r["orth_err"] for s, r in ra.items()},
+        checks=checks_a, margins=fig2a.margins_of(ra), seconds=t1 - t0),
+         fig2bc=dict(stats={str(f): v for f, v in rb.items()},
+                     checks={"gcd_more_stable": stable},
+                     margins={"gcd_more_stable": fig2bc.margin_of(rb)},
+                     seconds=t2 - t1),
+         seconds=t2 - t0, launches=own, max_abs_err=errs, kernels=held,
+         card=smi)
+    _expect("fig2", own, want)
+    check(not bad, "; ".join(bad))
+    return own, errs
+
+
 # -- decode -----------------------------------------------------------------
 
 
@@ -2669,6 +2918,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["table1"], table1_errs = phase_table1(smi)
     errs.update(table1_errs)
+    paths["fig4"], fig4_errs = phase_fig4(smi)
+    errs.update(fig4_errs)
+    paths["fig2"], fig2_errs = phase_fig2(smi)
+    errs.update(fig2_errs)
     dctx = phase_decode(smi)
     decode_rows, decode_errs = phase_decode_kernels(dctx)
     rows.update(decode_rows)

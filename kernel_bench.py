@@ -72,6 +72,10 @@ source before its redesign, so ``--src`` splits the parent alike.
 ``--sweep`` times the scans, ``fused_lut`` and ``givens_rotate`` at their
 cases under each setting of the launch plans' constants in ``SWEEP`` (the
 other constants at their defaults), to show what the chosen values give.
+``fused_lut``'s ``_LUT_RUN_LEN`` sets the inputs per run of its rotation's
+sums: it moves the order of every entry's sums (never with the batch), so
+its other settings time a kernel that rounds differently, not a faster
+plan of the same result.
 
 One JSON line per case, then the card's ``nvidia-smi`` name and power
 limit. Exits 1 without a CUDA device.
@@ -176,7 +180,7 @@ SWEEP = {"ivf_adc": {"_IVF_WAVES": (1, 2, 4, 8),
          "adc_lookup": {"_FLAT_WAVES": (2, 4, 8, 16),
                         "_FLAT_MIN_ROWS": (1, 4, 16)},
          "fused_lut": {"_LUT_FILL": (0.45, 0.9, 1.8),
-                       "_LUT_MAX_RUNS": (8, 16, 32)},
+                       "_LUT_RUN_LEN": (8, 16, 32)},
          "givens_rotate": {"_ROTATE_WAVES": (1, 2, 4),
                            "_ROTATE_RUN_BYTES": (4096, 8192, 32_768)}}
 
@@ -703,9 +707,10 @@ def sweep(index, Q, g, only) -> None:
                         row[f"{name}_ms"] = smoke.graph_ms(
                             lambda: ops.fused_lut(Qb, qd, cb, colmap,
                                                   cols=cols), launches=50)
-                        row[f"{name}_blocks"] = ops.fused_lut_plan(
-                            Qb.shape[0], Qb.shape[1], *cb.shape,
-                            sms)["blocks"]
+                        plan = ops.fused_lut_plan(
+                            Qb.shape[0], Qb.shape[1], *cb.shape, sms)
+                        row[f"{name}_blocks"] = plan["blocks"]
+                        row[f"{name}_runs"] = plan["runs"]
                 elif kernel == "givens_rotate":
                     for name, (X, pi, pj, c, s) in rots:
                         m, n = X.shape

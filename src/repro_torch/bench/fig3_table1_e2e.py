@@ -37,15 +37,13 @@ and per check, then the device.
 from __future__ import annotations
 
 import argparse
-import contextlib
-import json
-import os
 import time
 
 import torch
 
 from repro_torch import device as _device
 from repro_torch import rotations
+from repro_torch.bench import common
 from repro_torch.configs import paper_twotower
 from repro_torch.core import index_layer as il
 from repro_torch.data import synthetic
@@ -66,34 +64,7 @@ GCD_ROWS = ("gcd_random", "gcd_greedy", "gcd_steepest")
 
 
 def emit(name: str, **fields) -> None:
-    print(json.dumps({"bench": "fig3_table1", "name": name, **fields}),
-          flush=True)
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
-@contextlib.contextmanager
-def _deterministic():
-    """Deterministic algorithms inside the block, the caller's setting
-    restored after. PyTorch accepts the mode for cuBLAS only with a named
-    workspace configuration; ``:4096:8`` is set for the block where the
-    caller named none (the port runs on one stream, where cuBLAS gives the
-    same bits run to run)."""
-    was = (torch.are_deterministic_algorithms_enabled(),
-           torch.is_deterministic_algorithms_warn_only_enabled())
-    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-    if env is None:
-        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    torch.use_deterministic_algorithms(True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
-        if env is None:
-            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+    common.emit("fig3_table1", name, **fields)
 
 
 def _retrieval_metrics(model, cfg, log, k=100, num_queries=64):
@@ -152,7 +123,7 @@ def run(steps=250, warmup=40, batch=64, seed=0, verbose=True,
         item_vocab=1024, *, device=None):
     """The five rows and the five checks: (results, checks). ``device``
     is the card unless the caller passes ``device="cpu"``."""
-    with _deterministic():
+    with common.deterministic():
         return _run(steps, warmup, batch, seed, verbose, item_vocab,
                     _device.resolve(device))
 
@@ -189,7 +160,7 @@ def _run(steps, warmup, batch, seed, verbose, item_vocab, dev):
         with torch.no_grad():
             for k, p in opt_lib.named_leaves(model).items():
                 p.copy_(start[k])
-        _sync(dev)
+        common.sync(dev)
         t0 = time.perf_counter()
         ocfg = _opt_cfg(method, steps)
         step = ts.make_train_step(joint_loss, ocfg)
@@ -203,7 +174,7 @@ def _run(steps, warmup, batch, seed, verbose, item_vocab, dev):
             dist = float(il.quantizer(model.index).distortion(v @ R))
         p_at, r_at = _retrieval_metrics(model, cfg, log, k=50)
         dR = float(torch.linalg.matrix_norm(R - start["index/R"]))
-        _sync(dev)
+        common.sync(dev)
         results[method] = {"distortion": dist, "p@50": p_at, "r@50": r_at,
                            "dR_from_warmstart": dR,
                            "seconds": time.perf_counter() - t0}

@@ -27,6 +27,7 @@ from repro_torch.models import recsys
 from repro_torch.models import transformer as tfm
 from repro_torch.rotations.cayley import CayleyState
 from repro_torch.rotations.gcd import GCDState
+from repro_torch.rotations.procrustes import ProcrustesState
 from repro_torch.search import exact as search_exact
 from repro_torch.search import flat as search_flat
 from repro_torch.training import optimizer as opt_lib
@@ -103,23 +104,35 @@ def exact_state_from_numpy(arrays: dict, *,
         R0=None if R0 is None else _t(R0, dev, np.float32))
 
 
-def _check_zero_accumulators(arrays: dict, what: str) -> None:
-    for key in ("accum", "accum2"):
-        if np.any(np.asarray(arrays.get(key, 0.0))):
-            raise NotImplementedError(
-                f"{what}: a nonzero {key!r} belongs to a preconditioned GCD, "
-                "not ported yet (ROADMAP.md queue 1, item 7)")
-
-
 def gcd_state_from_numpy(arrays: dict, *, device=None) -> GCDState:
-    """A ``GCDState`` on ``device`` from numpy arrays: ``R`` and optionally
-    ``step``. The JAX state's preconditioner accumulators ``accum`` and
-    ``accum2`` may come along only as zeros (preconditioner "none", the one
-    the port has)."""
+    """A ``GCDState`` on ``device`` from a JAX ``GCDState``'s fields: ``R``
+    and optionally ``step`` and the preconditioner accumulators ``accum``
+    and ``accum2`` ((n, n) float32; zeros where they are not given, as a
+    fresh state has them)."""
     dev = _device.resolve(device)
-    _check_zero_accumulators(arrays, "gcd_state_from_numpy")
-    return GCDState(R=_t(arrays["R"], dev, np.float32),
-                    step=_t(arrays.get("step", 0), dev, np.int32))
+    R = _t(arrays["R"], dev, np.float32)
+    n = R.shape[-1]
+
+    def acc(key):
+        a = arrays.get(key)
+        if a is None:
+            return torch.zeros((n, n), dtype=torch.float32, device=dev)
+        if np.shape(a) != (n, n):
+            raise ValueError(f"gcd_state_from_numpy: {key} has shape "
+                             f"{np.shape(a)}, R gives {(n, n)}")
+        return _t(a, dev, np.float32)
+
+    return GCDState(R=R, step=_t(arrays.get("step", 0), dev, np.int32),
+                    accum=acc("accum"), accum2=acc("accum2"))
+
+
+def procrustes_state_from_numpy(arrays: dict, *,
+                                device=None) -> ProcrustesState:
+    """A ``ProcrustesState`` on ``device`` from numpy arrays: ``R`` and
+    optionally ``step``, the fields of the JAX ``ProcrustesState``."""
+    dev = _device.resolve(device)
+    return ProcrustesState(R=_t(arrays["R"], dev, np.float32),
+                           step=_t(arrays.get("step", 0), dev, np.int32))
 
 
 def cayley_state_from_numpy(arrays: dict, *, device=None) -> CayleyState:
@@ -163,15 +176,21 @@ def opt_state_from_numpy(arrays: dict, cfg: opt_lib.OptimizerConfig, *,
                          device=None) -> opt_lib.OptState:
     """An ``OptState`` on ``device`` from the JAX one: ``mu`` and ``nu``
     (path key -> array), ``step``, and ``rot`` (path key -> the learner
-    state's fields, ``R`` and ``step``, for GCD, Cayley-SGD or frozen;
-    GCD's accumulators only as zeros)."""
+    state's fields: ``R`` and ``step`` for every learner, and GCD's
+    ``accum`` and ``accum2``). A field the learner's state lacks is an
+    error; one the arrays lack keeps the fresh state's value."""
     dev = _device.resolve(device)
     learner = rot_lib.from_config(cfg.rotation)
     rot = {}
     for k, fields in arrays.get("rot", {}).items():
-        _check_zero_accumulators(fields, f"opt_state_from_numpy {k}")
         st = learner.init_from(_t(fields["R"], dev, np.float32))
-        rot[k] = st._replace(step=_t(fields.get("step", 0), dev, np.int32))
+        extra = sorted(set(fields) - set(st._fields))
+        if extra:
+            raise KeyError(f"opt_state_from_numpy {k}: {extra} are not "
+                           f"fields of {type(st).__name__}")
+        rot[k] = st._replace(**{
+            f: _t(fields[f], dev, np.int32 if f == "step" else np.float32)
+            for f in st._fields if f != "R" and f in fields})
     return opt_lib.OptState(
         mu={k: _t(v, dev, np.float32) for k, v in arrays["mu"].items()},
         nu={k: _t(v, dev, np.float32) for k, v in arrays["nu"].items()},

@@ -8,6 +8,10 @@ by one of the paper's three strategies.
   * GCD-S  ``steepest_matching``  GCD-G's matching refined by
            ``two_opt_refine``, the JAX package's vectorised 2-opt.
 
+Also the paper's overlapping ablations (§3.1): ``overlapping_topk`` and
+``overlapping_random`` pick n/2 edges without the disjointness constraint,
+and ``exact_matching_dp`` is the exact bitmask-DP test oracle for small n.
+
 The greedy scan is serial over sorted edges, so it runs on the host in
 numpy whatever the device of ``A``: a device loop would pay one
 synchronisation per edge. It is not cheap: at n = 512 each round sorts all
@@ -149,6 +153,82 @@ def steepest_matching(A: torch.Tensor, sweeps: int = 16):
     one-edge-at-a-time scan."""
     pi, pj = greedy_matching_fast(A)
     return two_opt_refine(A, pi, pj, sweeps=sweeps)
+
+
+def overlapping_topk(A: torch.Tensor, k: int | None = None):
+    """The §3.1 ablation: the top-k |A| edges i < j WITHOUT disjointness
+    (k = n // 2 by default), by descending |A|. The pairs may share axes
+    and do not commute: ``rotations.base.GivensDelta(overlapping=True)``
+    applies them one after another. A stable descending sort of the
+    masked field gives ``jax.lax.top_k``'s order, ties to the lower flat
+    index, and runs on A's device."""
+    n = A.shape[0]
+    k = n // 2 if k is None else k
+    upper = torch.triu(torch.ones((n, n), dtype=torch.bool,
+                                  device=A.device), 1)
+    flat = torch.where(upper, torch.abs(A),
+                       torch.full_like(A, -torch.inf)).reshape(-1)
+    idx = torch.argsort(flat, descending=True, stable=True)[:k]
+    return idx // n, idx % n
+
+
+def overlapping_random(generator: torch.Generator, n: int,
+                       k: int | None = None, device=None):
+    """The overlapping GCD-R ablation: k random edges (k = n // 2 by
+    default) that may share axes, from ``generator`` on ``device`` (the
+    card by default). j is i plus an offset drawn from [1, n), mod n, so
+    j ≠ i, as the JAX package draws them; each pair is (min, max)."""
+    dev = _device.resolve(device)
+    _device.check_generator(generator, dev)
+    k = n // 2 if k is None else k
+    i = torch.randint(0, n, (k,), generator=generator, device=dev)
+    off = torch.randint(1, n, (k,), generator=generator, device=dev)
+    j = (i + off) % n
+    return torch.minimum(i, j), torch.maximum(i, j)
+
+
+def exact_matching_dp(A):
+    """Exact max-weight perfect matching by bitmask DP (the test oracle,
+    even n ≤ 16): dp[mask] is the best total |A| weight perfectly matching
+    the set bits of mask, O(2ⁿ·n²) in numpy and Python. Returns (pi, pj)
+    as int32 numpy arrays, in the order the backtrack meets them reversed,
+    and the weight."""
+    if isinstance(A, torch.Tensor):
+        A = A.detach().cpu().numpy()
+    w = np.abs(np.asarray(A))
+    n = w.shape[0]
+    assert n % 2 == 0 and n <= 16, "oracle is for small even n"
+    full = (1 << n) - 1
+    NEG = -np.inf
+    dp = np.full(1 << n, NEG)
+    choice = np.full((1 << n, 2), -1, dtype=np.int64)
+    dp[0] = 0.0
+    for mask in range(1 << n):
+        if dp[mask] == NEG:
+            continue
+        i = 0                                   # the first free axis
+        while i < n and (mask >> i) & 1:
+            i += 1
+        if i == n:
+            continue
+        for j in range(i + 1, n):
+            if (mask >> j) & 1:
+                continue
+            nm = mask | (1 << i) | (1 << j)
+            val = dp[mask] + w[i, j]
+            if val > dp[nm]:
+                dp[nm] = val
+                choice[nm] = (i, j)
+    pairs = []
+    mask = full
+    while mask:
+        i, j = choice[mask]
+        pairs.append((int(i), int(j)))
+        mask &= ~((1 << int(i)) | (1 << int(j)))
+    pairs = pairs[::-1]
+    pi = np.array([a for a, _ in pairs], dtype=np.int32)
+    pj = np.array([b for _, b in pairs], dtype=np.int32)
+    return pi, pj, float(dp[full])
 
 
 def matching_weight(A: torch.Tensor, pi: torch.Tensor,

@@ -25,11 +25,17 @@
 //      by 4 floats, so the rows a warp reads at one input fall in distinct
 //      banks) and the group's qdelta column slab (n x group*sub) in shared
 //      memory, once per block, so Q crosses L2 once per column group and
-//      not once per column. Each thread then forms a register tile of rq
-//      queries x 4 slab columns over one of `runs` runs of the n inputs
-//      (float32 FMAs; a float4 slab read serves 4 x rq of them), and the
-//      runs' partial sums are added in run order; the plan picks rq and
-//      runs so that the register tiles keep every thread busy.
+//      not once per column. The n inputs are cut into `runs` runs of
+//      ceil(n / runs) inputs, and `runs` is a function of n alone
+//      (ops.fused_lut_plan): each thread forms a register tile of rq
+//      queries x 4 slab columns over a run (float32 FMAs; a float4 slab
+//      read serves 4 x rq of them), stores the run's partial sums apart
+//      and goes on to its next run while the block has fewer threads
+//      than register tiles x runs; the runs' partial sums are then added
+//      in run order. So every entry's sums run in one order whatever the
+//      batch, the tile, rq, the group or the span: a query's table is
+//      bit-equal in any batch. The plan picks rq so that the register
+//      tiles keep every thread busy where they can.
 //   2. write: each thread holds four consecutive codewords of one column
 //      in registers (prefetched into L1 while stage 1 runs) and, for every
 //      query of the tile, writes their four table entries as one 16-byte
@@ -75,9 +81,10 @@ fused_lut_kernel(const float* __restrict__ Q, const float* __restrict__ qdelta,
   const int tq = tile / RQ;              // query rows of a register tile
   const int t1 = tq * gs4;               // register tiles, a power of two
   float* qd_s = smem;                    // n x gs qdelta slab
-  float* q_s = qd_s + n * gs;            // tile x ldq queries, then the
-                                         // runs' partial sums, then the
-                                         // tile x gs rotated sub-queries
+  float* q_s = qd_s + n * gs;            // tile x ldq queries
+  float* part = q_s + tile * ldq;        // runs x tile x gs partial sums,
+                                         // run 0's slots then the tile x gs
+                                         // rotated sub-queries
 
   int blk = blockIdx.x;
   const int k0 = (blk % ksplit) * kc;
@@ -151,53 +158,52 @@ fused_lut_kernel(const float* __restrict__ Q, const float* __restrict__ qdelta,
   }
 
   // rotate: register tile of RQ queries qg, qg + tq, ... x 4 slab columns
-  // over the inputs [lo, hi) of run `run`
+  // over the inputs [lo, hi) of each run this thread walks
   repro::cp_async_wait<0>();
   __syncthreads();
   {
     const int u = tid % t1;
-    const int run = tid / t1;          // threads of runs past the last idle
+    const int lanes = kThreads / t1;   // threads past lanes x t1 idle
     const int qg = u / gs4;
     const int cg = u - qg * gs4;
     const int len = (n + runs - 1) / runs;
-    const int lo = min(n, run * len);
-    const int hi = run < runs ? min(n, lo + len) : lo;
-    float acc[RQ][4];
-#pragma unroll
-    for (int r = 0; r < RQ; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
     const float* qrow = q_s + qg * ldq;
     const float4* w4 = reinterpret_cast<const float4*>(qd_s) + cg;
-#pragma unroll 4
-    for (int c = lo; c < hi; ++c) {
-      const float4 w = w4[c * gs4];
-#pragma unroll
-      for (int r = 0; r < RQ; ++r) {
-        const float x = qrow[r * tq * ldq + c];
-        acc[r][0] = __fmaf_rn(x, w.x, acc[r][0]);
-        acc[r][1] = __fmaf_rn(x, w.y, acc[r][1]);
-        acc[r][2] = __fmaf_rn(x, w.z, acc[r][2]);
-        acc[r][3] = __fmaf_rn(x, w.w, acc[r][3]);
-      }
-    }
-    __syncthreads();   // every warp is done with the query tile
-    if (run < runs) {
-      float* part = q_s + run * tile * gs;
+    for (int run = tid / t1; run < runs && tid < lanes * t1; run += lanes) {
+      const int lo = min(n, run * len);
+      const int hi = min(n, lo + len);
+      float acc[RQ][4];
 #pragma unroll
       for (int r = 0; r < RQ; ++r)
-        reinterpret_cast<float4*>(part + (qg + r * tq) * gs)[cg] =
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
+#pragma unroll 4
+      for (int c = lo; c < hi; ++c) {
+        const float4 w = w4[c * gs4];
+#pragma unroll
+        for (int r = 0; r < RQ; ++r) {
+          const float x = qrow[r * tq * ldq + c];
+          acc[r][0] = __fmaf_rn(x, w.x, acc[r][0]);
+          acc[r][1] = __fmaf_rn(x, w.y, acc[r][1]);
+          acc[r][2] = __fmaf_rn(x, w.z, acc[r][2]);
+          acc[r][3] = __fmaf_rn(x, w.w, acc[r][3]);
+        }
+      }
+      float* out = part + run * tile * gs;
+#pragma unroll
+      for (int r = 0; r < RQ; ++r)
+        reinterpret_cast<float4*>(out + (qg + r * tq) * gs)[cg] =
             make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
     }
   }
   __syncthreads();
   // the runs' partial sums, added in run order into run 0's slots
   for (int o = tid; o < tile * gs; o += kThreads) {
-    float sum = q_s[o];
+    float sum = part[o];
 #pragma unroll 4
     for (int r = 1; r < runs; ++r)
-      sum = __fadd_rn(sum, q_s[r * tile * gs + o]);
-    q_s[o] = sum;
+      sum = __fadd_rn(sum, part[r * tile * gs + o]);
+    part[o] = sum;
   }
   __syncthreads();
 
@@ -229,7 +235,7 @@ fused_lut_kernel(const float* __restrict__ Q, const float* __restrict__ qdelta,
     const long long stride = static_cast<long long>(qs) * Dp * K;
     for (int i = i0; i < rows; i += qs, out += stride) {
       const float4* x4 =
-          reinterpret_cast<const float4*>(q_s + i * gs + g * SUB);
+          reinterpret_cast<const float4*>(part + i * gs + g * SUB);
       float a[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int v = 0; v < SUB / 4; ++v) {
@@ -256,12 +262,12 @@ fused_lut_kernel(const float* __restrict__ Q, const float* __restrict__ qdelta,
 bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
 // Shared memory of one block, in bytes, as ops.fused_lut_plan counts it:
-// the slab, and the larger of the padded query tile and the runs' sums.
+// the slab, the padded query tile and the runs' partial sums.
 long long smem_bytes(int n, int sub, int tile, int group, int runs) {
   const long long gs = static_cast<long long>(group) * sub;
   const long long q = static_cast<long long>(tile) * (n + 4);
   const long long part = static_cast<long long>(runs) * tile * gs;
-  return 4 * (n * gs + (q > part ? q : part));
+  return 4 * (n * gs + q + part);
 }
 
 // A block's share of the table (ops.fused_lut_plan): tile queries, group
@@ -326,9 +332,9 @@ cudaError_t launch_sub(const void* Q, const void* qdelta, const void* cb,
 // float32, cb 16-byte aligned; cmap (Dp,) int32 with entries in
 // [0, n / sub); sub in {4, 8, 16}; tile a power of two up to 32; group a
 // power of two; kc a multiple of 4; rq in {1, 2, 4, 8} dividing tile, with
-// (tile / rq) * group * sub / 4 register tiles times runs at most 256
-// threads; smem the plan's shared memory, which must equal this file's
-// count. Returns a cudaError_t.
+// (tile / rq) * group * sub / 4 register tiles at most 256 threads; runs
+// the plan's runs of the inputs (a function of n); smem the plan's shared
+// memory, which must equal this file's count. Returns a cudaError_t.
 extern "C" int repro_fused_lut(const void* Q, const void* qdelta,
                                const void* cb, const void* cmap, void* lut,
                                int b, int n, int Dp, int K, int sub, int tile,
@@ -339,7 +345,7 @@ extern "C" int repro_fused_lut(const void* Q, const void* qdelta,
       n % 4 || (sub != 4 && sub != 8 && sub != 16) || !pow2(rq) || rq > 8 ||
       tile % rq || runs < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if ((tile / rq) * group * sub / 4 * runs > kThreads ||
+  if ((tile / rq) * group * sub / 4 > kThreads ||
       smem != smem_bytes(n, sub, tile, group, runs))
     return static_cast<int>(cudaErrorInvalidValue);
   const Layout lay{tile, group, kc, rq, runs};

@@ -64,7 +64,7 @@ _ROTATE_WAVES = 1        # blocks per SM its grid has, at least
 _ROTATE_RUN_BYTES = 8192  # bytes of X one block of it stages, most
 _LUT_TILES = (32, 16, 8, 4, 2, 1)  # query tiles of the fused LUT build
 _LUT_THREADS = 256       # threads per block of it (kThreads in the source)
-_LUT_MAX_RUNS = 16       # runs of the inputs of its rotation, most
+_LUT_RUN_LEN = 16        # inputs per run of its rotation's sums
 _LUT_FILL = 0.9          # blocks per SM its grid has, at least
 _BATCH_ROWS = (8192, 1024)  # longest and shortest row run of a block of
 #                             the grouped scan
@@ -257,8 +257,9 @@ class _PairRotation(torch.autograd.Function):
 
 def _disjoint_pairs(pi: torch.Tensor, pj: torch.Tensor, n: int):
     """(pi, pj) as int32 after checking that the 2p columns are distinct
-    and inside [0, n): overlapping pairs are another delta, not ported.
-    Costs one host synchronisation."""
+    and inside [0, n): overlapping pairs are another delta
+    (``rotations.GivensDelta(overlapping=True)``, applied pair after pair
+    in plain PyTorch). Costs one host synchronisation."""
     if pi.shape != pj.shape or pi.dim() != 1:
         raise ValueError(f"pairs: pi {tuple(pi.shape)} and pj "
                          f"{tuple(pj.shape)} must be equal (p,) vectors")
@@ -268,9 +269,8 @@ def _disjoint_pairs(pi: torch.Tensor, pj: torch.Tensor, n: int):
             torch.clamp(cols, 0, n - 1), minlength=n).max() > 1)
         if bool(bad):
             raise ValueError(
-                "apply_pair_rotations: pairs overlap or leave [0, n): the "
-                "overlapping-Givens delta is not ported (ROADMAP.md queue "
-                "1, item 7)")
+                "apply_pair_rotations: pairs overlap or leave [0, n); "
+                "overlapping pairs go through GivensDelta(overlapping=True)")
     return pi.to(torch.int32).contiguous(), pj.to(torch.int32).contiguous()
 
 
@@ -663,23 +663,32 @@ def lut_column_map(colmap: torch.Tensor) -> torch.Tensor:
     return colmap.argmax(dim=1).to(torch.int32).contiguous()
 
 
-def _lut_rotation(n: int, sub: int, tile: int, group: int, max_runs: int):
+def lut_runs(n: int, run_len: int | None = None) -> int:
+    """The runs of the fused_lut rotation's sums over n inputs: ceil(n /
+    run_len) runs of ceil(n / runs) inputs each, added in run order. A
+    function of n alone (and of ``_LUT_RUN_LEN``), so a query's table is
+    summed in one order, and is bit-equal, whatever batch it is built in."""
+    return max(1, -(-n // (run_len or _LUT_RUN_LEN)))
+
+
+def _lut_rotation(n: int, sub: int, tile: int, group: int, run_len: int):
     """(rq, runs, smem) of a fused_lut block of ``tile`` queries and
     ``group`` columns: register tiles of rq queries × 4 slab columns, rq
-    the most (up to 8) that still keeps every thread busy with at most
-    ``max_runs`` runs of the inputs, and ``runs`` of them; ``smem``
-    (``smem_bytes`` in the source) the (n, group·sub) slab and the larger
-    of the padded (tile, n + 4) query tile and the runs' partial sums.
-    None where the register tiles alone outnumber the threads."""
+    the most (up to 8) that still keeps every thread busy with the
+    ``lut_runs(n)`` runs of the inputs (a thread walks several runs where
+    the register tiles × runs outnumber the threads), and ``runs``;
+    ``smem`` (``smem_bytes`` in the source) the (n, group·sub) slab, the
+    padded (tile, n + 4) query tile and the runs' partial sums. None where
+    the register tiles alone outnumber the threads."""
     gs4 = group * sub // 4
+    runs = lut_runs(n, run_len)
     rq = min(8, tile)
-    while rq > 1 and (tile // rq) * gs4 * max_runs < _LUT_THREADS:
+    while rq > 1 and (tile // rq) * gs4 * runs < _LUT_THREADS:
         rq //= 2
     t1 = (tile // rq) * gs4
     if t1 > _LUT_THREADS:
         return None
-    runs = min(_LUT_THREADS // t1, max_runs)
-    smem = 4 * (n * 4 * gs4 + max(tile * (n + 4), runs * tile * 4 * gs4))
+    smem = 4 * (n * 4 * gs4 + tile * (n + 4) + runs * tile * 4 * gs4)
     return rq, runs, smem
 
 
@@ -693,7 +702,10 @@ def fused_lut_plan(b: int, n: int, Dp: int, K: int, sub: int,
     than b needs), a ``group`` of code columns (a power of two, at most as
     many as give each thread four codewords of one column: 4 at K = 256)
     and a span of ``kc`` codewords (a multiple of 4; K split in ``ksplit``
-    spans); ``_lut_rotation`` lays out its rotation. Of the layouts whose
+    spans); ``_lut_rotation`` lays out its rotation, whose runs of the
+    inputs, and so every entry's order of sums, depend on n alone
+    (``lut_runs``): the tile, rq, the group and the span change the
+    schedule and never the result. Of the layouts whose
     shared memory fits, the plan takes the one that reads the fewest bytes
     from L2 (each block reads its query tile, the group's qdelta slab and
     its codewords) among those whose grid has at least ``_LUT_FILL`` × sms
@@ -704,13 +716,13 @@ def fused_lut_plan(b: int, n: int, Dp: int, K: int, sub: int,
     ``kernel_bench.py --sweep`` times other values of the constants. The
     plan is worked out once per shape and setting of the constants (a few
     tens of µs of Python, more than the kernel takes at small b)."""
-    plan = _lut_plan(b, n, Dp, K, sub, sms, _LUT_FILL, _LUT_MAX_RUNS)
+    plan = _lut_plan(b, n, Dp, K, sub, sms, _LUT_FILL, _LUT_RUN_LEN)
     return None if plan is None else dict(plan)
 
 
 @functools.lru_cache(maxsize=256)
 def _lut_plan(b: int, n: int, Dp: int, K: int, sub: int, sms: int,
-              fill: float, max_runs: int) -> dict | None:
+              fill: float, run_len: int) -> dict | None:
     k4 = -(-K // 4)
     target = fill * sms
     g0 = 1 << (max(1, min(Dp, _LUT_THREADS // max(k4, 1))).bit_length() - 1)
@@ -720,7 +732,7 @@ def _lut_plan(b: int, n: int, Dp: int, K: int, sub: int, sms: int,
             continue
         group = g0
         while group >= 1:
-            rot = _lut_rotation(n, sub, tile, group, max_runs)
+            rot = _lut_rotation(n, sub, tile, group, run_len)
             if rot is not None and rot[2] <= _SMEM_LIMIT:
                 ks = 1
                 while ks <= max(k4, 1):

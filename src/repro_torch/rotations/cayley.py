@@ -90,7 +90,12 @@ class CayleySGD:
         gA = ∇_A L(R·cayley(A)) at A = 0   (exact vjp through the solve)
         Δ  = cayley(−lr · gA)
         R  ← R · Δ
+
+    ``reorthonormalize_every`` > 0 projects R back onto SO(n) every that
+    many steps (``base.maybe_reorthonormalize``).
     """
+
+    reorthonormalize_every: int = 0
 
     def init(self, n: int, dtype=torch.float32, device=None) -> CayleyState:
         """Fresh state at R = I_n on ``device`` (the card by default)."""
@@ -121,5 +126,7 @@ class CayleySGD:
                                 torch.zeros_like(R32))
         (gA,) = vjp(grad.float())
         delta = base.DenseDelta(dR=cayley(-float(lr) * gA))
-        return (CayleyState(R=delta.apply(state.R), step=state.step + 1),
-                delta)
+        step = state.step + 1
+        R_new = base.maybe_reorthonormalize(
+            delta.apply(state.R), step, self.reorthonormalize_every)
+        return CayleyState(R=R_new, step=step), delta

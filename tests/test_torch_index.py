@@ -302,8 +302,15 @@ def test_gcd_state_from_numpy_steps_like_jax():
     tnew, _ = rotations.make("gcd_greedy").update(tstate, _t(G), 1e-2)
     np.testing.assert_allclose(tnew.R.numpy(), np.asarray(jnew.R), atol=1e-6,
                                rtol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convert.gcd_state_from_numpy({"R": R, "accum": np.ones_like(R)},
+    # a preconditioned state's accumulators come along as they are
+    acc = rng.rand(16, 16).astype(np.float32)
+    st = convert.gcd_state_from_numpy(
+        {"R": R, "accum": acc, "accum2": 2 * acc, "step": 3}, device="cpu")
+    np.testing.assert_array_equal(st.accum.numpy(), acc)
+    np.testing.assert_array_equal(st.accum2.numpy(), 2 * acc)
+    assert int(st.step) == 3 and st.accum.dtype == torch.float32
+    with pytest.raises(ValueError, match="shape"):
+        convert.gcd_state_from_numpy({"R": R, "accum": acc[:4]},
                                      device="cpu")
 
 

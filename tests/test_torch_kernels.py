@@ -661,20 +661,42 @@ def test_fused_lut_plan_covers_the_table_once(case):
     assert tile in tops._LUT_TILES and tile < 2 * b or tile == 1
     assert group & (group - 1) == 0
     assert plan["rq"] in (1, 2, 4, 8) and tile % plan["rq"] == 0
-    # register tiles × runs: no more than the block's threads, and all of
-    # them unless the register tiles are down to one query
-    busy = (tile // plan["rq"]) * group * sub // 4 * plan["runs"]
-    assert busy <= plan["threads"]
-    assert busy == plan["threads"] or plan["rq"] == 1
+    # register tiles: no more than the block's threads; with the runs
+    # (n's, walked several a thread where they outnumber the threads) all
+    # of them busy unless the register tiles are down to one query
+    tiles = (tile // plan["rq"]) * group * sub // 4
+    assert tiles <= plan["threads"]
+    assert plan["runs"] == tops.lut_runs(n)
+    assert tiles * plan["runs"] >= plan["threads"] or plan["rq"] == 1
     assert plan["kc"] % 4 == 0
     assert (plan["rq"], plan["runs"], plan["smem"]) == tops._lut_rotation(
-        n, sub, tile, group, tops._LUT_MAX_RUNS)
+        n, sub, tile, group, tops._LUT_RUN_LEN)
     assert plan["smem"] <= tops._SMEM_LIMIT
     assert np.all(_lut_cover(plan, b, Dp, K) == 1)
     if case.startswith("bucket"):
         # a block for 128 of the 132 SMs: a grid of 256 reads the operands
         # twice as often and was slower on an H100 (PERF.md)
         assert 128 <= plan["blocks"] < 2 * 132
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("n,Dp,K,sub", [(256, 32, 256, 8),
+                                        (512, 64, 256, 8)])
+def test_fused_lut_reduction_order_does_not_depend_on_batch(n, Dp, K, sub,
+                                                            sms):
+    """Every batch size from 1 to 4096 gets the same runs of the inputs and
+    the same run length (the order of each table entry's sums), on an
+    H100 SXM's 132 SMs and a PCIe card's 114, so a query's table is the
+    same whatever batch it is built in (an Engine's cached tables against
+    a direct search); only the schedule moves with b."""
+    want = tops.lut_runs(n)
+    layouts = set()
+    for b in range(1, 4097):
+        plan = tops.fused_lut_plan(b, n, Dp, K, sub, sms=sms)
+        assert plan["runs"] == want, b
+        assert -(-n // plan["runs"]) == -(-n // want)
+        layouts.add((plan["tile"], plan["group"], plan["rq"]))
+    assert len(layouts) > 1      # the schedule does move with b
 
 
 # (m, n) of the givens_rotate launches on the main path: training's R, the

@@ -156,13 +156,16 @@ def test_delta_apply_and_identity():
 
 
 def test_registry_ports_only_the_slice():
-    """The Table 1 learners build through ``make`` (aliases and
-    ``method=`` included) with the JAX registry's order in ``names()``;
-    the names still in ``_LATER`` raise."""
+    """Every learner of the JAX registry builds through ``make`` (aliases
+    and ``method=`` included) with the JAX registry's tuple in
+    ``names()``: the Table 1 rows, Procrustes (and its "svd" alias) and
+    the two overlapping ablations; wrong specs still raise."""
     assert isinstance(trot.make("gcd_greedy"), trot.GCD)
     assert isinstance(trot.make("subspace_gcd", sub=4), trot.SubspaceGCD)
     for spec, method in (("gcd_random", "random"), ("gcd_greedy", "greedy"),
-                         ("gcd_steepest", "steepest"), ("gcd", "greedy")):
+                         ("gcd_steepest", "steepest"), ("gcd", "greedy"),
+                         ("gcd_overlap_greedy", "overlap_greedy"),
+                         ("gcd_overlap_random", "overlap_random")):
         learner = trot.make(spec)
         assert type(learner) is trot.GCD and learner.method == method
     assert trot.make("gcd", method="steepest", sweeps=3) == trot.GCD(
@@ -171,22 +174,20 @@ def test_registry_ports_only_the_slice():
         "random"
     assert isinstance(trot.make("cayley_sgd"), trot.CayleySGD)
     assert isinstance(trot.make("cayley"), trot.CayleySGD)
-    assert trot.names() == tuple(
-        n for n in jrot.names()
-        if n not in ("procrustes", "gcd_overlap_greedy",
-                     "gcd_overlap_random"))
-    for spec in ("procrustes", "svd", "gcd_overlap_greedy",
-                 "gcd_overlap_random"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trot.make(spec)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trot.make("gcd", method="overlap_random")
+    for spec in ("procrustes", "svd"):
+        assert isinstance(trot.make(spec), trot.Procrustes)
+    assert trot.names() == jrot.names()
+    assert not hasattr(trot, "_LATER")
+    assert trot.make("gcd", method="overlap_random").method == \
+        "overlap_random"
+    assert trot.make("gcd_greedy", preconditioner="adam").preconditioner \
+        == "adam"
     with pytest.raises(ValueError, match="disjoint"):
         trot.make("subspace_gcd", sub=4, method="overlap_greedy")
     with pytest.raises(ValueError):
         trot.make("gcd", method="no_such_method")
-    with pytest.raises(TypeError):
-        trot.make("gcd_greedy", preconditioner="adam")   # "none" only
+    with pytest.raises(ValueError):
+        trot.make("gcd_greedy", preconditioner="rmsprop")
     with pytest.raises(ValueError):
         trot.make("no_such_learner")
     with pytest.raises(ValueError):
@@ -420,3 +421,274 @@ def test_cayley_state_round_trip_from_jax():
     assert int(st.step) == int(jstate.step) == 1
     back = {k: np.asarray(v) for k, v in st._asdict().items()}
     np.testing.assert_array_equal(back["R"], np.asarray(jstate.R))
+
+
+# -- the rest of core.givens and core.matching ------------------------------
+
+
+@pytest.mark.parametrize("n,flip", [(8, False), (8, True), (33, True)])
+def test_project_to_so_n_matches_jax(n, flip):
+    """The SVD projection lands in SO(n) (det +1, also from a matrix whose
+    nearest orthogonal one has det −1) and agrees with JAX's within 1e-5;
+    the port's float64 SVD is at least as orthogonal."""
+    rng = np.random.RandomState(n + flip)
+    M = (np.linalg.qr(rng.randn(n, n))[0] + 0.1 * rng.randn(n, n))
+    if flip != (np.linalg.det(M) < 0):
+        M[:, 0] *= -1
+    M = M.astype(np.float32)
+    want = np.asarray(jgivens.project_to_so_n(jnp.asarray(M)))
+    got = tgivens.project_to_so_n(_t(M))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    assert abs(float(torch.linalg.det(got.double())) - 1.0) < 1e-5
+    assert (float(tgivens.orthogonality_error(got))
+            <= max(float(jgivens.orthogonality_error(jnp.asarray(want))),
+                   1e-6))
+
+
+def test_random_rotation_is_a_seeded_element_of_so_n():
+    g = torch.Generator().manual_seed(3)
+    Q = tgivens.random_rotation(g, 24, device="cpu")
+    assert Q.shape == (24, 24) and Q.dtype == torch.float32
+    assert float(tgivens.orthogonality_error(Q)) < 1e-5
+    assert abs(float(torch.linalg.det(Q.double())) - 1.0) < 1e-5
+    again = tgivens.random_rotation(torch.Generator().manual_seed(3), 24,
+                                    device="cpu")
+    assert torch.equal(Q, again)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tgivens.random_rotation(g, 4)       # the card by default
+
+
+def test_pair_products_and_scores_match_jax():
+    """``rotation_from_pairs``, ``apply_pair_rotations_transposed``,
+    ``gather_pair_scores`` and ``directional_derivs_wrt_input`` against
+    their JAX counterparts on shared inputs (1e-6)."""
+    rng = np.random.RandomState(9)
+    n = 10
+    perm = rng.permutation(n)
+    pi, pj = perm[:4].astype(np.int32), perm[4:8].astype(np.int32)
+    th = rng.uniform(-1, 1, size=4).astype(np.float32)
+    X = rng.randn(5, n).astype(np.float32)
+    dX = rng.randn(5, n).astype(np.float32)
+    A = rng.randn(n, n).astype(np.float32)
+    j = [jnp.asarray(a) for a in (pi, pj, th)]
+    t = [_t(a) for a in (pi, pj, th)]
+    np.testing.assert_allclose(
+        tgivens.rotation_from_pairs(*t, n).numpy(),
+        np.asarray(jgivens.rotation_from_pairs(*j, n)), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(
+        tgivens.apply_pair_rotations_transposed(_t(X), *t).numpy(),
+        np.asarray(jgivens.apply_pair_rotations_transposed(
+            jnp.asarray(X), *j)), atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(
+        tgivens.gather_pair_scores(_t(A), t[0], t[1]).numpy(),
+        np.asarray(jgivens.gather_pair_scores(jnp.asarray(A), j[0], j[1])))
+    np.testing.assert_allclose(
+        tgivens.directional_derivs_wrt_input(_t(X), _t(dX)).numpy(),
+        np.asarray(jgivens.directional_derivs_wrt_input(
+            jnp.asarray(X), jnp.asarray(dX))), atol=1e-6, rtol=0)
+    # a rotation and its transpose undo each other
+    Rp = tgivens.rotation_from_pairs(*t, n)
+    back = tgivens.apply_pair_rotations_transposed(Rp, *t)
+    np.testing.assert_allclose(back.numpy(), np.eye(n), atol=1e-6)
+
+
+@pytest.mark.parametrize("n,k", [(8, None), (32, None), (32, 40)])
+def test_overlapping_topk_matches_jax(n, k):
+    """On distinct |A| the port picks JAX's pairs in JAX's order; on an
+    all-equal field both take the lowest flat edge indices first."""
+    rng = np.random.RandomState(n)
+    M = rng.randn(n, n).astype(np.float32)
+    A = M - M.T
+    jpi, jpj = jmatching.overlapping_topk(jnp.asarray(A), k)
+    tpi, tpj = tmatching.overlapping_topk(_t(A), k)
+    np.testing.assert_array_equal(tpi.numpy(), np.asarray(jpi))
+    np.testing.assert_array_equal(tpj.numpy(), np.asarray(jpj))
+    assert bool(torch.all(tpi < tpj))
+    ones = np.ones((n, n), np.float32)
+    jpi, jpj = jmatching.overlapping_topk(jnp.asarray(ones), k)
+    tpi, tpj = tmatching.overlapping_topk(_t(ones), k)
+    np.testing.assert_array_equal(tpi.numpy(), np.asarray(jpi))
+    np.testing.assert_array_equal(tpj.numpy(), np.asarray(jpj))
+
+
+def test_overlapping_random_is_seeded_and_never_pairs_an_axis_with_itself():
+    """By property (JAX's PRNG cannot be reproduced): k pairs lo < hi in
+    [0, n), repeats allowed, the same pairs from the same seed."""
+    for n, k in ((2, None), (7, 50), (64, None)):
+        g = torch.Generator().manual_seed(n)
+        lo, hi = tmatching.overlapping_random(g, n, k, device="cpu")
+        want = n // 2 if k is None else k
+        assert lo.shape == hi.shape == (want,)
+        assert bool(torch.all((0 <= lo) & (lo < hi) & (hi < n)))
+        lo2, hi2 = tmatching.overlapping_random(
+            torch.Generator().manual_seed(n), n, k, device="cpu")
+        assert torch.equal(lo, lo2) and torch.equal(hi, hi2)
+    lo, _ = tmatching.overlapping_random(torch.Generator().manual_seed(0),
+                                         8, 400, device="cpu")
+    assert len(set(lo.tolist())) > 1 and lo.unique().numel() < 400
+
+
+@pytest.mark.parametrize("n", [2, 4, 6, 8, 10])
+def test_exact_matching_dp_matches_jax(n):
+    rng = np.random.RandomState(n)
+    M = rng.randn(n, n).astype(np.float32)
+    A = M - M.T
+    jpi, jpj, jw = jmatching.exact_matching_dp(A)
+    tpi, tpj, tw = tmatching.exact_matching_dp(_t(A))
+    np.testing.assert_array_equal(tpi, jpi)
+    np.testing.assert_array_equal(tpj, jpj)
+    assert tw == jw
+    assert tw >= float(tmatching.matching_weight(
+        _t(A), *tmatching.greedy_matching_fast(_t(A)))) - 1e-5
+
+
+def test_overlapping_delta_matches_jax_sequential_apply():
+    """GivensDelta(overlapping=True) composes shared-axis pairs one after
+    another as JAX's ``_apply_overlapping`` does (1e-6), leaves its input
+    as it was, and differs from treating the pairs as commuting."""
+    from repro.rotations import base as jbase
+
+    rng = np.random.RandomState(4)
+    n = 9
+    pi = np.array([0, 1, 0, 3, 3, 8], np.int32)
+    pj = np.array([1, 2, 5, 4, 7, 2], np.int32)
+    th = rng.uniform(-1, 1, size=6).astype(np.float32)
+    for lead in ((), (4,), (2, 3)):
+        X = rng.randn(*lead, n).astype(np.float32)
+        want = np.asarray(jbase._apply_overlapping(
+            jnp.asarray(X), jnp.asarray(pi), jnp.asarray(pj),
+            jnp.asarray(th)))
+        Xt = _t(X)
+        got = trot.apply(Xt, trot.GivensDelta(_t(pi), _t(pj), _t(th),
+                                              overlapping=True))
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+        np.testing.assert_array_equal(Xt.numpy(), X)
+    R = trot.apply(torch.eye(n), trot.GivensDelta(
+        _t(pi), _t(pj), _t(th), overlapping=True))
+    assert float(trot.orthogonality_error(R)) < 1e-6
+
+
+# -- preconditioned GCD, the overlap methods, Procrustes --------------------
+
+
+@pytest.mark.parametrize("spec,kw", [("gcd_greedy", {"preconditioner":
+                                                      "adagrad"}),
+                                     ("gcd_greedy", {"preconditioner":
+                                                     "adam"}),
+                                     ("gcd_overlap_greedy", {}),
+                                     ("procrustes", {})])
+def test_three_learner_steps_match_jax(spec, kw):
+    """Three updates, each from the JAX state after the last carried across
+    by ``convert`` (the accumulators included) and a fresh dyadic G, from
+    a Hadamard R: the same pairs and angles (1e-6) and the same state (R,
+    step, accum, accum2 to 1e-5; Procrustes' float64 SVD against JAX's
+    float32 one to 1e-5)."""
+    from repro_torch import convert
+
+    n = 16
+    rng = np.random.RandomState(len(spec) + len(kw))
+    jl, tl = jrot.make(spec, **kw), trot.make(spec, **kw)
+    jstate = jl.init_from(jnp.asarray(_hadamard(n)))
+    to_t = (convert.procrustes_state_from_numpy if spec == "procrustes"
+            else convert.gcd_state_from_numpy)
+    for step in range(3):
+        G = _dyadic_grad(rng, n)
+        tstate = to_t({k: np.asarray(v)
+                       for k, v in jstate._asdict().items()}, device="cpu")
+        jstate, jdelta = jl.update(jstate, jnp.asarray(G), 5e-2,
+                                   jax.random.PRNGKey(step))
+        tstate, tdelta = tl.update(tstate, _t(G), 5e-2)
+        assert type(tstate).__name__ == type(jstate).__name__
+        for f in jstate._fields:
+            np.testing.assert_allclose(
+                getattr(tstate, f).numpy(), np.asarray(getattr(jstate, f)),
+                atol=1e-5, rtol=1e-5, err_msg=f"{spec} {kw} step {step} {f}")
+        if spec == "procrustes":
+            assert isinstance(tdelta, trot.DenseDelta)
+            np.testing.assert_allclose(tdelta.dR.numpy(),
+                                       np.asarray(jdelta.dR), atol=1e-5)
+            continue
+        assert tdelta.overlapping == jdelta.overlapping
+        np.testing.assert_array_equal(tdelta.pi.numpy(), np.asarray(jdelta.pi))
+        np.testing.assert_array_equal(tdelta.pj.numpy(), np.asarray(jdelta.pj))
+        np.testing.assert_allclose(tdelta.theta.numpy(),
+                                   np.asarray(jdelta.theta), atol=1e-6,
+                                   rtol=0)
+    assert float(trot.orthogonality_error(tstate.R)) < 1e-5
+
+
+def test_procrustes_solve_is_the_closed_form():
+    rng = np.random.RandomState(2)
+    X = rng.randn(50, 8).astype(np.float32)
+    Y = (X @ np.linalg.qr(rng.randn(8, 8))[0]).astype(np.float32)
+    learner = trot.make("svd")
+    st = learner.init(8, device="cpu")
+    st, delta = learner.solve(st, _t(X), _t(Y))
+    jl = jrot.make("procrustes")
+    js, jd = jl.solve(jl.init(8), jnp.asarray(X), jnp.asarray(Y))
+    np.testing.assert_allclose(st.R.numpy(), np.asarray(js.R), atol=1e-5)
+    np.testing.assert_allclose(delta.dR.numpy(), np.asarray(jd.dR),
+                               atol=1e-5)
+    assert int(st.step) == 1
+
+
+@pytest.mark.parametrize("spec", ["gcd_greedy", "cayley_sgd"])
+def test_reorthonormalize_every_fires_only_on_its_steps(spec, monkeypatch):
+    """Every 3rd step (post-update counter 3, 6) the state's R is the SVD
+    projection of the delta-applied R, and no SVD runs on the other
+    steps; every = 0 never projects."""
+    from repro_torch.rotations import base as tbase
+
+    calls = []
+    real = tbase.givens.project_to_so_n
+
+    def spy(R):
+        calls.append(R.clone())
+        return real(R)
+
+    monkeypatch.setattr(tbase.givens, "project_to_so_n", spy)
+    rng = np.random.RandomState(5)
+    n = 8
+    learner = trot.make(spec, reorthonormalize_every=3)
+    st = learner.init(n, device="cpu")
+    for step in range(1, 8):
+        before = len(calls)
+        R_old = st.R
+        st, delta = learner.update(st, _t(rng.randn(n, n).astype(
+            np.float32)), 1e-2)
+        fired = len(calls) > before
+        assert fired == (step % 3 == 0), step
+        moved = trot.apply(R_old, delta)
+        if fired:
+            torch.testing.assert_close(calls[-1], moved)
+            torch.testing.assert_close(st.R, real(moved))
+        else:
+            assert torch.equal(st.R, moved)
+    off = trot.make(spec)
+    st = off.init(n, device="cpu")
+    for _ in range(4):
+        st, _ = off.update(st, _t(rng.randn(n, n).astype(np.float32)), 1e-2)
+    assert len(calls) == 2
+    R = _t(np.linalg.qr(rng.randn(n, n))[0].astype(np.float32) * 1.01)
+    assert torch.equal(trot.maybe_reorthonormalize(R, torch.tensor(4), 0), R)
+    assert torch.equal(trot.maybe_reorthonormalize(R, torch.tensor(4), 3), R)
+    fixed = trot.maybe_reorthonormalize(R, torch.tensor(6), 3)
+    assert float(trot.orthogonality_error(fixed)) < 1e-5
+
+
+def test_learners_follow_the_protocol():
+    for spec in trot.names():
+        kw = {"sub": 4} if spec == "subspace_gcd" else {}
+        learner = trot.make(spec, **kw)
+        assert isinstance(learner, trot.RotationLearner), spec
+        st = learner.init(8, device="cpu")
+        assert torch.equal(learner.materialize(st), torch.eye(8))
+        R = tgivens.random_rotation(torch.Generator().manual_seed(0), 8,
+                                    device="cpu")
+        st = learner.with_rotation(st, R)
+        st, delta = learner.update(st, torch.ones(8, 8), 1e-2,
+                                   torch.Generator().manual_seed(1))
+        torch.testing.assert_close(trot.apply(R, delta),
+                                   learner.materialize(st), atol=1e-6,
+                                   rtol=0)
