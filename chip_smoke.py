@@ -58,8 +58,43 @@ Phases, one JSON line each:
            batch); its time at b = 512 and at the Engine's buckets beside
            its times when its order of sums still moved with the batch
            (LUT_BEFORE_MS), the two library calls that compute the
-           same tables and the eager LUT stage. The 1M-row index is freed
-           after;
+           same tables and the eager LUT stage;
+  churn    live churn on main's index (repro_torch.bench.churn's loop):
+           a fused-refresh IVF state (nprobe 32) behind search.Engine
+           (k = 10, min_bucket 32) and a ChurnController (a 4,096-row
+           buffer, flush at 0.5, compact at 0.03), the first search with
+           the buffer in, then 24 steps of 2,048 deletes drawn from SEED,
+           2,048 adds (held-out rows of main's sift_like draw, ids from N
+           up), a subspace-GCD delta through Engine.refresh and the 512
+           serve_p99 queries. Held: the JAX churn script's seven checks
+           (benchmarks/churn.py:208-219: no new executable, no LUT
+           invalidation, no grow, no dead id served, every mutation
+           exercised, recall@10 within 0.01 of a same-quantizer repack
+           and no lower than a fresh ivf.build less 0.01), every state
+           tensor's shape and
+           max_blocks at every step, and the launches each step implies
+           (counts set to 0 just before the loop and read just after).
+           Then 8 steps with a BackgroundCompactor, a StalenessTracker and
+           a re-encode from the rows: a swap, no double swap, launches;
+           and a quiet pass bit-equal to a foreground compact of its
+           snapshot. adc_lookup as the side pass (b = 1, 32, 512; the
+           buffer half full, full and empty; float32 and int8 tables) and
+           ivf_adc on the tombstoned CSR with the widened window, bit for
+           bit against their plain versions. Reported: each mutation's ms,
+           the Engine's latency at bucket 512 beside an Engine without a
+           buffer, rows scanned and the window's rows a query, the side
+           pass's time, bound and F.embedding_bag time. The fresh build
+           is the JAX script's from main's build's generator state (it
+           builds both from one key), and four more from BUILD_SEEDS:
+           k-means alone moves one build's recall by more than 0.01
+           here, so recall_within_rebuild is held against the five
+           builds' mean, the one build's comparison printed beside it
+           and the churned index's rank among the builds. How much of a
+           background pass the serving loop hides: batches of 512 with no
+           pass in flight, then while one runs (without and with the
+           tracker's re-encode); hidden = the worker's time less what the
+           submit, the swap's poll and the slower batches add to the
+           serving thread. The 1M-row index is freed after;
   train    the training slice at the full width of the paper's two-tower
            model (configs/paper_twotower.make_config: 1,541,673 items,
            embedding 512, towers (512, 512), history 16, D = 64, K = 256)
@@ -156,7 +191,8 @@ nvidia-smi line, the per-kernel JSON summary and the device JSON. A
 kernel's launches there are those of the paths' own calls, summed,
 with the split by path: serving's learn, build, serve and refresh; the
 Engine's attach, requests and refreshes (with the learner steps that give
-their deltas); train's parts; table1's run; fig4's and fig2's runs;
+their deltas); churn's attach, first search and both runs' steps;
+train's parts; table1's run; fig4's and fig2's runs;
 decode's prefill and greedy tokens. The
 checks that run beside them in a phase's window are left out.
 """
@@ -249,6 +285,25 @@ LUT_SLICES = (1, 8, 37, 64, 128, 300)
 #: fused_lut's device ms per launch at serve_p99 and the Engine's
 #: buckets while its runs of sums still moved with the batch (PERF.md §6)
 LUT_BEFORE_MS = {512: 0.01203, 8: 0.00503, 64: 0.00559, 128: 0.00626}
+
+# churn phase: live churn on the engine phase's index (bench/churn.py)
+CHURN_STEPS, CHURN_BATCH = 24, 2048
+CHURN_STAGING, CHURN_FLUSH_AT, CHURN_COMPACT_AT = 4096, 0.5, 0.03
+#: the second run, with a BackgroundCompactor: its steps and a threshold
+#: low enough for a pass to fire in them (1% of the CSR, 5.5 steps)
+BG_STEPS, BG_COMPACT_AT, BG_REENCODE_ROWS = 8, 0.01, 256
+#: held-out rows of main's sift_like draw, the churn phase's adds
+CHURN_ADDS = (CHURN_STEPS + BG_STEPS) * CHURN_BATCH
+#: the side pass's adc_lookup held at these batches, its buffer half full,
+#: full and empty
+SIDE_BATCHES = (1, 32, 512)
+#: more fresh builds of the live rows, from these seeds: recall_within_rebuild
+#: is held against the mean of these and the JAX script's build (k-means
+#: alone moves one build's recall by 0.018 at N = 1M, PERF.md §6)
+BUILD_SEEDS = (11, 12, 13, 14)
+#: batches of 512 served with no background pass in flight, the baseline of
+#: what a pass in flight adds to the serving loop
+HIDE_IDLE_BATCHES = 16
 
 # train phase (cut to fit a run; see the module docstring)
 #: table1 phase: benchmarks/fig3_table1_e2e.py run()'s default sizes and
@@ -562,8 +617,9 @@ def phase_main(smi: str) -> dict:
     t_all = time.perf_counter()
     g = device.generator(SEED)
     nq = sum(BATCHES)
-    allx = synthetic.sift_like(g, N + nq, DIM)
-    X, Q = allx[:N], allx[N:]
+    # the corpus, the queries, and the churn phase's adds: one draw
+    allx = synthetic.sift_like(g, N + nq + CHURN_ADDS, DIM)
+    X, Q, adds = allx[:N], allx[N:N + nq], allx[N + nq:]
     sample = X[:TRAIN]
     torch.cuda.synchronize()
     t_data = time.perf_counter() - t_all
@@ -592,6 +648,7 @@ def phase_main(smi: str) -> dict:
     # build
     searcher = search.make("ivf")
     cfg = serve_config()
+    build_rng = g.get_state()      # the churn phase's fresh-build oracle
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with _counted(own):
@@ -690,7 +747,7 @@ def phase_main(smi: str) -> dict:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the main path")
     return dict(launches=launches, path_launches=own, index=state.index,
-                Q=Q, G=G_sub,
+                Q=Q, G=G_sub, adds=adds, build_rng=build_rng,
                 R=R_before.contiguous(), X=X, index_before=index_before,
                 delta=delta, peak_memory_bytes=peak, exact=exact_state,
                 truth=truth, after_recall=after["recall_at_10"])
@@ -1494,15 +1551,6 @@ def phase_engine(ctx: dict, smi: str):
                rel_err=rel, bucket_ms=bucket_ms, before_ms=LUT_BEFORE_MS,
                batch_independence=lut_batch)
 
-    def per_bucket(reqs):
-        out = {}
-        for rec in reqs:
-            out.setdefault(rec["bucket"], obs.Distribution(
-                "latency_ms", window=len(reqs))).observe(rec["latency_ms"])
-        return {str(b): dict(n=d.count, p50=d.percentile(50),
-                             p99=d.percentile(99))
-                for b, d in sorted(out.items())}
-
     keys = ("requests", "queries", "compiles", "executables", "refreshes",
             "lut_hits", "lut_misses", "lut_hit_rate", "lut_invalidations",
             "lut_epoch", "lut_cached_rows", "latency_ms_p50",
@@ -1511,8 +1559,8 @@ def phase_engine(ctx: dict, smi: str):
          fresh_rows=n_fresh, rows=sum(len(r) for r in stream),
          nprobe=SERVE_NPROBE, refreshes=refreshes,
          float32={k: st1[k] for k in keys}, int8={k: st8[k] for k in keys},
-         latency_ms_by_bucket=dict(float32=per_bucket(reqs1),
-                                   int8=per_bucket(engine8.requests)),
+         latency_ms_by_bucket=dict(float32=_by_bucket(reqs1),
+                                   int8=_by_bucket(engine8.requests)),
          direct_searches=direct, int8_direct_searches=direct8,
          eager_ids_equal_share=eager_share, eager_max_score_diff=eager_diff,
          eager_probe_flips=int(moved.sum()), eager_probe_tie_gap=probe_gap,
@@ -1528,6 +1576,400 @@ def phase_engine(ctx: dict, smi: str):
          fails=fails)
     check(not fails, "; ".join(fails))
     return {"fused_lut": row}, errs, own
+
+
+# -- churn ------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _timed_calls(module, names, into: dict):
+    """Inside the block, every call of ``module.<name>`` for each name is
+    timed on the host clock, the card synchronised before and after, and
+    appended (ms) to ``into[name]``; the call goes on as before."""
+    import torch
+
+    real = {n: getattr(module, n) for n in names}
+
+    def spy(name):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            into.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    for n in names:
+        setattr(module, n, spy(n))
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(module, n, fn)
+
+
+def _pcts(values) -> dict:
+    """n, p50 and p95 of a list of milliseconds."""
+    if not values:
+        return dict(n=0)
+    v = sorted(values)
+    return dict(n=len(v), p50=statistics.median(v),
+                p95=v[min(len(v) - 1, math.ceil(0.95 * len(v)) - 1)])
+
+
+def _by_bucket(reqs) -> dict:
+    """n, p50 and p99 of the Engine's request latencies, by bucket."""
+    from repro_torch import obs
+
+    out = {}
+    for rec in reqs:
+        out.setdefault(rec["bucket"], obs.Distribution(
+            "latency_ms", window=len(reqs))).observe(rec["latency_ms"])
+    return {str(b): dict(n=d.count, p50=d.percentile(50),
+                         p99=d.percentile(99))
+            for b, d in sorted(out.items())}
+
+
+def _hidden_ms(engine, Q, comp, fails: list) -> dict:
+    """What one background pass of ``comp`` hides from the serving loop:
+    the Engine's batches of Q with no pass in flight, then the submit, the
+    batches while the worker runs, and the poll that swaps, all on this
+    thread. hidden = the worker's time less what those add (the submit,
+    the swap's poll and each batch above the idle median)."""
+    import torch
+
+    def batch_ms():
+        t = time.perf_counter()
+        engine.search(Q)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    idle = [batch_ms() for _ in range(HIDE_IDLE_BATCHES)]
+    t = time.perf_counter()
+    comp.submit()
+    submit = (time.perf_counter() - t) * 1e3
+    during = []
+    while True:
+        t = time.perf_counter()
+        swapped = comp.poll()
+        poll = (time.perf_counter() - t) * 1e3
+        if swapped or not comp.in_flight:
+            break
+        during.append(batch_ms())
+    comp.close()
+    if not swapped:
+        fails.append("a background pass with nothing to race was discarded")
+        return {}
+    worker = comp.obs.distribution("churn.bg_compact_ms").window_values()[0]
+    base = statistics.median(idle)
+    added = submit + poll + sum(d - base for d in during)
+    return dict(worker_ms=worker, submit_ms=submit, swap_poll_ms=poll,
+                idle_batch_ms=_pcts(idle), batch_ms_during=_pcts(during),
+                batches_during=len(during), added_serving_ms=added,
+                hidden_ms=worker - added)
+
+
+def phase_churn(ctx: dict, smi: str):
+    """Live churn on main's 1M-row index behind search.Engine, by
+    repro_torch.bench.churn's loop: the JAX churn script's seven checks,
+    shapes and launches held; then a shorter run with a
+    BackgroundCompactor; then the side pass's adc_lookup and the widened,
+    tombstoned ivf_adc against their plain versions."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import churn, device, obs, search
+    from repro_torch.bench import churn as cbench
+    from repro_torch.churn import ops as churn_ops
+    from repro_torch.kernels import ops, ref
+
+    t_all = time.perf_counter()
+    index, X, Q512 = ctx["index"], ctx["X"], ctx["Q"][:BATCHES[0]]
+    pool = torch.cat([X, ctx["adds"]])        # row = item id
+    live = np.zeros(pool.shape[0], dtype=bool)
+    live[:N] = True
+    ivf = search.make("ivf")
+    fails, errs, own = [], {}, {}
+
+    # without churn: the same queries through an Engine without a buffer
+    base = search.Engine(ivf, ivf.attach(index, nprobe=SERVE_NPROBE,
+                                         fused_refresh=True),
+                         k=10, min_bucket=32)
+    for _ in range(CHURN_STEPS + 1):
+        base.search(Q512)
+    base_st = base.stats()
+    base_lat = _by_bucket(base.requests[1:])
+    del base
+
+    # the path: attach, the controller, the first search with the buffer
+    # in, then the loop; launches counted from 0 just before the loop
+    with _counted(own):
+        state = ivf.attach(index, nprobe=SERVE_NPROBE, fused_refresh=True)
+        engine = search.Engine(ivf, state, k=10, min_bucket=32)
+        ctl = churn.ChurnController(engine, staging_rows=CHURN_STAGING,
+                                    flush_at=CHURN_FLUSH_AT,
+                                    compact_at=CHURN_COMPACT_AT)
+        engine.search(Q512)
+    es0 = engine.stats()
+    before = {k: es0[k] for k in ("compiles", "executables")}
+    shapes0 = cbench.state_shapes(ctl.state)
+    shape_moves = []
+
+    def on_step(step, add_ids, dead):
+        if cbench.state_shapes(ctl.state) != shapes0:
+            shape_moves.append(step)
+
+    mut = {}
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with _counted(own), _timed_calls(
+            churn_ops, ("stage", "tombstone", "flush", "compact"), mut):
+        records, _ = cbench.churn_loop(
+            engine, ctl, Q512, pool, live, steps=CHURN_STEPS,
+            batch=CHURN_BATCH, next_id=N, rng=np.random.default_rng(SEED),
+            on_step=on_step)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    loop_launches = dict(ops.LAUNCHES)
+    # a step: one scan and one side pass for the Engine's batch (its
+    # tables all cache hits), a score field and a plane rotation for the
+    # subspace step, two plane rotations for the fused refresh, two
+    # assigns for the stage
+    want = dict(ivf_adc=CHURN_STEPS, adc_lookup=CHURN_STEPS,
+                givens_rotate=3 * CHURN_STEPS, gcd_score=CHURN_STEPS,
+                pq_assign=2 * CHURN_STEPS)
+    got = {k: v for k, v in loop_launches.items() if v}
+    if got != want:
+        fails.append(f"churn loop launches {got}, the path implies {want}")
+    es = engine.stats()
+    churn_lat = _by_bucket(engine.requests[-CHURN_STEPS:])
+    if shape_moves or cbench.state_shapes(ctl.state) != shapes0:
+        fails.append(f"a state shape moved at steps {shape_moves}: "
+                     f"{shapes0} -> {cbench.state_shapes(ctl.state)}")
+
+    # the side pass and the scan, held on the operands of one more batch
+    seen = {}
+    with _last_call("adc_lookup", seen), _last_call("ivf_adc", seen):
+        engine.search(Q512)
+    lut_s, codes_s, scales_s, ids_s = seen["adc_lookup"]
+    bit_equal(ops.adc_lookup(lut_s, codes_s, scales_s, ids_s),
+              ref.adc_lookup_ref(lut_s, codes_s, scales_s, ids_s),
+              "adc_lookup side pass")
+    errs["adc_lookup/churn_side_pass"] = 0.0
+    lut_i, codes_i, bi, bq, scales_i, ids_i = seen["ivf_adc"]
+    errs["ivf_adc/churn_tombstoned_window"] = bit_equal(
+        ops.ivf_adc(lut_i, codes_i, bi, bq, scales_i, ids_i, block_size=BS),
+        ref.ivf_adc_ref(lut_i, codes_i, bi, bq, block_size=BS,
+                        scales=scales_i, ids=ids_i),
+        "ivf_adc on the tombstoned CSR")
+    scan = dict(steps=int(bi.numel()), max_blocks=ctl.state.max_blocks,
+                max_list_blocks=ctl.state.index.max_list_blocks(),
+                rows_in_window=int(bi.numel()) * BS,
+                masked_rows_in_window=int(torch.sum(ids_i.view(-1, BS)[
+                    bi.long()] < 0)))
+    del seen, codes_i, ids_i
+
+    # the JAX script's seven checks; its fresh build starts from the key
+    # the index's build started from, so this one from main's build state
+    g_build = torch.Generator(device=X.device)
+    g_build.set_state(ctx["build_rng"])
+    recalls = cbench.recall_oracles(engine, ctl, serve_config(), Q512, pool,
+                                    live, SERVE_NPROBE, generator=g_build)
+    # k-means alone moves one fresh build's recall by more than the check's
+    # 0.01 at this size (PERF.md §6), so recall_within_rebuild is held
+    # against the mean of that build and BUILD_SEEDS' builds of the same
+    # live rows; the one build's comparison is printed beside it
+    truth = cbench.exact_top10(Q512, pool, live)
+    build_seeds = {seed: cbench.fresh_build_recall(
+        Q512, pool, live, ctl.state.index.R, serve_config(), SERVE_NPROBE,
+        device.generator(seed), truth) for seed in BUILD_SEEDS}
+    del truth
+    builds = [recalls["recall_build"], *build_seeds.values()]
+    recall_build_mean = statistics.fmean(builds)
+    checks = cbench.checks_of(
+        es, before, records, CHURN_STEPS, CHURN_BATCH,
+        dict(recalls, recall_build=recall_build_mean))
+    one_build = recalls["recall_churn"] >= recalls["recall_build"] - 0.01
+    rank = 1 + sum(b > recalls["recall_churn"] for b in builds)
+    for name, ok in checks.items():
+        if not ok:
+            fails.append(f"churn check {name} failed")
+
+    # the side pass at its shapes: b = 1, 32, 512 served queries' float32
+    # and int8 tables, the buffer half full, full and empty
+    stg = ctl.state.staging
+    lut_all = ivf.luts(ctl.state, ivf.rotate_queries(ctl.state, Q512))
+    g = torch.Generator(device=X.device)
+    g.manual_seed(SEED + 5)
+    codes_b = torch.randint(0, K, stg.codes.shape, generator=g,
+                            device=X.device, dtype=torch.uint8)
+    full = torch.arange(CHURN_STAGING, dtype=torch.int32, device=X.device)
+    fills = {"half": torch.where(full % 2 == 0, full, -1), "full": full,
+             "empty": torch.full_like(full, -1)}
+    for b in SIDE_BATCHES:
+        for dt, (lut, scales) in _lut_variants(lut_all[:b]).items():
+            if dt == "uint8":
+                continue
+            for fill, ids_b in fills.items():
+                name = f"adc_lookup/side_b{b}_{dt}_{fill}"
+                errs[name] = bit_equal(
+                    ops.adc_lookup(lut, codes_b, scales, ids_b),
+                    ref.adc_lookup_ref(lut, codes_b, scales, ids_b), name)
+    lut512 = lut_all.contiguous()
+    half = fills["half"]
+    side_ms = graph_ms(lambda: ops.adc_lookup(lut512, codes_b, None, half),
+                       launches=50)
+    side_plain_ms = graph_ms(
+        lambda: ref.adc_lookup_ref(lut512, codes_b, None, half), launches=5)
+    lib = flat_library(lut512, codes_b)
+    side_lib_ms = graph_ms(lib, launches=20)
+    del lib
+    tiles = torch.arange(CHURN_STAGING // BS, device=X.device)
+    nbytes = _scan_bytes(lut512, None, codes_b, half, tiles, BS,
+                         BATCHES[0] * CHURN_STAGING, 0)
+    flops = BATCHES[0] * int(torch.sum(half >= 0)) * D
+    side = dict(shape=dict(b=BATCHES[0], Dp=D, K=K, N=CHURN_STAGING,
+                           live=int(torch.sum(half >= 0))),
+                ms=side_ms, plain_ms=side_plain_ms, library_ms=side_lib_ms,
+                bytes=nbytes, flops=flops, **_bound(nbytes, flops))
+    # a prepared batch with and without the side pass and its merge
+    # (CUDA events, host latency inside: the side pass syncs once for its
+    # top-k's candidate count)
+    QR512 = ivf.rotate_queries(ctl.state, Q512)
+    bare = dataclasses.replace(ctl.state, staging=None)
+    side["search_event_ms"] = {
+        name: time_ms(lambda st=st: ivf.search_prepared(st, QR512, lut512,
+                                                        k=10),
+                      reps=10, flush=False)
+        for name, st in (("without_side_pass", bare),
+                         ("with_side_pass", ctl.state))}
+
+    # the second run: a BackgroundCompactor, a StalenessTracker and a
+    # re-encode from the pool, on a new Engine over the end state
+    engine2 = search.Engine(ivf, ctl.state, k=10, min_bucket=32)
+    t0 = time.perf_counter()
+    tracker = churn.StalenessTracker(np.nonzero(live)[0])
+    track_s = time.perf_counter() - t0
+    comp = churn.BackgroundCompactor(
+        engine2, tracker=tracker, reencode_rows=BG_REENCODE_ROWS,
+        reencode_fn=lambda rid: pool[torch.from_numpy(
+            np.asarray(rid)).to(pool.device)])
+    ctl2 = churn.ChurnController(engine2, flush_at=CHURN_FLUSH_AT,
+                                 compact_at=BG_COMPACT_AT, compactor=comp)
+    submit_ms = []
+    real_submit = comp.submit
+
+    def timed_submit():
+        t = time.perf_counter()
+        out = real_submit()
+        submit_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    comp.submit = timed_submit
+
+    def bg_step(step, add_ids, dead):
+        tracker.bump()
+        tracker.record(add_ids)
+        tracker.forget(dead)
+
+    bg_mut = {}
+    bg_before = dict(ops.LAUNCHES)
+    with _counted(own), _timed_calls(churn_ops, ("stage", "tombstone",
+                                                 "flush"), bg_mut):
+        bg_records, _ = cbench.churn_loop(
+            engine2, ctl2, Q512, pool, live, steps=BG_STEPS,
+            batch=CHURN_BATCH, next_id=N + CHURN_STEPS * CHURN_BATCH,
+            rng=np.random.default_rng(SEED + 1), on_step=bg_step)
+        comp.join()
+        ctl2.poll_background()
+    bg_launch = _launch_delta(bg_before)
+    bg = engine2.stats()["churn"]
+    if bg["bg_compactions"] < 1:
+        fails.append(f"no background compaction swapped in: {bg}")
+    if bg["bg_compactions"] + bg["bg_discarded"] > bg["bg_submitted"]:
+        fails.append(f"more swaps than submits: {bg}")
+    if not all(r["ids_live"] and not r["surfaced_tombstone"]
+               for r in bg_records):
+        fails.append("a dead id was served in the background run")
+    passes = bg["bg_submitted"]
+    # as a step above, the new Engine's first batch building its tables,
+    # and two assigns for each pass's re-encode
+    want_bg = dict(ivf_adc=BG_STEPS, adc_lookup=BG_STEPS,
+                   givens_rotate=3 * BG_STEPS, gcd_score=BG_STEPS,
+                   pq_assign=2 * BG_STEPS + 2 * passes, fused_lut=1)
+    if bg_launch != want_bg:
+        fails.append(f"background run launches {bg_launch}, the path "
+                     f"implies {want_bg} ({passes} re-encoding passes)")
+    # a pass that raced nothing equals a foreground compact of its snapshot
+    snap = engine2.state
+    fg = churn_ops.compact(snap, include_staged=False)
+    comp_q = churn.BackgroundCompactor(engine2)
+    comp_q.submit()
+    comp_q.join()
+    swapped = comp_q.poll()
+    bg_equal = bool(swapped and torch.equal(engine2.state.index.codes,
+                                            fg.index.codes)
+                    and torch.equal(engine2.state.index.ids, fg.index.ids))
+    if not bg_equal:
+        fails.append("a quiet background pass differs from a foreground "
+                     "compact of its snapshot")
+    comp.close()
+    comp_q.close()
+    bg_hidden = engine2.obs.distribution("churn.compact_hidden_ms")
+    hidden = {
+        name: _hidden_ms(engine2, Q512, churn.BackgroundCompactor(
+            engine2, registry=obs.Registry(), **kw), fails)
+        for name, kw in (("bare", {}), ("reencode", dict(
+            tracker=tracker, reencode_rows=BG_REENCODE_ROWS,
+            reencode_fn=lambda rid: pool[torch.from_numpy(
+                np.asarray(rid)).to(pool.device)])))}
+
+    emit("churn", n=N, steps=CHURN_STEPS, batch=CHURN_BATCH,
+         staging_rows=CHURN_STAGING, flush_at=CHURN_FLUSH_AT,
+         compact_at=CHURN_COMPACT_AT, nprobe=SERVE_NPROBE,
+         queries=BATCHES[0], checks=checks, **recalls,
+         recall_build_by_seed=build_seeds,
+         recall_build_mean=recall_build_mean,
+         recall_within_one_rebuild=one_build,
+         recall_churn_rank=dict(rank=rank, of=len(builds) + 1),
+         stats={k: es["churn"][k] for k in (
+             "staged", "flushed", "tombstoned", "flushes", "compactions",
+             "grows", "flush_ms_p95")},
+         new_executables=es["executables"] - before["executables"],
+         lut_invalidations=es["lut_invalidations"],
+         shapes=shapes0, launches=loop_launches, expected_launches=want,
+         mutate_ms={k: _pcts(v) for k, v in mut.items()},
+         step_ms=_pcts([r["mutate_ms"] for r in records]),
+         latency_ms_by_bucket=dict(churn=churn_lat, without=base_lat),
+         rows_scanned_per_query=dict(
+             without_staging=base_st["scanned_rows_mean"],
+             with_staging=es["scanned_rows_mean"],
+             max_blocks=dict(without=base_st["searcher"]["max_blocks"],
+                             with_staging=ctl.state.max_blocks),
+             window_rows=dict(
+                 without=SERVE_NPROBE * base_st["searcher"]["max_blocks"]
+                 * BS, with_staging=SERVE_NPROBE * ctl.state.max_blocks
+                 * BS)),
+         side_pass=side, scan_window=scan,
+         background=dict(
+             steps=BG_STEPS, compact_at=BG_COMPACT_AT,
+             **{k: bg[k] for k in ("bg_submitted", "bg_compactions",
+                                   "bg_discarded", "flushes_deferred",
+                                   "reencoded", "compactions",
+                                   "compact_hidden_ms_total")},
+             bg_compact_ms=_pcts(bg_hidden.window_values()),
+             submit_ms=_pcts(submit_ms), tracker_record_s=track_s,
+             mutate_ms={k: _pcts(v) for k, v in bg_mut.items()},
+             launches=bg_launch, expected_launches=want_bg,
+             quiet_pass_bit_equal=bg_equal, hidden=hidden),
+         loop_s=loop_s, total_s=time.perf_counter() - t_all, card=smi,
+         fails=fails)
+    check(not fails, "; ".join(fails))
+    return errs, own
 
 
 # -- train ------------------------------------------------------------------
@@ -2907,6 +3349,8 @@ def main() -> int:
     engine_rows, engine_errs, paths["engine"] = phase_engine(ctx, smi)
     rows.update(engine_rows)
     errs.update(engine_errs)
+    churn_errs, paths["churn"] = phase_churn(ctx, smi)
+    errs.update(churn_errs)
     del ctx                          # frees the 1M-row index
     torch.cuda.empty_cache()
     tctx = phase_train(smi)

@@ -13,7 +13,7 @@ create state (``search.make(...).build``, ``data.synthetic``,
 ``device=`` with the card as the default and raise when no card is present
 unless ``device="cpu"`` is passed.
 
-Four slices are ported. Serving: an IVF-PQ index on a rotation learned by
+Five slices are ported. Serving: an IVF-PQ index on a rotation learned by
 Givens coordinate descent (``rotations``, ``quant``, ``index``, ``search``).
 Training: the paper's two-tower model trained through the trainable PQ
 index layer T(X) = φ(XR)Rᵀ with R moved by GCD (``models``,
@@ -24,6 +24,9 @@ cache, live refresh) over fused-refresh states, whose tables the
 ``obs`` (metrics, spans, the recall probe). LM serving with a
 PQ-compressed KV cache: prefill and decode of the dense LM configs
 (``models.transformer``, ``models.layers``, ``core.kv_quant``,
-``configs.get``), the cache scored by the ``adc_batch`` kernel. See
-ROADMAP.md for what is still to be ported.
+``configs.get``), the cache scored by the ``adc_batch`` kernel. Live
+churn on a single device: staged adds served by an ``adc_lookup`` side
+pass, tombstones, flush, compaction in the foreground or on a worker
+thread, and per-row staleness (``churn``). See ROADMAP.md for what is
+still to be ported.
 """

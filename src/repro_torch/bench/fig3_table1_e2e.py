@@ -120,34 +120,35 @@ def margins_of(results: dict) -> dict:
 
 
 def run(steps=250, warmup=40, batch=64, seed=0, verbose=True,
-        item_vocab=1024, *, device=None):
-    """The five rows and the five checks: (results, checks). ``device``
-    is the card unless the caller passes ``device="cpu"``."""
+        item_vocab=1024, *, device=None, log=None, warm=None,
+        opt_states=None, batches=None):
+    """The five rows and the five checks: (results, checks). ``device`` is
+    the card unless the caller passes ``device="cpu"``.
+
+    The rest lets a caller run the joint phase from someone else's warm
+    start (``tests/test_torch_table1_parity.py`` gives it the JAX
+    package's): ``log`` the ``ClickLog`` of the evaluation (default: one from
+    ``seed``); ``warm`` a warm-started ``TwoTower`` on ``device``, in place
+    of phases 1 and 2; ``opt_states(method)`` the ``OptState`` a row's
+    joint steps start from (default: a fresh one); ``batches(i)`` the
+    (hist, pos) of joint step i (default: ``log.batch(2000 + i, ...)``)."""
     with common.deterministic():
         return _run(steps, warmup, batch, seed, verbose, item_vocab,
-                    _device.resolve(device))
+                    _device.resolve(device), log, warm, opt_states, batches)
 
 
-def _run(steps, warmup, batch, seed, verbose, item_vocab, dev):
+def _run(steps, warmup, batch, seed, verbose, item_vocab, dev, log, warm,
+         opt_states, batches):
     cfg = paper_twotower.make_smoke()._replace(item_vocab=item_vocab)
-    log = synthetic.ClickLog(seed, cfg.item_vocab, dim=32, device=dev)
-    g = _device.generator(seed, dev)
-
-    # Phase 1: warm-up without the index layer (paper: 10k steps, scaled)
-    model = recsys.TwoTower.init(g, cfg._replace(index=None), device=dev)
-    wcfg = _opt_cfg("frozen", steps)
-    warm_step = ts.make_train_step(lambda p, h, pos: recsys.twotower_loss(
-        p, h, pos, cfg, use_index=False), wcfg)
-    state = ts.init_state(None, model, wcfg)
-    for i in range(warmup):
-        h, pos = log.batch(1000 + i, batch, cfg.hist_len)
-        state, _ = warm_step(state, h, pos)
-
-    # Phase 2: OPQ warm start of (R, codebooks) on a sample of item vectors
+    if log is None:
+        log = synthetic.ClickLog(seed, cfg.item_vocab, dim=32, device=dev)
+    if batches is None:
+        def batches(i):
+            return log.batch(2000 + i, batch, cfg.hist_len)
     sample_ids = torch.arange(min(1024, cfg.item_vocab), device=dev)
-    with torch.no_grad():
-        v, _ = recsys.item_tower(model, sample_ids, cfg)
-    model.index = il.warm_start(g, v, cfg.index, opq_iters=OPQ_ITERS)
+    model = warm if warm is not None else _warm_start(
+        cfg, log, warmup, batch, steps, _device.generator(seed, dev),
+        sample_ids, dev)
     start = {k: p.detach().clone()
              for k, p in opt_lib.named_leaves(model).items()}
 
@@ -165,9 +166,10 @@ def _run(steps, warmup, batch, seed, verbose, item_vocab, dev):
         ocfg = _opt_cfg(method, steps)
         step = ts.make_train_step(joint_loss, ocfg)
         state = ts.init_state(_device.generator(seed + 1, dev), model, ocfg)
+        if opt_states is not None:
+            state = state._replace(opt_state=opt_states(method))
         for i in range(steps):
-            h, pos = log.batch(2000 + i, batch, cfg.hist_len)
-            state, _ = step(state, h, pos)
+            state, _ = step(state, *batches(i))
         R = model.index.R.detach()
         with torch.no_grad():
             v, _ = recsys.item_tower(model, sample_ids, cfg)
@@ -186,6 +188,24 @@ def _run(steps, warmup, batch, seed, verbose, item_vocab, dev):
         for k, ok in checks.items():
             emit(f"table1/check/{k}", passed=ok, margin=margins.get(k))
     return results, checks
+
+
+def _warm_start(cfg, log, warmup, batch, steps, g, sample_ids, dev):
+    """Phases 1 and 2: the warm-up steps without the index layer (paper:
+    10k steps, scaled), then the OPQ warm start of (R, codebooks) on a
+    sample of item vectors. Returns the warm-started model."""
+    model = recsys.TwoTower.init(g, cfg._replace(index=None), device=dev)
+    wcfg = _opt_cfg("frozen", steps)
+    warm_step = ts.make_train_step(lambda p, h, pos: recsys.twotower_loss(
+        p, h, pos, cfg, use_index=False), wcfg)
+    state = ts.init_state(None, model, wcfg)
+    for i in range(warmup):
+        h, pos = log.batch(1000 + i, batch, cfg.hist_len)
+        state, _ = warm_step(state, h, pos)
+    with torch.no_grad():
+        v, _ = recsys.item_tower(model, sample_ids, cfg)
+    model.index = il.warm_start(g, v, cfg.index, opq_iters=OPQ_ITERS)
+    return model
 
 
 def main(argv=None) -> int:

@@ -1,5 +1,5 @@
-"""GCD rotation refresh of a live index and its health (port of
-``repro/index/maintain.py:46-83`` and ``:114-210``).
+"""GCD rotation refresh of a live index and its health, and the
+deprecated mutation shims (port of ``repro/index/maintain.py``).
 
 A GCD step updates the rotation by a product of disjoint Givens rotations,
 R ← R·Δ. Under Δ every stored quantity transforms by right multiplication
@@ -9,14 +9,21 @@ rotates that subspace's codewords exactly: codes stay as they are.
 Cross-subspace pairs cannot be absorbed by a product codebook and are
 dropped (θ → 0) for it. The refresh costs O(n² + L·n + D·K·sub),
 independent of the corpus size.
+
+Mutations live in ``repro_torch.churn`` (staging buffers, tombstones,
+background compaction); ``add`` and ``remove`` here are deprecated shims
+over ``churn.ingest_index`` and ``churn.tombstone_index``, as in the JAX
+package.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
+import numpy as np
 import torch
 
-from repro_torch import obs
+from repro_torch import obs, rotations
 from repro_torch.core import givens
 from repro_torch.index import ivf
 from repro_torch.index.ivf import IVFPQIndex
@@ -48,6 +55,33 @@ def refresh_health(R: torch.Tensor, delta: GivensDelta | None = None, *,
     reg.counter("refresh.count").inc()
     reg.event("refresh", orthogonality_drift=drift, delta_norm=norm)
     return dict(orthogonality_drift=drift, delta_norm=norm)
+
+
+def remove(index: IVFPQIndex, remove_ids) -> IVFPQIndex:
+    """Deprecated alias for ``churn.tombstone_index`` (tombstone ids in
+    place, same shapes). ``churn.tombstone`` takes every searcher state,
+    not only a bare index."""
+    warnings.warn(
+        "maintain.remove is deprecated — use repro_torch.churn.tombstone "
+        "(any searcher state) or churn.tombstone_index (bare index)",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch import churn
+
+    return churn.tombstone_index(index, remove_ids)
+
+
+def add(index: IVFPQIndex, X_new, new_ids) -> IVFPQIndex:
+    """Deprecated alias for ``churn.ingest_index`` (fill holes, repack on
+    overflow). Live serving stages through ``churn.stage`` or a
+    ``churn.ChurnController`` instead: staged adds are visible to the next
+    query without repacking the CSR."""
+    warnings.warn(
+        "maintain.add is deprecated — use repro_torch.churn.ingest_index "
+        "(offline) or churn.stage/ChurnController.add (live serving)",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch import churn
+
+    return churn.ingest_index(index, X_new, new_ids)
 
 
 def rotate_components(R: torch.Tensor, coarse, quantizer, pi: torch.Tensor,
@@ -102,3 +136,28 @@ def refresh_mismatch(refreshed: IVFPQIndex, X: torch.Tensor) -> float:
     again = rebuilt[torch.clamp(refreshed.ids, min=0).long()]
     mismatch = torch.any(stored != again, dim=-1) & live
     return float(torch.sum(mismatch)) / max(int(torch.sum(live)), 1)
+
+
+def subspace_gcd_step(index: IVFPQIndex, G: torch.Tensor, lr: float):
+    """A serving-aware GCD step by the ``subspace_gcd`` learner: its pairs
+    stay inside the PQ subspaces, so the refresh absorbs the delta exactly
+    and no code changes. Returns (refreshed index, (pi, pj, theta)); apply
+    the same triple to the trainer's rotation to stay in step."""
+    learner = rotations.make("subspace_gcd", sub=index.quantizer.sub)
+    _, delta = learner.update(learner.init_from(index.R.float()), G, lr)
+    return refresh_delta(index, delta), (delta.pi, delta.pj, delta.theta)
+
+
+def drifted_ids(index: IVFPQIndex, X: torch.Tensor) -> np.ndarray:
+    """Item ids whose stored codes differ from a fresh encode of their raw
+    vectors ``X`` (rows ordered by item id) against the index's current
+    rotation and quantizers: the stale set ``refresh_mismatch`` gives the
+    fraction of, and the ground truth the staleness tracker approximates
+    from epochs alone."""
+    X = X.to(index.device)
+    _, rebuilt = ivf.encode(X @ index.R, index.coarse, index.quantizer)
+    ids = index.ids
+    live = ids >= 0
+    again = rebuilt[torch.clamp(ids, min=0).long()]
+    mism = torch.any(index.codes.to(torch.int32) != again, dim=-1) & live
+    return np.unique(ids[mism].cpu().numpy())

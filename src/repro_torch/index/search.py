@@ -93,11 +93,17 @@ def split_lut_pack(lut):
 def coarse_scores(index: IVFPQIndex, QR: torch.Tensor) -> torch.Tensor:
     """⟨q·R, c_l⟩ for every rotated query and list -> (b, L), in products
     of PROBE_ROWS rows (the last one padded with zero rows)."""
+    return coarse_product(QR, index.centroids)
+
+
+def coarse_product(QR: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """QR·centroidsᵀ -> (b, L) in products of PROBE_ROWS rows, so a query's
+    coarse scores are the same in any batch (``PROBE_ROWS``)."""
     b = QR.shape[0]
     pad = -b % PROBE_ROWS
     if pad:
         QR = torch.cat([QR, QR.new_zeros((pad, QR.shape[1]))])
-    C = index.centroids.T
+    C = centroids.T
     return torch.cat([QR[s:s + PROBE_ROWS] @ C
                       for s in range(0, b + pad, PROBE_ROWS)])[:b]
 

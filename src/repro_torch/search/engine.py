@@ -483,13 +483,33 @@ class Engine:
         return out
 
     def _churn_stats(self) -> dict:
-        """The live-churn block of ``stats()``, all zeros until churn is
-        ported (ROADMAP.md queue 5); the keys are the JAX Engine's."""
+        """The live-churn block of ``stats()``, read off this Engine's own
+        registry, where an attached ``churn.ChurnController`` (and its
+        ``BackgroundCompactor``) records. Always present, all zeros without
+        a controller; counters are lifetime, the ``flush_ms`` aggregate
+        covers the retained window the ``window`` dict describes."""
+        flush_ms = self.obs.distribution("churn.flush_ms")
+        summ = flush_ms.summary()
         return dict(
-            staged_rows=0.0, tombstoned_rows=0.0, staged=0, flushed=0,
-            tombstoned=0, flushes=0, compactions=0, rebalances=0, grows=0,
-            flush_ms_p95=0.0, bg_submitted=0, bg_compactions=0,
-            bg_discarded=0, flushes_deferred=0, reencoded=0,
-            compact_hidden_ms_total=0.0,
-            window=dict(size=0, capacity=self.history,
-                        scope="flush_ms aggregates"))
+            staged_rows=self.obs.gauge("churn.staged_rows").value,
+            tombstoned_rows=self.obs.gauge("churn.tombstoned_rows").value,
+            staged=self.obs.counter("churn.staged").value,
+            flushed=self.obs.counter("churn.flushed").value,
+            tombstoned=self.obs.counter("churn.tombstoned").value,
+            flushes=self.obs.counter("churn.flushes").value,
+            compactions=self.obs.counter("churn.compactions").value,
+            rebalances=self.obs.counter("churn.rebalances").value,
+            grows=self.obs.counter("churn.grows").value,
+            flush_ms_p95=flush_ms.percentile(95.0),
+            # background compaction (zero without a BackgroundCompactor)
+            bg_submitted=self.obs.counter("churn.bg_submitted").value,
+            bg_compactions=self.obs.counter("churn.bg_compactions").value,
+            bg_discarded=self.obs.counter("churn.bg_discarded").value,
+            flushes_deferred=self.obs.counter("churn.flushes_deferred").value,
+            reencoded=self.obs.counter("churn.reencoded").value,
+            compact_hidden_ms_total=self.obs.distribution(
+                "churn.compact_hidden_ms").total,
+            window=dict(size=summ.get("window", 0),
+                        capacity=self.history,
+                        scope="flush_ms aggregates"),
+        )

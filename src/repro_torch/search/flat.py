@@ -24,6 +24,7 @@ from typing import ClassVar
 import torch
 
 from repro_torch import quant
+from repro_torch.churn import buffer as churn_buffer
 from repro_torch.index import ivf as index_ivf
 from repro_torch.index import maintain
 from repro_torch.index import search as index_search
@@ -43,10 +44,14 @@ class ADCState:
     """Quantized-backend state: the index and its serving knobs.
 
     ``max_blocks`` is the index's longest list in tiles, read once at
-    attach (a refresh keeps the CSR layout). ``rot``/``wacc``/``qdelta``
-    are the fused-refresh matrices (module docstring) and ``lut_cols`` the
+    attach (a refresh keeps the CSR layout; ``churn.with_staging`` widens
+    it by the buffer's slack). ``rot``/``wacc``/``qdelta`` are the
+    fused-refresh matrices (module docstring) and ``lut_cols`` the
     fused_lut kernel's column map, made once at attach; all four are None
-    in eager mode."""
+    in eager mode. ``staging`` is the live-churn append buffer
+    (``repro_torch.churn``): None until ``churn.with_staging`` installs
+    one; its rows are scanned by a flat-ADC side pass and merged into every
+    search of both backends."""
 
     index: IVFPQIndex
     max_blocks: int
@@ -56,6 +61,7 @@ class ADCState:
     wacc: torch.Tensor | None = None      # (n, n) within-subspace product W
     qdelta: torch.Tensor | None = None    # (n, n) query-side transform Δ·Wᵀ
     lut_cols: torch.Tensor | None = None  # (Dp,) int32 column -> subspace
+    staging: churn_buffer.StagingBuffer | None = None
 
 
 def _fused_state(state: ADCState) -> ADCState:
@@ -154,7 +160,11 @@ def _flat_topk(state: ADCState, QR: torch.Tensor, lut,
     top_scores, top_ids = topk_padded(scores, cand_ids, k)
     scanned = torch.full((QR.shape[0],), state.index.capacity,
                          dtype=torch.int32, device=QR.device)
-    return SearchResult(scores=top_scores, ids=top_ids, scanned=scanned)
+    res = SearchResult(scores=top_scores, ids=top_ids, scanned=scanned)
+    if state.staging is not None:
+        res = churn_buffer.merge_staged(res, state.staging, QR, lut,
+                                        state.index.centroids, k)
+    return res
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,9 @@
 """IVF searcher: probe the top-``nprobe`` lists, scan only their tiles
 through the ``ivf_adc`` kernel (port of ``repro/search/ivf.py``).
 
-``nprobe`` is the serving knob and can be overridden per call. ``refresh``
+``nprobe`` is the serving knob and can be overridden per call. Staged rows
+of live churn (``state.staging``) merge into every search's top-k.
+``refresh``
 absorbs a disjoint GivensDelta: eagerly via ``maintain.refresh_delta``
 (centroids, codebooks and R rotate; codes and the CSR layout stay), or in
 fused mode on the query side only (``search/flat.py``).
@@ -13,6 +15,7 @@ from typing import ClassVar
 
 import torch
 
+from repro_torch.churn import buffer as churn_buffer
 from repro_torch.index import ivf as index_ivf
 from repro_torch.index import search as index_search
 from repro_torch.index.ivf import IVFPQIndex
@@ -72,9 +75,15 @@ class IVF:
     def search_prepared(self, state: ADCState, QR: torch.Tensor, lut, *,
                         k: int = 10,
                         nprobe: int | None = None) -> SearchResult:
-        return index_search.search_prepared(
+        res = index_search.search_prepared(
             state.index, QR, lut, nprobe=self.effective_nprobe(state, nprobe),
             k=k, max_blocks=state.max_blocks)
+        if state.staging is not None:
+            # live churn: staged rows ride a flat-ADC side pass over the
+            # same LUT pack and merge into the probed top-k
+            res = churn_buffer.merge_staged(res, state.staging, QR, lut,
+                                            state.index.centroids, k)
+        return res
 
     def refresh(self, state: ADCState, delta) -> ADCState:
         return _refresh(state, delta)
