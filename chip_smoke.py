@@ -94,7 +94,48 @@ Phases, one JSON line each:
            pass in flight, then while one runs (without and with the
            tracker's re-encode); hidden = the worker's time less what the
            submit, the swap's poll and the slower batches add to the
-           serving thread. The 1M-row index is freed after;
+           serving thread;
+  rq       a depth-2 residual (RQ) index on main's corpus and R at the
+           serving width (codes M·D = 64 bytes a row): build, the 649
+           queries at nprobe 8, 32 and 128 and the flat scan of its codes,
+           a subspace-GCD refresh without a rebuild, serve again, then an
+           Engine over a fused-refresh RQ state with int8 tables through
+           one within-subspace refresh. Held: rq_beats_pq_quantization
+           against main's PQ index (residual distortion of RQ_SAMPLE rows
+           strictly lower, flat recall@10 against exact no lower;
+           benchmarks/ivf_recall_qps.py:384-393), rq2_end_to_end (refresh
+           mismatch ≤ RQ_MISMATCH_LIMIT; the flipped rows that first differ
+           at a level-0 float32 tie are counted and printed), nprobe = L
+           against the flat scan, some nprobe at recall ≥ 0.9 against the
+           flat scan with a ≥ 5× reduction, and the fused Engine's
+           executables and tables. Kernels on the phase's operands:
+           ivf_adc (serve_p99) and adc_lookup (the flat check) at Dp = 64
+           bit-equal in every LUT type, fused_lut with the level-major
+           column map (the Engine's call), pq_assign on the build's last
+           level-1 residuals (ties counted) and givens_rotate on the
+           stacked (M·K, n) codebook rows, bit-equal; the scans and
+           fused_lut timed beside their bounds and library yardsticks;
+  train_e2e
+           repro_torch.bench.train_e2e's loop on main's PQ index (nprobe
+           32, the 512 serve_p99 queries as probes): a GCD-G trainer on
+           the JAX script's loss at batch TE_BATCH for TE_STEPS steps with
+           a prefetching pipeline, LiveIndexLoop refreshing the Engine
+           every TE_REFRESH_EVERY steps, a ChurnController (the churn
+           phase's buffer, TE_CHURN_BATCH deletes and adds every
+           TE_CHURN_EVERY steps) and a BackgroundCompactor re-encoding
+           TE_REENCODE_ROWS stalest rows every TE_COMPACT_EVERY rounds;
+           the bare, bg and sync arms and the replayed rebuild arm. Held:
+           zero_steady_recompiles (no new executable, every state shape
+           and max_blocks unchanged after the warm-up),
+           recall_matches_rebuild, background_ran, prefetch_effective,
+           training_converged, LiveIndexLoop.stats() and each part's
+           launches (train step, churn step, refresh, probe, background
+           or synchronous pass, counted by thread); gcd_score, pq_assign,
+           ivf_adc, adc_lookup and givens_rotate on the bg arm's last
+           operands. Reported: live_step_overhead_ok and
+           bg_p99_below_sync with their values and margins, each arm's
+           step p50 / p99 and its host ms by part. The 1M-row index is
+           freed after;
   train    the training slice at the full width of the paper's two-tower
            model (configs/paper_twotower.make_config: 1,541,673 items,
            embedding 512, towers (512, 512), history 16, D = 64, K = 256)
@@ -191,7 +232,9 @@ nvidia-smi line, the per-kernel JSON summary and the device JSON. A
 kernel's launches there are those of the paths' own calls, summed,
 with the split by path: serving's learn, build, serve and refresh; the
 Engine's attach, requests and refreshes (with the learner steps that give
-their deltas); churn's attach, first search and both runs' steps;
+their deltas); churn's attach, first search and both runs' steps; rq's
+build, serving, flat scan, refresh and fused Engine; train_e2e's three
+arms;
 train's parts; table1's run; fig4's and fig2's runs;
 decode's prefill and greedy tokens. The
 checks that run beside them in a phase's window are left out.
@@ -205,6 +248,7 @@ import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -304,6 +348,21 @@ BUILD_SEEDS = (11, 12, 13, 14)
 #: batches of 512 served with no background pass in flight, the baseline of
 #: what a pass in flight adds to the serving loop
 HIDE_IDLE_BATCHES = 16
+
+# rq phase: a depth-2 residual index on main's corpus and R, at the serving
+# index's width (codes 64 B a row)
+RQ_DEPTH = 2
+RQ_SAMPLE = 4096                   # residual distortion rows (the JAX script)
+RQ_MISMATCH_LIMIT = 0.01           # its rq2_end_to_end
+
+# train_e2e phase: benchmarks/train_e2e.py's loop on main's PQ index, with
+# the serve_p99 queries as probes (PERF.md §4 lists each departure from the
+# script's defaults)
+TE_STEPS, TE_BATCH = 120, 16_384
+TE_REFRESH_EVERY, TE_COMPACT_EVERY = 8, 2
+TE_REENCODE_ROWS = 51_200          # the script's 2,048 of 40,000 rows: 5.12%
+TE_CHURN_BATCH, TE_CHURN_EVERY = 1024, 2
+TE_WARMUP, TE_PROBE_EVERY = 34, 12
 
 # train phase (cut to fit a run; see the module docstring)
 #: table1 phase: benchmarks/fig3_table1_e2e.py run()'s default sizes and
@@ -1972,6 +2031,615 @@ def phase_churn(ctx: dict, smi: str):
     return errs, own
 
 
+# -- rq -----------------------------------------------------------------------
+
+
+def _rq_flips(index, X) -> dict:
+    """Rows whose stored RQ codes differ from a float32 re-encode against
+    ``index``; of those in the same list, how many first differ in a
+    level-0 column, and how many of these are a float32 tie there: the two
+    level-0 codewords' squared distances to the residual, in float64,
+    within TIE_GAP of the scale. A level-0 flip changes the residual every
+    later level sees, so its later columns differ too."""
+    import torch
+
+    from repro_torch.index import ivf
+
+    lists, codes = ivf.encode(X @ index.R, index.coarse, index.quantizer)
+    rows = torch.nonzero(index.ids >= 0).squeeze(1)
+    item = index.ids[rows].long()
+    flip = torch.any(index.codes[rows].int() != codes[item], dim=1)
+    rows, item = rows[flip], item[flip]
+    out = dict(rows=int(rows.numel()), coarse_flips=0, level0_first=0,
+               level0_ties=0, max_level0_rel_gap=0.0)
+    if not rows.numel():
+        return out
+    ls = torch.searchsorted(index.list_offsets.long(), rows, right=True) - 1
+    same = ls == lists[item].long()
+    out["coarse_flips"] = int((~same).sum())
+    stored = index.codes[rows[same]].long()
+    new = codes[item[same]].long()
+    first = (stored != new).int().argmax(dim=1)
+    lvl0 = first < D
+    out["level0_first"] = int(lvl0.sum())
+    if bool(lvl0.any()):
+        sub = DIM // D
+        x = X[item[same][lvl0]].double() @ index.R.double()
+        r = (x - index.centroids.double()[ls[same][lvl0]]).view(-1, D, sub)
+        d = first[lvl0]
+        rd = r[torch.arange(r.shape[0], device=r.device), d]
+        cb0 = index.quantizer.codebooks[0].double()
+        cs = cb0[d, stored[lvl0, d]]
+        cr = cb0[d, new[lvl0, d]]
+        gap = (((rd - cs) ** 2).sum(-1) - ((rd - cr) ** 2).sum(-1)).abs() / (
+            (rd ** 2).sum(-1) + torch.maximum((cs ** 2).sum(-1),
+                                              (cr ** 2).sum(-1)))
+        out["level0_ties"] = int((gap <= TIE_GAP).sum())
+        out["max_level0_rel_gap"] = float(gap.max())
+    return out
+
+
+def _residual_distortion(index, X) -> float:
+    """The JAX script's residual distortion: the quantizer's distortion of
+    the first RQ_SAMPLE rows' residuals to their coarse centroids."""
+    XRs = X[:RQ_SAMPLE] @ index.R
+    res = XRs - index.centroids[index.coarse.assign(XRs).long()]
+    return float(index.quantizer.distortion(res))
+
+
+def phase_rq(ctx: dict, smi: str):
+    """A depth-2 residual (RQ) index on main's corpus and R at the serving
+    width: build, serve at three nprobe and the flat scan, a subspace-GCD
+    refresh, serve again, and an Engine over a fused-refresh RQ state with
+    int8 tables through one refresh. Held: rq_beats_pq_quantization
+    against main's PQ index, rq2_end_to_end, nprobe = L against the flat
+    scan, the scan reduction at recall, the fused Engine's executables and
+    tables, and the path's kernels at Dp = M·D on its operands."""
+    import torch
+
+    from repro_torch import device, rotations, search
+    from repro_torch.index import maintain
+    from repro_torch.index import search as index_search
+    from repro_torch.kernels import ops, ref
+    from repro_torch.metrics import recall_at_k
+
+    t_all = time.perf_counter()
+    X, Q, R, truth = ctx["X"], ctx["Q"], ctx["R"], ctx["truth"]
+    Dp = RQ_DEPTH * D
+    ivf, flat = search.make("ivf"), search.make("flat_adc")
+    own, errs, seen, fails = {}, {}, {}, []
+    ops.reset_launches()
+    g = device.generator(SEED + 7)
+    t0 = time.perf_counter()
+    with _counted(own), _last_call("pq_assign", seen):
+        state = ivf.build(g, X, R, serve_config()._replace(depth=RQ_DEPTH))
+        torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    st = ivf.stats(state)
+    check(st["rows"] == N, "the RQ index lost rows")
+    check(st["code_bytes_per_row"] == Dp, f"RQ code bytes {st}")
+    # pq_assign on the build's last call: the last chunk's level-1 residuals
+    xa, cba = seen.pop("pq_assign")
+    check(torch.equal(cba, state.index.quantizer.codebooks[1]),
+          "the build's last assign is not level 1's")
+    level1_flips = _assign_flips(xa, cba, ops.pq_assign(xa, cba),
+                                 ref.pq_assign_ref(xa, cba))
+    errs["pq_assign/rq_level1_residuals"] = level1_flips["max_abs_gap"]
+
+    with _counted(own):
+        flat_truth = flat.search(flat.attach(state.index), Q, k=10).ids
+        ivf.search(state, Q[:BATCHES[-1]], k=10)          # warm-up
+        serve = [_serve(ivf, state, Q, truth, flat_truth, p, smi)
+                 for p in NPROBES]
+    for s in serve:
+        s["scan_reduction"] = N / s["rows_scanned_per_query"]
+    at_recall = any(s["recall_vs_flat_adc"] >= ACCEPT_RECALL
+                    and s["scan_reduction"] >= ACCEPT_REDUCTION
+                    for s in serve)
+    if not at_recall:
+        fails.append(f"no nprobe reaches recall {ACCEPT_RECALL} against the "
+                     f"flat scan at a {ACCEPT_REDUCTION}x reduction: {serve}")
+
+    # rq_beats_pq_quantization (benchmarks/ivf_recall_qps.py:384-393):
+    # against main's PQ index of the same corpus under the same R
+    pq_index = ctx["index_before"]
+    pq_d = _residual_distortion(pq_index, X)
+    rq_d = _residual_distortion(state.index, X)
+    pq_flat = recall_at_k(flat.search(flat.attach(pq_index), Q, k=10).ids,
+                          truth)
+    rq_flat = recall_at_k(flat_truth, truth)
+    rq_beats = rq_d < pq_d and rq_flat >= pq_flat - 1e-6
+    if not rq_beats:
+        fails.append(f"rq_beats_pq_quantization: distortion {rq_d} against "
+                     f"{pq_d}, flat recall {rq_flat} against {pq_flat}")
+
+    # nprobe = L against the flat scan over the same codes
+    qf = Q[:FLAT_QUERIES]
+    full = ivf.search(state, qf, k=10, nprobe=L)
+    ref_res = flat.search(flat.attach(state.index), qf, k=10)
+    flat_err = float((full.scores - ref_res.scores).abs().max())
+    if not (torch.equal(full.ids, ref_res.ids) and flat_err <= 1e-4):
+        fails.append(f"nprobe = L differs from flat_adc (scores {flat_err})")
+
+    # a subspace-GCD step, refreshed into the RQ index, then serve
+    index_before = state.index
+    with _counted(own):
+        Rp = R.clone().requires_grad_(True)
+        loss = index_before.quantizer.distortion(X[:TRAIN] @ Rp)
+        (G,) = torch.autograd.grad(loss, Rp)
+        learner = rotations.make("subspace_gcd", sub=DIM // D)
+        _, delta = learner.update(learner.init_from(R), G, GCD_LR)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _last_call("givens_rotate", seen, by_shape=True):
+            state = ivf.refresh(state, delta)
+        torch.cuda.synchronize()
+        t_refresh = time.perf_counter() - t0
+        after = _serve(ivf, state, Q, truth, flat_truth, SERVE_NPROBE, smi)
+    mismatch = maintain.refresh_mismatch(state.index, X)
+    flips = _rq_flips(state.index, X)
+    end_to_end = (mismatch <= RQ_MISMATCH_LIMIT
+                  and math.isfinite(after["recall_at_10"])
+                  and after["recall_at_10"] > 0.0)
+    if not end_to_end:
+        fails.append(f"rq2_end_to_end: refresh mismatch {mismatch}, recall "
+                     f"after {after['recall_at_10']}")
+    # givens_rotate on the stacked codebook rows (M·K, n)
+    rows_shape = (RQ_DEPTH * K, DIM)
+    rot_args = seen.pop(("givens_rotate", rows_shape))
+    errs["givens_rotate/rq_codebook_rows"] = bit_equal(
+        ops.givens_rotate(*rot_args), ref.pair_rotate_ref(*rot_args),
+        f"givens_rotate on the RQ codebook rows {rows_shape}")
+    stored = state.index.codebooks.movedim(-2, -3).reshape(rows_shape)
+    check(torch.equal(stored, ref.pair_rotate_ref(*rot_args)),
+          "the refreshed RQ codebooks differ from the plain rotation")
+
+    # the Engine over a fused-refresh RQ state with int8 tables: a
+    # within-subspace refresh makes no executable and drops no table
+    with _counted(own), _last_call("fused_lut", seen):
+        fstate = ivf.attach(state.index, nprobe=SERVE_NPROBE,
+                            fused_refresh=True, lut_dtype="int8")
+        engine = search.Engine(ivf, fstate, k=10, min_bucket=32)
+        Q512 = Q[:BATCHES[0]]
+        engine.search(Q512)
+        es0 = engine.stats()
+        Rp = state.index.R.clone().requires_grad_(True)
+        loss = state.index.quantizer.distortion(X[:TRAIN] @ Rp)
+        (G2,) = torch.autograd.grad(loss, Rp)
+        _, delta2 = learner.update(learner.init_from(state.index.R), G2,
+                                   GCD_LR)
+        engine.refresh(delta2)
+        res_f = engine.search(Q512)
+        torch.cuda.synchronize()
+    es = engine.stats()
+    fused = dict(new_executables=es["executables"] - es0["executables"],
+                 lut_invalidations=es["lut_invalidations"],
+                 lut_epoch=es["lut_epoch"], lut_hits=es["lut_hits"],
+                 recall_at_10=recall_at_k(res_f.ids, truth[:BATCHES[0]]))
+    if fused["new_executables"] or fused["lut_invalidations"] \
+            or fused["lut_epoch"]:
+        fails.append(f"the fused RQ Engine's refresh moved its executables "
+                     f"or tables: {fused}")
+    launches = dict(ops.LAUNCHES)
+    t_path = time.perf_counter() - t_all
+
+    # fused_lut with the level-major map, on the Engine's own operands
+    rel = {}
+    q_l, qd_l, cb_l, cm_l = seen.pop("fused_lut")[:4]
+    check(cb_l.shape == (Dp, K, DIM // D), f"fused_lut operands {cb_l.shape}")
+    _hold_fused_lut("rq_level_major", q_l, qd_l, cb_l, cm_l, errs, rel,
+                    fails)
+
+    # the scans at Dp = M·D, bit-equal in every LUT type, masked and not:
+    # ivf_adc on the serve_p99 schedule at nprobe 32, adc_lookup on the
+    # flat check's tables over every CSR row
+    index = state.index
+    codes, ids = index.codes, index.ids
+    mb = index.max_list_blocks()
+    QR = Q512 @ index.R
+    sched = index_search.scan_schedule(index, QR, nprobe=SERVE_NPROBE,
+                                       max_blocks=mb)
+    bi, bq = sched.block_idx, sched.block_query
+    lut32 = index_search.build_luts(index.quantizer, QR)
+    lutf = index_search.build_luts(index.quantizer, Q[:FLAT_QUERIES]
+                                   @ index.R)
+    for dt, (lut, scales) in _lut_variants(lut32).items():
+        for m in (None, ids):
+            errs[f"ivf_adc/rq_dp{Dp}/{dt}/mask={m is not None}"] = \
+                bit_equal(ops.ivf_adc(lut, codes, bi, bq, scales, m,
+                                      block_size=BS),
+                          ref.ivf_adc_ref(lut, codes, bi, bq, block_size=BS,
+                                          scales=scales, ids=m),
+                          f"ivf_adc at Dp = {Dp} {dt}")
+    for dt, (lut, scales) in _lut_variants(lutf).items():
+        for m in (None, ids):
+            errs[f"adc_lookup/rq_dp{Dp}/{dt}/mask={m is not None}"] = \
+                bit_equal(ops.adc_lookup(lut, codes, scales, m),
+                          ref.adc_lookup_ref(lut, codes, scales, m),
+                          f"adc_lookup at Dp = {Dp} {dt}")
+
+    # times: the scans at Dp = 64 and fused_lut at the RQ shapes, beside
+    # their plain versions, bounds and library yardsticks
+    S = bi.numel()
+    work = ivf_work(lut32, None, codes, ids, bi, BS)
+    # the yardstick's index tensor holds S·BS·Dp = 2.7e9 entries here,
+    # past the 2^31 a single embedding_bag call indexes: two calls, one a
+    # half of the schedule
+    halves = [ivf_library(lut32, codes, bi[h], bq[h], BS)
+              for h in (slice(0, S // 2), slice(S // 2, S))]
+
+    def lib():
+        return [f() for f in halves]
+
+    ivf_row = dict(
+        shape=dict(b=BATCHES[0], nprobe=SERVE_NPROBE, max_blocks=mb, Dp=Dp,
+                   K=K, S=S), live_rows=work["live_rows"],
+        ms=graph_ms(lambda: ops.ivf_adc(lut32, codes, bi, bq, None, ids,
+                                        block_size=BS), launches=20),
+        plain_ms=graph_ms(lambda: ref.ivf_adc_ref(lut32, codes, bi, bq,
+                                                  block_size=BS, ids=ids),
+                          launches=2),
+        library_ms=graph_ms(lib, launches=5),
+        library="two F.embedding_bag calls, a half of the schedule each",
+        bytes=work["bytes"], flops=work["flops"],
+        bound_ms=work["bound_ms"], bound_by=work["bound_by"])
+    del lib, halves
+    qf_n = lutf.shape[0]
+    all_tiles = torch.arange(index.capacity // BS, device=codes.device)
+    nbytes = _scan_bytes(lutf, None, codes, ids, all_tiles, BS,
+                         qf_n * index.capacity, 0)
+    flops = qf_n * int(torch.sum(ids >= 0)) * Dp
+    lib = flat_library(lutf, codes)
+    flat_row = dict(
+        shape=dict(b=qf_n, N=index.capacity, Dp=Dp, K=K),
+        ms=graph_ms(lambda: ops.adc_lookup(lutf, codes, None, ids),
+                    launches=20),
+        plain_ms=graph_ms(lambda: ref.adc_lookup_ref(lutf, codes, None,
+                                                     ids), launches=2),
+        library_ms=graph_ms(lib, launches=5), bytes=nbytes, flops=flops,
+        **_bound(nbytes, flops))
+    del lib
+    cols = ops.lut_column_map(cm_l)
+    b_l, sub = q_l.shape[0], DIM // D
+    cbT = cb_l.transpose(1, 2).contiguous()                  # (Dp, sub, K)
+
+    def lut_library():
+        QL = torch.matmul(q_l, qd_l).view(b_l, D, sub).transpose(0, 1)
+        return torch.bmm(QL.repeat(RQ_DEPTH, 1, 1), cbT)      # (Dp, b, K)
+
+    nbytes = 4 * (b_l * DIM + DIM * DIM + Dp * K * sub + b_l * Dp * K + Dp)
+    flops = 2 * b_l * DIM * DIM + 2 * b_l * Dp * K * sub
+    lut_row = dict(
+        shape=dict(b=b_l, n=DIM, Dp=Dp, K=K, sub=sub),
+        ms=graph_ms(lambda: ops.fused_lut(q_l, qd_l, cb_l, cm_l, cols=cols),
+                    launches=50),
+        plain_ms=graph_ms(lambda: ref.fused_lut_ref(q_l, qd_l, cb_l, cm_l),
+                          launches=20),
+        library_ms=graph_ms(lut_library, launches=20),
+        library="torch.matmul(Q, qdelta), the subspaces repeated per "
+                "level, then torch.bmm",
+        library_max_abs_err=float((lut_library().transpose(0, 1)
+                                   - ref.fused_lut_ref(q_l, qd_l, cb_l,
+                                                       cm_l)).abs().max()),
+        bytes=nbytes, flops=flops, **_bound(nbytes, flops), rel_err=rel)
+
+    # givens_rotate on the stacked codebook rows, its yardstick one matmul
+    # by the dense Δ; pq_assign on the build's last level-1 residuals
+    Xr, pi, pj, c, s_ = rot_args
+    m_r, p_r = Xr.shape[0], pi.numel()
+    dense = ref.pair_rotate_ref(torch.eye(DIM, device=Xr.device), pi, pj,
+                                c, s_)
+    nbytes, flops = 2 * m_r * DIM * 4 + 4 * p_r * 4, 6 * m_r * p_r
+    rot_row = dict(
+        shape=dict(m=m_r, n=DIM, pairs=p_r),
+        ms=graph_ms(lambda: ops.givens_rotate(*rot_args), launches=100),
+        plain_ms=graph_ms(lambda: ref.pair_rotate_ref(*rot_args),
+                          launches=100),
+        library_ms=graph_ms(lambda: torch.matmul(Xr, dense), launches=100),
+        bytes=nbytes, flops=flops, **_bound(nbytes, flops))
+    m_a = xa.shape[0]
+    Da, Ka, suba = cba.shape
+    nbytes = m_a * DIM * 4 + Da * Ka * suba * 4 + m_a * Da * 4
+    flops = 2 * m_a * DIM * Ka
+    assign_row = dict(
+        shape=dict(m=m_a, n=DIM, D=Da, K=Ka, sub=suba),
+        ms=graph_ms(lambda: ops.pq_assign(xa, cba), launches=20),
+        plain_ms=graph_ms(lambda: ref.pq_assign_ref(xa, cba), launches=2),
+        library_ms=None, bytes=nbytes, flops=flops,
+        **_bound(nbytes, flops))
+    del xa, dense
+
+    for name in ("ivf_adc", "adc_lookup", "fused_lut", "pq_assign",
+                 "givens_rotate", "gcd_score"):
+        if not own.get(name):
+            fails.append(f"kernel {name} was not launched on the rq path")
+    emit("rq", n=N, dim=DIM, subspaces=D, codewords=K, num_lists=L,
+         depth=RQ_DEPTH, code_bytes_per_row=st["code_bytes_per_row"],
+         capacity=st["capacity"], max_blocks=st["max_blocks"],
+         build_s=t_build, serve=serve, scan_reduction_at_recall=at_recall,
+         rq_beats_pq_quantization=dict(
+             passed=rq_beats, residual_distortion=dict(rq=rq_d, pq=pq_d),
+             flat_recall_at_10=dict(rq=rq_flat, pq=pq_flat),
+             sample_rows=RQ_SAMPLE),
+         flat_check=dict(queries=FLAT_QUERIES, max_abs_score_diff=flat_err),
+         refresh_s=t_refresh, after_refresh=after,
+         rq2_end_to_end=dict(passed=end_to_end, refresh_mismatch=mismatch,
+                             limit=RQ_MISMATCH_LIMIT, code_flips=flips),
+         fused_engine=fused, level1_assign_flips=level1_flips,
+         kernels=dict(ivf_adc=ivf_row, adc_lookup=flat_row,
+                      fused_lut=lut_row, givens_rotate=rot_row,
+                      pq_assign=assign_row),
+         launches=launches, path_launches=own, path_s=t_path,
+         total_s=time.perf_counter() - t_all, card=smi, fails=fails)
+    check(not fails, "; ".join(fails))
+    return errs, own
+
+
+# -- train_e2e ----------------------------------------------------------------
+
+
+class _PartLaunches(dict):
+    """``kernels.ops.LAUNCHES`` for a block (``_parts``): every increment a
+    wrapper makes also lands on the part its thread is in, the main
+    thread's current part or the name of a worker thread's pool
+    ("background" for the compactor, "prefetch" for the input pipeline),
+    under a lock, so the worker's launches are counted apart from the
+    training thread's, whatever they overlap."""
+
+    def __init__(self, base: dict, part_of):
+        super().__init__(base)
+        self._lock = threading.Lock()
+        self._read = threading.local()
+        self._part_of = part_of
+        self.parts: dict = {}
+
+    def __getitem__(self, key):
+        value = super().__getitem__(key)
+        self._read.last = (key, value)
+        return value
+
+    def __setitem__(self, key, value):
+        last = getattr(self._read, "last", None)
+        self._read.last = None
+        with self._lock:
+            if last is not None and last[0] == key and value == last[1] + 1:
+                super().__setitem__(key, super().__getitem__(key) + 1)
+                part = self.parts.setdefault(self._part_of(), {})
+                part[key] = part.get(key, 0) + 1
+            else:
+                super().__setitem__(key, value)
+
+
+@contextlib.contextmanager
+def _parts(into: dict, ms: dict):
+    """Inside the block, the launches of each part, by thread: yields
+    ``part(name)``, a context that names the main thread's part and adds
+    its host milliseconds to ``ms[name]``; ``into`` gets {part: {kernel:
+    launches}} and ``kernels.ops.LAUNCHES`` the totals."""
+    from repro_torch.kernels import ops
+
+    current = ["other"]
+
+    def part_of() -> str:
+        t = threading.current_thread()
+        if t is threading.main_thread():
+            return current[0]
+        if t.name.startswith("churn-compact"):
+            return "background"
+        if t.name.startswith("pipeline-prefetch"):
+            return "prefetch"
+        return t.name
+
+    @contextlib.contextmanager
+    def part(name: str):
+        was = current[0]
+        current[0] = name
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+            current[0] = was
+
+    base = ops.LAUNCHES
+    counting = _PartLaunches(base, part_of)
+    ops.LAUNCHES = counting
+    try:
+        yield part
+    finally:
+        ops.LAUNCHES = base
+        base.update(dict(counting))
+        for p, counts in counting.parts.items():
+            mine = into.setdefault(p, {})
+            for k, v in counts.items():
+                mine[k] = mine.get(k, 0) + v
+
+
+def _scaled(counts: dict, times: int) -> dict:
+    return {k: v * times for k, v in counts.items() if v * times}
+
+
+def _sum_counts(*parts: dict) -> dict:
+    out: dict = {}
+    for p in parts:
+        for k, v in p.items():
+            out[k] = out.get(k, 0) + v
+    return {k: v for k, v in out.items() if v}
+
+
+def phase_train_e2e(ctx: dict, smi: str):
+    """The overlapped training loop of repro_torch.bench.train_e2e on
+    main's PQ index: the bare, bg and sync arms and the replayed rebuild
+    arm, at TE_* sizes. Held: zero_steady_recompiles, recall_matches_rebuild,
+    background_ran, prefetch_effective, training_converged, the loop's
+    counts and each part's launches; reported: the two timing checks with
+    their margins, each arm's step p50 / p99 and where its time goes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.bench import train_e2e as te
+    from repro_torch.kernels import ops, ref
+
+    t_all = time.perf_counter()
+    X, Q512 = ctx["X"], ctx["Q"][:BATCHES[0]]
+    index0 = ctx["index"]
+    pool = torch.cat([X, ctx["adds"]])            # row = item id
+    live0 = np.zeros(pool.shape[0], dtype=bool)
+    live0[:N] = True
+    sched = te.schedule(N, TE_STEPS, TE_CHURN_BATCH, TE_CHURN_EVERY)
+    check(N + sum(len(e[0]) for e in sched if e) <= pool.shape[0],
+          "the schedule's adds outrun main's held-out rows")
+    kw = dict(index0=index0, pool=pool, Q=Q512, live0=live0, sched=sched,
+              steps=TE_STEPS, batch=TE_BATCH, dim=DIM, nprobe=SERVE_NPROBE,
+              staging_rows=CHURN_STAGING, refresh_every=TE_REFRESH_EVERY,
+              compact_every=TE_COMPACT_EVERY,
+              reencode_rows=TE_REENCODE_ROWS, warmup=TE_WARMUP,
+              probe_every=TE_PROBE_EVERY, seed=SEED + 7)
+    arms, parts, part_ms, seen, fails, errs = {}, {}, {}, {}, [], {}
+    own = {}
+    for mode in ("bare", "bg", "sync"):
+        parts[mode], part_ms[mode] = {}, {}
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        spies = ([_last_call(n, seen) for n in ("gcd_score", "pq_assign",
+                                                "ivf_adc", "adc_lookup")]
+                 + [_last_call("givens_rotate", seen, by_shape=True)]
+                 if mode == "bg" else [])
+        with contextlib.ExitStack() as stack:
+            for s in spies:
+                stack.enter_context(s)
+            stack.enter_context(_counted(own))
+            part = stack.enter_context(_parts(parts[mode], part_ms[mode]))
+            arms[mode] = te.train_arm(mode, part=part, **kw)
+            torch.cuda.synchronize()
+        arms[mode]["arm_s"] = time.perf_counter() - t0
+        arms[mode]["launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
+    bare, bg, sync = arms["bare"], arms["bg"], arms["sync"]
+    t0 = time.perf_counter()
+    rebuild = te.rebuild_arm(
+        index0=index0, pool=pool, Q=Q512, live0=live0, sched=sched,
+        deltas=bg["deltas"], steps=TE_STEPS, nprobe=SERVE_NPROBE,
+        staging_rows=CHURN_STAGING, refresh_every=TE_REFRESH_EVERY,
+        probe_every=TE_PROBE_EVERY)
+    rebuild_s = time.perf_counter() - t0
+    results, checks = te.checks_of(bare, bg, sync, rebuild,
+                                   TE_REENCODE_ROWS)
+
+    # the launches each part implies: a train step scores, rotates R and
+    # encodes its batch once; a churn step stages (two assigns); a delta
+    # rotates R, the centroids and the codebooks; a probe (and the first
+    # search) scans once and runs the side pass; a background or
+    # synchronous pass re-encodes its stalest rows (two assigns)
+    churn_steps = sum(e is not None for e in sched)
+    probes = TE_STEPS // TE_PROBE_EVERY
+    step = dict(pq_assign=1, gcd_score=1, givens_rotate=1)
+    want = {"bare": {"train_step": _scaled(step, TE_STEPS)}}
+    for mode in ("bg", "sync"):
+        ch = arms[mode]["churn"]
+        want[mode] = {
+            "train_step": _scaled(step, TE_STEPS),
+            "churn": _scaled(dict(pq_assign=2), churn_steps),
+            "refresh": _scaled(dict(givens_rotate=3), TE_STEPS),
+            "probe": _scaled(dict(ivf_adc=1, adc_lookup=1), 1 + probes)}
+        if mode == "bg":
+            want[mode]["background"] = _scaled(
+                dict(pq_assign=2), ch["bg_compactions"] + ch["bg_discarded"])
+        else:
+            want[mode]["sync_compact"] = _scaled(
+                dict(pq_assign=2), TE_STEPS // (TE_REFRESH_EVERY
+                                                * TE_COMPACT_EVERY))
+    for mode in arms:
+        got = {p: c for p, c in parts[mode].items() if c}
+        if got != want[mode]:
+            fails.append(f"{mode} arm launches {got}, the loop implies "
+                         f"{want[mode]}")
+        if arms[mode]["launches"] != _sum_counts(*got.values()):
+            fails.append(f"{mode} arm: the parts' launches do not add up to "
+                         f"its total {arms[mode]['launches']}")
+
+    # the path's kernels on the bg arm's last operands
+    G, Rg = seen.pop("gcd_score")
+    got = ops.gcd_score(G, Rg)
+    errs["gcd_score/train_e2e"] = compare(got, ref.gcd_score_ref(G, Rg),
+                                          GCD_ATOL, 0.0)
+    check(torch.equal(got, -got.T), "gcd_score train_e2e not antisymmetric")
+    xa, cba = seen.pop("pq_assign")
+    assign_flips = _assign_flips(xa, cba, ops.pq_assign(xa, cba),
+                                 ref.pq_assign_ref(xa, cba))
+    errs["pq_assign/train_e2e"] = assign_flips["max_abs_gap"]
+    lut, codes, bi, bq, scales, ids = seen.pop("ivf_adc")
+    errs["ivf_adc/train_e2e_window"] = bit_equal(
+        ops.ivf_adc(lut, codes, bi, bq, scales, ids, block_size=BS),
+        ref.ivf_adc_ref(lut, codes, bi, bq, block_size=BS, scales=scales,
+                        ids=ids), "ivf_adc in train_e2e")
+    args = seen.pop("adc_lookup")
+    errs["adc_lookup/train_e2e_side_pass"] = bit_equal(
+        ops.adc_lookup(*args), ref.adc_lookup_ref(*args),
+        "adc_lookup side pass in train_e2e")
+    rot_shapes = []
+    for key in [k for k in seen if k[0] == "givens_rotate"]:
+        args = seen.pop(key)
+        rot_shapes.append(list(key[1]))
+        errs[f"givens_rotate/train_e2e_{key[1][0]}x{key[1][1]}"] = bit_equal(
+            ops.givens_rotate(*args), ref.pair_rotate_ref(*args),
+            f"givens_rotate {key[1]} in train_e2e")
+    del seen, G, Rg, xa, lut, codes, ids, args
+
+    loop = bg["loop"]
+    held = {k: checks[k] for k in ("zero_steady_recompiles",
+                                   "recall_matches_rebuild",
+                                   "background_ran", "prefetch_effective",
+                                   "training_converged")}
+    for name, ok in held.items():
+        if not ok:
+            fails.append(f"train_e2e check {name} failed")
+    if loop["deltas_applied"] != TE_STEPS or \
+            loop["refresh_rounds"] != TE_STEPS // TE_REFRESH_EVERY:
+        fails.append(f"LiveIndexLoop.stats() {loop}: {TE_STEPS} deltas in "
+                     f"{TE_STEPS // TE_REFRESH_EVERY} rounds expected")
+    overhead = results["overhead_ratio"]
+    timing = dict(
+        live_step_overhead_ok=dict(
+            passed=checks["live_step_overhead_ok"], ratio=overhead,
+            limit=1.15, margin=1.15 - overhead),
+        bg_p99_below_sync=dict(
+            passed=checks["bg_p99_below_sync"], bg_ms=bg["step_ms_p99"],
+            sync_ms=sync["step_ms_p99"],
+            margin_ms=sync["step_ms_p99"] - bg["step_ms_p99"]))
+
+    def arm_summary(a, mode):
+        return dict(
+            step_ms_p50=a["step_ms_p50"], step_ms_p99=a["step_ms_p99"],
+            step_ms_max=a["step_ms_max"], loss_final=a["loss_final"],
+            prefetch_hits=a["prefetch_hits"],
+            prefetch_misses=a["prefetch_misses"], arm_s=a["arm_s"],
+            part_ms={p: dict(_pcts(v), total=sum(v))
+                     for p, v in part_ms[mode].items()},
+            launches_by_part=parts[mode])
+
+    emit("train_e2e", n=N, dim=DIM, nprobe=SERVE_NPROBE,
+         queries=BATCHES[0], steps=TE_STEPS, batch=TE_BATCH,
+         refresh_every=TE_REFRESH_EVERY, compact_every=TE_COMPACT_EVERY,
+         reencode_rows=TE_REENCODE_ROWS, staging_rows=CHURN_STAGING,
+         churn_batch=TE_CHURN_BATCH, churn_every=TE_CHURN_EVERY,
+         warmup=TE_WARMUP, probe_every=TE_PROBE_EVERY,
+         checks=held, timing_checks=timing,
+         arms={m: arm_summary(arms[m], m) for m in arms},
+         recall=dict(live_mean=results["recall_live_mean"],
+                     rebuild_mean=results["recall_rebuild_mean"],
+                     gap=results["recall_gap"],
+                     live=bg["probes"], rebuild=rebuild),
+         loop=loop, churn=bg["churn"], sync_churn=sync["churn"],
+         compact_hidden_ms=bg["compact_hidden_ms"],
+         staleness_hist=bg["staleness_hist"],
+         shapes=bg["shapes_warm"], recompiles_steady=bg["recompiles_steady"],
+         expected_launches=want, assign_flips=assign_flips,
+         rotate_shapes=rot_shapes, rebuild_s=rebuild_s,
+         total_s=time.perf_counter() - t_all, card=smi, fails=fails)
+    check(not fails, "; ".join(fails))
+    return errs, own
+
+
 # -- train ------------------------------------------------------------------
 
 
@@ -3351,6 +4019,10 @@ def main() -> int:
     errs.update(engine_errs)
     churn_errs, paths["churn"] = phase_churn(ctx, smi)
     errs.update(churn_errs)
+    rq_errs, paths["rq"] = phase_rq(ctx, smi)
+    errs.update(rq_errs)
+    te_errs, paths["train_e2e"] = phase_train_e2e(ctx, smi)
+    errs.update(te_errs)
     del ctx                          # frees the 1M-row index
     torch.cuda.empty_cache()
     tctx = phase_train(smi)

@@ -44,19 +44,24 @@ def _t(a, dev: torch.device, dtype=None) -> torch.Tensor:
 def index_from_numpy(arrays: dict, *, device=None) -> IVFPQIndex:
     """An ``IVFPQIndex`` on ``device`` (the card by default) from the JAX
     index's arrays: keys ``R``, ``centroids``, ``codebooks``, ``codes``,
-    ``ids``, ``list_offsets`` and ``block_size``."""
+    ``ids``, ``list_offsets`` and ``block_size``. Codebooks (D, K, sub)
+    make a ``PQ``, (M, D, K, sub) a depth-M ``RQ``."""
     missing = [k for k in INDEX_KEYS if k not in arrays]
     if missing:
         raise KeyError(f"index_from_numpy: missing {missing}")
     dev = _device.resolve(device)
     codebooks = np.asarray(arrays["codebooks"])
-    if codebooks.ndim != 3:
-        raise NotImplementedError(quant.RQ_LATER)
-    code_dtype = quant.PQConfig(*codebooks.shape[:2]).code_dtype()
+    if codebooks.ndim not in (3, 4):
+        raise ValueError(f"index_from_numpy: codebooks of shape "
+                         f"{codebooks.shape}, expected (D, K, sub) or "
+                         "(M, D, K, sub)")
+    kind = quant.PQ if codebooks.ndim == 3 else quant.RQ
+    quantizer = kind(_t(codebooks, dev, np.float32))
+    code_dtype = quantizer.config.code_dtype()
     return IVFPQIndex(
         R=_t(arrays["R"], dev, np.float32),
         coarse=quant.VQ(_t(arrays["centroids"], dev, np.float32)),
-        quantizer=quant.PQ(_t(codebooks, dev, np.float32)),
+        quantizer=quantizer,
         codes=_t(arrays["codes"], dev, code_dtype),
         ids=_t(arrays["ids"], dev, np.int32),
         list_offsets=_t(arrays["list_offsets"], dev, np.int32),

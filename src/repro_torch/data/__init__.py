@@ -1,1 +1,2 @@
-"""Synthetic data (port of ``repro/data``: ``sift_like``)."""
+"""Synthetic data and the input pipeline (port of ``repro/data``:
+``sift_like``, ``ClickLog`` and ``pipeline.Pipeline``)."""

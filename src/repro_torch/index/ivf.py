@@ -1,11 +1,12 @@
-"""IVF index build: coarse quantizer + residual PQ in a block-aligned CSR
-(port of ``repro/index/ivf.py:47-216``).
+"""IVF index build: coarse quantizer + residual PQ or RQ in a block-aligned
+CSR (port of ``repro/index/ivf.py:47-216``).
 
 A ``VQ`` coarse quantizer over the rotated vectors XR partitions the corpus
-into ``num_lists`` inverted lists, and a ``PQ`` encodes the residual
-x·R − c(x). Scores decompose as ⟨q·R, c_l⟩ + Σ_d LUT[d, code_d].
+into ``num_lists`` inverted lists, and a ``PQ`` (depth 1) or a depth-M
+``RQ`` encodes the residual x·R − c(x). Scores decompose as ⟨q·R, c_l⟩ +
+Σ_p LUT[p, code_p] over the Dp = M·D code columns.
 
-Layout: ``codes (cap, D)`` uint8 and ``ids (cap,)`` int32, all lists
+Layout: ``codes (cap, Dp)`` uint8 and ``ids (cap,)`` int32, all lists
 concatenated; ``list_offsets (L+1,)`` int32, every offset a multiple of
 ``block_size`` so a list is a whole number of scan tiles; holes carry
 id −1, and one all-hole sentinel block ends the array as the target of
@@ -42,8 +43,8 @@ class IVFPQIndex:
 
     R: torch.Tensor             # (n, n) learned rotation
     coarse: quant.VQ            # L centroids in the rotated space
-    quantizer: quant.PQ         # residual product quantizer
-    codes: torch.Tensor         # (cap, D) uint8, CSR by list
+    quantizer: quant.PQ | quant.RQ  # residual quantizer
+    codes: torch.Tensor         # (cap, Dp) uint8, CSR by list
     ids: torch.Tensor           # (cap,) int32, −1 = hole
     list_offsets: torch.Tensor  # (L+1,) int32, multiples of block_size
     block_size: int = 128
@@ -87,9 +88,9 @@ class IVFPQIndex:
         return max(int(lens.max()) // self.block_size, 1)
 
 
-def encode(XR: torch.Tensor, coarse: quant.VQ,
-           quantizer: quant.PQ) -> tuple[torch.Tensor, torch.Tensor]:
-    """List ids (m,) int32 and residual codes (m, D) int32 of already
+def encode(XR: torch.Tensor, coarse: quant.VQ, quantizer
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """List ids (m,) int32 and residual codes (m, Dp) int32 of already
     rotated vectors, in chunks of ``ENCODE_ROWS`` rows."""
     m = XR.shape[0]
     lists = torch.empty((m,), dtype=torch.int32, device=XR.device)
@@ -104,7 +105,7 @@ def encode(XR: torch.Tensor, coarse: quant.VQ,
     return lists, codes
 
 
-def pack(R: torch.Tensor, coarse: quant.VQ, quantizer: quant.PQ,
+def pack(R: torch.Tensor, coarse: quant.VQ, quantizer,
          codes: torch.Tensor, list_ids: torch.Tensor, ids: torch.Tensor,
          block_size: int = 128) -> IVFPQIndex:
     """Lay encoded items out in block-aligned CSR order (host-side numpy,
@@ -150,11 +151,11 @@ def build(generator: torch.Generator, X: torch.Tensor, R: torch.Tensor,
           train_size: int | None = None, device=None) -> IVFPQIndex:
     """Index build from raw vectors and a learned rotation on ``device``
     (the card by default). ``train_size`` caps the k-means sample; the whole
-    corpus is always encoded. ``generator`` must live on ``device``."""
+    corpus is always encoded. ``cfg.depth > 1`` fits a residual ``RQ``,
+    whose codes are M·D bytes a row. ``generator`` must live on
+    ``device``."""
     dev = _device.resolve(device)
     _device.check_generator(generator, dev)
-    if cfg.depth > 1:
-        raise NotImplementedError(quant.RQ_LATER)
     X = X.to(dev)
     R = R.to(dev, X.dtype)
     XR = X @ R

@@ -1,5 +1,6 @@
-"""Lloyd's k-means for codebooks and coarse centroids (port of
-``repro/quant/kmeans.py:29-108``, unsharded).
+"""Lloyd's k-means for codebooks and coarse centroids, and the streaming
+EMA codebook update (port of ``repro/quant/kmeans.py:29-108`` and
+``:180-195``, unsharded).
 
 One implementation serves per-subspace PQ codebooks and, through
 ``vq_kmeans`` (one subspace), the IVF coarse centroids. Random state is an
@@ -60,3 +61,24 @@ def vq_kmeans(generator: torch.Generator, X: torch.Tensor, num_centroids: int,
     """Full-vector k-means: (L, n) centroids, the IVF coarse fit."""
     cb, _ = kmeans(generator, X, PQConfig(1, num_centroids), iters=iters)
     return cb[0]
+
+
+def codebook_ema_update(codebooks: torch.Tensor, X: torch.Tensor,
+                        codes: torch.Tensor, decay: float = 0.99
+                        ) -> torch.Tensor:
+    """Streaming EMA codebook update (VQ-VAE style): each codeword moves
+    towards the mean of the rows assigned to it, ``decay·C + (1 − decay)·
+    mean``; a codeword no row chose keeps its value. The per-codeword sums
+    go through ``index_add_``, which on the card adds in no fixed order."""
+    D, K, sub = codebooks.shape
+    seg = (codes.long()
+           + torch.arange(D, device=X.device) * K).reshape(-1)     # (m·D,)
+    rows = split(X, D).reshape(-1, sub)
+    sums = torch.zeros((D * K, sub), dtype=X.dtype, device=X.device)
+    sums.index_add_(0, seg, rows)
+    cnt = torch.zeros((D * K,), dtype=torch.float32, device=X.device)
+    cnt.index_add_(0, seg, torch.ones_like(seg, dtype=torch.float32))
+    cnt = cnt.view(D, K, 1)
+    batch_mean = sums.view(D, K, sub) / torch.clamp(cnt, min=1.0)
+    upd = decay * codebooks + (1.0 - decay) * batch_mean
+    return torch.where(cnt > 0, upd, codebooks)

@@ -56,6 +56,11 @@ class PQ:
         codebooks, trace = km.kmeans(generator, X, cfg, iters=iters)
         return cls(codebooks), trace
 
+    def ema_update(self, X: torch.Tensor, codes: torch.Tensor,
+                   decay: float = 0.99) -> "PQ":
+        return PQ(km.codebook_ema_update(self.codebooks, X, codes,
+                                         decay=decay))
+
     def encode(self, X: torch.Tensor) -> torch.Tensor:
         return cb.assign(X, self.codebooks)
 

@@ -50,6 +50,12 @@ class VQ:
     def decode(self, codes: torch.Tensor) -> torch.Tensor:
         return self.centroids[codes.long()[..., 0]]
 
+    def encode_st(self, X: torch.Tensor) -> torch.Tensor:
+        """The nearest centroid forward, the identity backward wrt X."""
+        with torch.no_grad():
+            q = self.decode(self.encode(X))
+        return X + (q - X.detach())
+
     def adc_tables(self, Q: torch.Tensor) -> torch.Tensor:
         return (Q @ self.centroids.T)[:, None, :]  # (b, 1, L)
 

@@ -25,8 +25,9 @@ does under ``jax.grad``: its moments decay, weight decay moves it, and a
 rotation goes through its learner all the same.
 
 The numerical constants are rounded to float32 as the JAX package's
-weak-typed float32 arithmetic rounds them. Adafactor, bf16 moments,
-gradient accumulation and stacked (L, n, n) rotations wait for a later
+weak-typed float32 arithmetic rounds them. Gradient accumulation
+(``accum_steps``, ``accum_dtype``) lives in ``training.train_state``.
+Adafactor, bf16 moments and stacked (L, n, n) rotations wait for a later
 slice (ROADMAP.md).
 """
 from __future__ import annotations
@@ -53,6 +54,8 @@ class OptimizerConfig(NamedTuple):
     total_steps: int = 10_000
     accum_steps: int = 1
     rotation: rot_lib.RotationConfig = rot_lib.RotationConfig()
+    schedule: str = "cosine"         # cosine | constant
+    accum_dtype: torch.dtype = torch.float32
 
 
 class OptState(NamedTuple):
@@ -96,12 +99,17 @@ def _f32(x) -> np.float32:
 
 
 def schedule_lr(cfg: OptimizerConfig, step: int) -> float:
-    """Cosine schedule with linear warm-up, in float32 as the JAX package
-    computes it."""
+    """Linear warm-up, then a cosine decay (``schedule="cosine"``) or a
+    constant rate (``"constant"``), in float32 as the JAX package computes
+    it."""
     s = _f32(step)
     warm = min(_f32(1.0), (s + _f32(1.0)) / _f32(max(cfg.warmup_steps, 1)))
-    frac = np.clip(s / _f32(max(cfg.total_steps, 1)), _f32(0.0), _f32(1.0))
-    decay = _f32(0.5) * (_f32(1.0) + np.cos(_f32(np.pi) * frac))
+    if cfg.schedule == "cosine":
+        frac = np.clip(s / _f32(max(cfg.total_steps, 1)), _f32(0.0),
+                       _f32(1.0))
+        decay = _f32(0.5) * (_f32(1.0) + np.cos(_f32(np.pi) * frac))
+    else:
+        decay = _f32(1.0)
     return float(_f32(cfg.lr) * warm * decay)
 
 

@@ -52,27 +52,54 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor],
     ``{path key: RotationDelta}`` each manifold update applied. ``marks``,
     if given, is called with "forward", "backward", "adamw" and "rotation"
     as each part of the step has been enqueued (``chip_smoke.py`` records a
-    CUDA event there). Gradient accumulation (``accum_steps > 1``) is not
-    ported yet and raises."""
-    if opt_cfg.accum_steps != 1:
-        raise NotImplementedError(
-            "accum_steps > 1 (microbatch accumulation) is not ported yet "
-            "(ROADMAP.md)")
+    CUDA event there).
+
+    ``opt_cfg.accum_steps = A > 1`` splits every batch tensor into A
+    microbatches along axis 0 (which A must divide), folds 1/A into each
+    microbatch's loss and sums the gradients in ``opt_cfg.accum_dtype``.
+    Each microbatch's graph is differentiated and dropped before the next
+    is built, so only one microbatch's activations are alive at a time.
+    The step's loss is the sum of the scaled losses; "forward" and
+    "backward" are both marked after the last microbatch."""
+    A = int(opt_cfg.accum_steps)
+    if A < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {A}")
 
     def mark(name: str) -> None:
         if marks is not None:
             marks(name)
 
+    def _grads(params, named, batch):
+        leaves = [p for _, p in named]
+        if A == 1:
+            loss = loss_fn(params, *batch)
+            mark("forward")
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            return loss.detach(), {k: g for (k, _), g in zip(named, grads)
+                                   if g is not None}
+        micro = [_split(x, A) for x in batch]
+        inv = 1.0 / A
+        lsum, gsum = None, {}
+        for i in range(A):
+            loss = loss_fn(params, *[m[i] if m is not None else x
+                                     for m, x in zip(micro, batch)]) * inv
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            lsum = loss.detach() if lsum is None else lsum + loss.detach()
+            for (k, _), g in zip(named, grads):
+                if g is None:
+                    continue
+                g = g.to(opt_cfg.accum_dtype)
+                gsum[k] = g if k not in gsum else gsum[k] + g
+            del loss, grads
+        mark("forward")
+        return lsum, gsum
+
     def train_step(state: TrainState, *batch) -> tuple[TrainState, dict]:
         named = [(k, p) for k, p in opt_lib.named_leaves(state.params).items()
                  if p.requires_grad]
-        loss = loss_fn(state.params, *batch)
-        mark("forward")
-        grads = torch.autograd.grad(loss, [p for _, p in named],
-                                    allow_unused=True)
-        grads = {k: g for (k, _), g in zip(named, grads) if g is not None}
+        loss, grads = _grads(state.params, named, batch)
         mark("backward")
-        metrics = {"loss": loss.detach(),
+        metrics = {"loss": loss,
                    "grad_norm": opt_lib.global_norm(grads),
                    "lr": opt_lib.schedule_lr(opt_cfg, state.step)}
         params, opt_state, deltas = opt_lib.update_with_deltas(
@@ -84,3 +111,14 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor],
                            step=state.step + 1, rng=state.rng), metrics)
 
     return train_step
+
+
+def _split(x, A: int):
+    """A tensor batch argument as A microbatches along axis 0 (a view), or
+    None for an argument that is not split (a scalar or a non-tensor)."""
+    if not isinstance(x, torch.Tensor) or x.dim() == 0:
+        return None
+    if x.shape[0] % A:
+        raise ValueError(f"accum_steps={A} does not divide the batch axis "
+                         f"of a {tuple(x.shape)} argument")
+    return x.reshape(A, x.shape[0] // A, *x.shape[1:])

@@ -278,9 +278,14 @@ def test_build_is_a_valid_csr():
     row_list = np.searchsorted(offs, rows, side="right") - 1
     lists = index.coarse.assign(X[ids[rows]] @ index.R).numpy()
     np.testing.assert_array_equal(row_list, lists)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        search.make("ivf").build(g, X, R, cfg._replace(depth=2),
-                                 device="cpu")
+    # depth 2 builds a residual (RQ) index: M·D uint8 code columns a row,
+    # every row placed once
+    rq = search.make("ivf").build(g, X, R, cfg._replace(depth=2),
+                                  device="cpu").index
+    assert rq.codes.shape[1] == 2 * D and rq.codes.dtype == torch.uint8
+    rq_ids = rq.ids.numpy()
+    np.testing.assert_array_equal(np.sort(rq_ids[rq_ids >= 0]),
+                                  np.arange(3000))
 
 
 def test_gcd_state_from_numpy_steps_like_jax():

@@ -336,8 +336,14 @@ def test_train_step_skips_leaves_the_loss_does_not_reach(setup):
     assert torch.equal(model.index.R, R0)
     assert not torch.equal(model.index.codebooks, cb0)
     _close(model.index.codebooks, want["index/codebooks"], 1e-5)
-    with pytest.raises(NotImplementedError):
-        ts.make_train_step(lambda p: 0.0, tcfg._replace(accum_steps=2))
+    # accumulation over two microbatches no longer raises, and the leaf
+    # the loss does not reach still gets a zero gradient: R stays
+    model = _model(params)
+    step2 = ts.make_train_step(lambda p, h, pos: recsys.twotower_loss(
+        p, h, pos, TCFG, use_index=False), tcfg._replace(accum_steps=2))
+    _, m2 = step2(ts.init_state(None, model, tcfg), _t(h), _t(pos))
+    assert torch.isfinite(m2["loss"])
+    assert torch.equal(model.index.R, R0)
 
 
 def test_eq1_loss_matches_jax():
