@@ -134,8 +134,36 @@ Phases, one JSON line each:
            ivf_adc, adc_lookup and givens_rotate on the bg arm's last
            operands. Reported: live_step_overhead_ok and
            bg_p99_below_sync with their values and margins, each arm's
-           step p50 / p99 and its host ms by part. The 1M-row index is
-           freed after;
+           step p50 / p99 and its host ms by part;
+  serve    repro_torch.bench.serve_load's cells (serve_cells) over two
+           namespaces at the serving index's width: alpha main's 1M-row
+           index attached as a fused-refresh state (with a
+           ChurnController's 256-row buffer), beta a second 1M-row
+           sift_like corpus from SERVE_BETA_SEED built as main builds; the
+           JAX script's traffic (SERVE_LADDER 2 / 8 / 32, SERVE_TRAFFIC:
+           1,500 requests, load 1.1, SLO 4× the top rung's bucket time,
+           admission 2 ms, buckets of 16, a cross-subspace GCD refresh of
+           alpha every 200 arrivals, 30% warm-up), one trace replayed by
+           the three fixed cells and the adaptive one after a calibration
+           frontend. Held: the script's five non-timing checks, both built
+           states bit-equal after the cells, SERVE_SAMPLES served tickets
+           a cell equal to a direct IVF.search of the row at the rung it
+           was served at on the state that served it (ids, or a float32
+           tie; scores within ATOL and RTOL), beta's build's launches equal
+           main's build's, each part's launches (flushes, warm-ups:
+           one ivf_adc a submit, one fused_lut a submit with a table
+           miss, one adc_lookup a submit on alpha's buffer; refreshes:
+           gcd_score 1 and givens_rotate 3 each; idle ticks none), and
+           ivf_adc at each rung on alpha's window and beta's, fused_lut at
+           each miss width, the side pass, gcd_score, givens_rotate and
+           beta's build's last pq_assign against their plain versions.
+           Reported: adaptive_beats_best_fixed_p99_at_equal_recall with
+           its margin, each cell's p50 / p99, recall@10 against exact, SLO
+           attainment, QPS, rung mix and EWMA per (bucket, rung), the
+           queue waits, host ms by part, and ivf_adc's times at bucket 16
+           beside their bounds and F.embedding_bag; the result is written
+           through obs.write_bench into a temporary directory and
+           validated. The 1M-row index is freed after;
   train    the training slice at the full width of the paper's two-tower
            model (configs/paper_twotower.make_config: 1,541,673 items,
            embedding 512, towers (512, 512), history 16, D = 64, K = 256)
@@ -234,7 +262,7 @@ with the split by path: serving's learn, build, serve and refresh; the
 Engine's attach, requests and refreshes (with the learner steps that give
 their deltas); churn's attach, first search and both runs' steps; rq's
 build, serving, flat scan, refresh and fused Engine; train_e2e's three
-arms;
+arms; serve's build of beta and its five frontends;
 train's parts; table1's run; fig4's and fig2's runs;
 decode's prefill and greedy tokens. The
 checks that run beside them in a phase's window are left out.
@@ -363,6 +391,17 @@ TE_REFRESH_EVERY, TE_COMPACT_EVERY = 8, 2
 TE_REENCODE_ROWS = 51_200          # the script's 2,048 of 40,000 rows: 5.12%
 TE_CHURN_BATCH, TE_CHURN_EVERY = 1024, 2
 TE_WARMUP, TE_PROBE_EVERY = 34, 12
+
+# serve phase: benchmarks/serve_load.py's traffic over two namespaces at
+# the serving index's width: alpha main's index, beta a second corpus
+SERVE_LADDER = (2, 8, 32)          # the top rung is the index's nprobe
+SERVE_TRAFFIC = dict(requests=1500, load=1.1, slo_factor=4.0,
+                     admission_ms=2.0, max_admit=16, refresh_every=200,
+                     warm_frac=0.3)
+SERVE_POOL = 64                    # each namespace's query pool
+SERVE_BETA_SEED = SEED + 30        # beta's corpus, rotation, build, pool
+SERVE_SAMPLES = 48                 # tickets a cell held to a direct search
+SERVE_TIMING = "adaptive_beats_best_fixed_p99_at_equal_recall"
 
 # train phase (cut to fit a run; see the module docstring)
 #: table1 phase: benchmarks/fig3_table1_e2e.py run()'s default sizes and
@@ -710,7 +749,8 @@ def phase_main(smi: str) -> dict:
     build_rng = g.get_state()      # the churn phase's fresh-build oracle
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with _counted(own):
+    build_launches = {}      # one build's own (the serve phase's beta)
+    with _counted(own), _counted(build_launches):
         state = searcher.build(g, X, R, cfg)
         torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
@@ -809,7 +849,8 @@ def phase_main(smi: str) -> dict:
                 Q=Q, G=G_sub, adds=adds, build_rng=build_rng,
                 R=R_before.contiguous(), X=X, index_before=index_before,
                 delta=delta, peak_memory_bytes=peak, exact=exact_state,
-                truth=truth, after_recall=after["recall_at_10"])
+                truth=truth, after_recall=after["recall_at_10"],
+                build_launches=build_launches)
 
 
 # -- kernels ----------------------------------------------------------------
@@ -2640,6 +2681,347 @@ def phase_train_e2e(ctx: dict, smi: str):
     return errs, own
 
 
+# -- serve ------------------------------------------------------------------
+
+
+def _state_tensors(obj, prefix: str = "") -> dict:
+    """Every tensor of a search state, by its path of dataclass fields."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return {prefix: obj}
+    out = {}
+    if dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            out.update(_state_tensors(getattr(obj, f.name),
+                                      f"{prefix}.{f.name}"))
+    return out
+
+
+@contextlib.contextmanager
+def _serve_spies(part, served: list, submits: dict):
+    """Inside the block, the serving front end's work by part:
+    ``part(name)`` (``_parts``) wraps each flush (``Frontend._serve``),
+    idle tick (``_maintenance_tick``), warm-up (``create_namespace``) and
+    refresh (``serve_load._cross_subspace_delta`` and ``Engine.refresh``).
+    Every ``Engine.submit`` adds to ``submits[part]`` the launches its
+    Pending implies: one ivf_adc, one fused_lut when a table missed the
+    cache, one adc_lookup side pass on a state with a staging buffer.
+    ``served`` gets a list a Frontend, in the order they are made, of
+    (ticket, the state that served it)."""
+    from repro_torch.bench import serve_load as sl
+    from repro_torch.search.engine import Engine
+    from repro_torch.serve.frontend import Frontend
+
+    cur = ["other"]
+    order = {}
+
+    def named(name, fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            was, cur[0] = cur[0], name
+            try:
+                with part(name):
+                    return fn(*args, **kwargs)
+            finally:
+                cur[0] = was
+        return wrapped
+
+    real = [(Frontend, "__init__"), (Frontend, "_serve"),
+            (Frontend, "_maintenance_tick"), (Frontend, "create_namespace"),
+            (Engine, "submit"), (Engine, "refresh"),
+            (sl, "_cross_subspace_delta")]
+    real = [(owner, name, getattr(owner, name)) for owner, name in real]
+    init, flush, tick, create, submit, refresh, delta = (f for _, _, f
+                                                         in real)
+
+    def spy_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        order[id(self)] = len(served)
+        served.append([])
+
+    timed_flush = named("flush", flush)
+
+    def spy_serve(self, ns, batch):
+        state = ns.engine.state
+        done = timed_flush(self, ns, batch)
+        served[order[id(self)]].extend((t, state) for t in done)
+        return done
+
+    def spy_submit(self, Q, **kwargs):
+        pending = submit(self, Q, **kwargs)
+        tally = submits.setdefault(cur[0], {})
+        for k, n in (("ivf_adc", 1),
+                     ("fused_lut", int(pending.lut_misses > 0)),
+                     ("adc_lookup", int(self.state.staging is not None))):
+            tally[k] = tally.get(k, 0) + n
+        return pending
+
+    spies = (spy_init, spy_serve, named("idle_tick", tick),
+             named("warmup", create), spy_submit, named("refresh", refresh),
+             named("refresh", delta))
+    for (owner, name, _), spy in zip(real, spies):
+        setattr(owner, name, spy)
+    try:
+        yield
+    finally:
+        for owner, name, fn in real:
+            setattr(owner, name, fn)
+
+
+def _direct_agrees(ivf, state, t, fails: list, cell: str) -> dict:
+    """A served ticket against a direct ``IVF.search`` of its row at the
+    nprobe it was served at, on the state that served it: ids equal, or
+    where they differ the direct search's scores tied within TIE_GAP of
+    the scale (the Engine rotated the row in a batch of up to 16, where
+    cuBLAS may round Q·R₀ otherwise); scores within the scans' ATOL and
+    RTOL."""
+    import torch
+
+    q = torch.from_numpy(t.query).to(state.index.device)[None]
+    want = ivf.search(state, q, k=t.k + 1, nprobe=t.nprobe_served)
+    w_ids, w_sc = want.ids[0], want.scores[0]
+    g_ids, g_sc = t.result.ids, t.result.scores
+    # a query whose probed lists hold fewer than k rows is padded: id −1,
+    # score −inf, at the same places in both
+    fin = torch.isfinite(w_sc[:t.k])
+    pads = torch.equal(torch.isneginf(g_sc), ~fin)
+    diff = (float((g_sc[fin] - w_sc[:t.k][fin]).abs().max())
+            if bool(fin.any()) else 0.0)
+    same = bool(torch.equal(g_ids, w_ids[:t.k]))
+    w_fin = w_sc[torch.isfinite(w_sc)]
+    scale = float(w_fin.abs().max()) if w_fin.numel() else 0.0
+    tie = not same and all(
+        bool(fin[p]) and min(float((w_sc[p] - w_sc[p + d]).abs())
+                             for d in (-1, 1)
+                             if 0 <= p + d < w_sc.numel()
+                             and bool(torch.isfinite(w_sc[p + d])))
+        <= TIE_GAP * scale
+        for p in torch.nonzero(g_ids != w_ids[:t.k]).flatten().tolist())
+    if not ((same or tie) and pads and diff <= ATOL + RTOL * scale):
+        fails.append(f"{cell}: request {t.rid} ({t.namespace}, nprobe "
+                     f"{t.nprobe_served}) differs from a direct search: "
+                     f"ids equal {same}, scores {diff}")
+    return dict(same=same, tie=tie, diff=diff, padded=int((~fin).sum()))
+
+
+def phase_serve(ctx: dict, smi: str):
+    """repro_torch.bench.serve_load's cells over two 1M-row namespaces at
+    the serving index's width: alpha main's index as a fused-refresh
+    state, beta a second sift_like corpus built as main builds. Held: the
+    script's five non-timing checks, the built states bit-equal after the
+    cells, sampled tickets against direct searches, each part's launches
+    and every kernel of the path against its plain version; reported:
+    adaptive_beats_best_fixed_p99_at_equal_recall with its margin, each
+    cell's latency, recall, SLO attainment, QPS, rung mix and EWMAs."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import device, obs, search
+    from repro_torch.bench import serve_load as sl
+    from repro_torch.core import givens
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops, ref
+
+    t_all = time.perf_counter()
+    fails, errs, own, seen = [], {}, {}, {}
+    ivf = search.make("ivf")
+    ops.reset_launches()
+
+    # beta: a second corpus, drawn, rotated and built as main's
+    t0 = time.perf_counter()
+    Xb = synthetic.sift_like(device.generator(SERVE_BETA_SEED), N, DIM)
+    Rb = givens.random_rotation(device.generator(SERVE_BETA_SEED + 1), DIM)
+    build_own = {}
+    with _last_call("pq_assign", seen), _counted(own), _counted(build_own):
+        beta = ivf.build(device.generator(SERVE_BETA_SEED + 2), Xb, Rb,
+                         serve_config()._replace(fused_refresh=True))
+        torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    _expect("beta's build", build_own, ctx["build_launches"])
+    alpha = ivf.attach(ctx["index"], nprobe=SERVE_NPROBE, fused_refresh=True)
+    pool_b = synthetic.sift_like(device.generator(SERVE_BETA_SEED + 3),
+                                 SERVE_POOL, DIM)
+    corpora = {"alpha": sl.namespace_corpus(alpha, ctx["X"],
+                                            ctx["Q"][:SERVE_POOL]),
+               "beta": sl.namespace_corpus(beta, Xb, pool_b)}
+    del Xb, pool_b
+    before = {nm: {p: v.clone() for p, v in _state_tensors(c["state"])
+                   .items()} for nm, c in corpora.items()}
+
+    # the path: the calibration frontend, three fixed cells and the
+    # adaptive one, on one trace
+    parts, part_ms, submits, served = {}, {}, {}, []
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for name in ("gcd_score", "adc_lookup"):
+            stack.enter_context(_last_call(name, seen))
+        stack.enter_context(_last_call("fused_lut", seen, by_shape=True))
+        stack.enter_context(_last_call("givens_rotate", seen, by_shape=True))
+        stack.enter_context(_last_call(
+            "ivf_adc", seen, key=lambda a: (a[1].shape[0], a[2].numel())))
+        stack.enter_context(_counted(own))
+        part = stack.enter_context(_parts(parts, part_ms))
+        stack.enter_context(_serve_spies(part, served, submits))
+        results, checks = sl.serve_cells(
+            ivf, corpora, dim=DIM, ladder=SERVE_LADDER, verbose=False,
+            **SERVE_TRAFFIC)
+        torch.cuda.synchronize()
+    t_cells = time.perf_counter() - t0
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    cells = results["cells"]
+
+    # the states given to the five frontends are left as they were built
+    for nm, c in corpora.items():
+        now = _state_tensors(c["state"])
+        if now.keys() != before[nm].keys() or not all(
+                torch.equal(v, before[nm][p]) for p, v in now.items()):
+            fails.append(f"serving changed {nm}'s built state")
+    del before
+
+    held = {k: v for k, v in checks.items() if k != SERVE_TIMING}
+    for name, ok in held.items():
+        if not ok:
+            fails.append(f"serve check {name} failed")
+    a = cells["adaptive"]
+    timing = {SERVE_TIMING: dict(
+        passed=checks[SERVE_TIMING], adaptive_p99_ms=a["p99_ms"],
+        best_fixed_p99_ms=results["best_fixed_p99_ms"],
+        comparable_fixed=results["comparable_fixed"],
+        margin_ms=results["best_fixed_p99_ms"] - a["p99_ms"])}
+
+    # the launches each part implies: a submit's scan, table build and side
+    # pass; a refresh's GCD step (score, R) and fused refresh (rot, wacc);
+    # an idle tick with nothing staged launches nothing
+    refreshes = sum(c["alpha_refreshes"] for c in cells.values())
+    want = {p: {k: v for k, v in t.items() if v} for p, t in submits.items()}
+    want["refresh"] = dict(gcd_score=refreshes, givens_rotate=3 * refreshes)
+    got = {p: c for p, c in parts.items() if c}
+    if got != {p: c for p, c in want.items() if c}:
+        fails.append(f"serve launches by part {got}, the path implies {want}")
+    if launches != _sum_counts(build_own, *got.values()):
+        fails.append(f"the parts' launches do not add up to {launches}")
+    ticks = sum(c["maintenance_ticks"] for c in cells.values())
+    if len(part_ms.get("idle_tick", [])) != ticks:
+        fails.append(f"{len(part_ms.get('idle_tick', []))} idle ticks timed, "
+                     f"the cells count {ticks}")
+
+    # sampled tickets against direct searches on the state that served them
+    names = ["calibration"] + [f"fixed_np{r}" for r in SERVE_LADDER] + [
+        "adaptive"]
+    check(len(served) == len(names), f"{len(served)} frontends made")
+    sampled = {}
+    for cell, tickets in zip(names, served):
+        step = max(1, len(tickets) // SERVE_SAMPLES)
+        rows = [_direct_agrees(ivf, st, t, fails, cell)
+                for t, st in tickets[::step]]
+        sampled[cell] = dict(
+            samples=len(rows), ids_equal=sum(r["same"] for r in rows),
+            ties=sum(r["tie"] for r in rows),
+            padded=sum(r["padded"] > 0 for r in rows),
+            max_score_diff=max((r["diff"] for r in rows), default=0.0))
+    waits = {cell: _pcts([t.waited_ms for t, _ in tickets])
+             for cell, tickets in zip(names, served) if tickets}
+    windows = {t.namespace: st.max_blocks
+               for tickets in served for t, st in tickets}
+    by_rows = {st.index.codes.shape[0]: t.namespace
+               for tickets in served for t, st in tickets}
+    check(len(by_rows) == 2, f"the namespaces' CSRs: {by_rows}")
+    del served
+
+    # the path's kernels on their last operands: ivf_adc at each rung with
+    # (alpha) and without (beta) the staging window, fused_lut at each
+    # miss width, the side pass, the GCD step and rotations, beta's build
+    rows = {}
+    for key in sorted(k for k in seen if k[0] == "ivf_adc"):
+        lut, codes, bi, bq, scales, ids = seen.pop(key)
+        b = lut.shape[0]
+        nm = by_rows[codes.shape[0]]
+        npb = bi.numel() // (b * windows[nm])
+        tag = f"{nm}_np{npb}"
+        errs[f"ivf_adc/serve_{tag}"] = bit_equal(
+            ops.ivf_adc(lut, codes, bi, bq, scales, ids, block_size=BS),
+            ref.ivf_adc_ref(lut, codes, bi, bq, block_size=BS,
+                            scales=scales, ids=ids), f"ivf_adc serve {tag}")
+        work = ivf_work(lut, scales, codes, ids, bi, BS)
+        rows[f"ivf_adc/{tag}"] = dict(
+            namespace=nm, b=b, nprobe=npb, max_blocks=windows[nm],
+            S=bi.numel(), live_rows=work["live_rows"],
+            ms=graph_ms(lambda: ops.ivf_adc(lut, codes, bi, bq, scales, ids,
+                                            block_size=BS), launches=50),
+            plain_ms=graph_ms(lambda: ref.ivf_adc_ref(
+                lut, codes, bi, bq, block_size=BS, scales=scales, ids=ids),
+                launches=5),
+            library_ms=graph_ms(ivf_library(lut, codes, bi, bq, BS),
+                                launches=20),
+            bytes=work["bytes"], flops=work["flops"],
+            bound_ms=work["bound_ms"], bound_by=work["bound_by"])
+    rel = {}
+    widths = []
+    for key in sorted(k for k in seen if k[0] == "fused_lut"):
+        Qm, qd, cb, colmap = seen.pop(key)[:4]
+        widths.append(Qm.shape[0])
+        _hold_fused_lut(f"serve_b{Qm.shape[0]}", Qm, qd, cb, colmap, errs,
+                        rel, fails)
+    args = seen.pop("adc_lookup")
+    errs["adc_lookup/serve_side_pass"] = bit_equal(
+        ops.adc_lookup(*args), ref.adc_lookup_ref(*args),
+        "adc_lookup side pass in serve")
+    side_live = int(torch.sum(args[3] >= 0))
+    G, Rg = seen.pop("gcd_score")
+    got_a = ops.gcd_score(G, Rg)
+    errs["gcd_score/serve"] = compare(got_a, ref.gcd_score_ref(G, Rg),
+                                      GCD_ATOL, 0.0)
+    check(torch.equal(got_a, -got_a.T), "gcd_score serve not antisymmetric")
+    for key in [k for k in seen if k[0] == "givens_rotate"]:
+        rargs = seen.pop(key)
+        errs[f"givens_rotate/serve_{key[1][0]}x{key[1][1]}"] = bit_equal(
+            ops.givens_rotate(*rargs), ref.pair_rotate_ref(*rargs),
+            f"givens_rotate {key[1]} in serve")
+    xa, cba = seen.pop("pq_assign")
+    assign_flips = _assign_flips(xa, cba, ops.pq_assign(xa, cba),
+                                 ref.pq_assign_ref(xa, cba))
+    errs["pq_assign/serve_beta_build"] = assign_flips["max_abs_gap"]
+    del seen, args, G, Rg, got_a, xa, cba
+    for name in ("ivf_adc", "fused_lut", "adc_lookup", "gcd_score",
+                 "givens_rotate", "pq_assign"):
+        if not own.get(name):
+            fails.append(f"kernel {name} was not launched on the serve path")
+
+    # the result through the BENCH writer, outside the checkout
+    with tempfile.TemporaryDirectory() as tmp:
+        path = obs.write_bench(tmp, "torch_serve", sections={"serve": results},
+                               checks=checks, config=dict(
+                                   n=N, dim=DIM, subspaces=D, codewords=K,
+                                   num_lists=L, ladder=SERVE_LADDER,
+                                   **SERVE_TRAFFIC))
+        bench_errs = obs.validate_bench(path)
+        emit("serve_bench", path=path, valid=not bench_errs,
+             errors=bench_errs)
+    if bench_errs:
+        fails.append(f"the serve trajectory is invalid: {bench_errs}")
+
+    emit("serve", n=N, dim=DIM, subspaces=D, codewords=K, num_lists=L,
+         ladder=SERVE_LADDER, **SERVE_TRAFFIC, build_s=t_build,
+         cells_s=t_cells, rate_qps=results["rate_qps"],
+         slo_ms=results["slo_ms"], top_ms=results["top_ms"],
+         checks=held, timing_checks=timing,
+         cells=cells,
+         waited_ms=waits, sampled=sampled,
+         part_ms={p: dict(_pcts(v), n=len(v), total=sum(v))
+                  for p, v in part_ms.items()},
+         launches_by_part=got, expected_launches=want,
+         build_launches=build_own, lut_miss_widths=widths,
+         side_pass_live_rows=side_live, kernels=rows, fused_lut_rel=rel,
+         assign_flips=assign_flips, total_s=time.perf_counter() - t_all,
+         card=smi, fails=fails)
+    check(not fails, "; ".join(fails))
+    return errs, own
+
+
 # -- train ------------------------------------------------------------------
 
 
@@ -2676,14 +3058,16 @@ class _StepTimer:
 
 
 @contextlib.contextmanager
-def _last_call(name: str, into: dict, module=None, by_shape: bool = False):
+def _last_call(name: str, into: dict, module=None, by_shape: bool = False,
+               key=None):
     """Inside the block, keep a copy of the positional operands of the last
     call of ``module.<name>`` (default: ``kernels.ops``; a class for a
     method, whose first operand is then the instance) in ``into[name]``,
     or with ``by_shape`` the last call at each shape of the first operand
-    in ``into[(name, shape)]``; tensors and the tensors of a NamedTuple
-    state copied. The call itself goes on as before and launches (and
-    counts) as it would."""
+    in ``into[(name, shape)]``, or with ``key`` (a function of the
+    operands) the last call at each key in ``into[(name, key)]``; tensors
+    and the tensors of a NamedTuple state copied. The call itself goes on
+    as before and launches (and counts) as it would."""
     import torch
 
     from repro_torch.kernels import ops
@@ -2699,8 +3083,11 @@ def _last_call(name: str, into: dict, module=None, by_shape: bool = False):
         return a
 
     def spy(*args, **kwargs):
-        key = (name, tuple(args[0].shape)) if by_shape else name
-        into[key] = tuple(map(copy, args))
+        if key is not None:
+            at = (name, key(args))
+        else:
+            at = (name, tuple(args[0].shape)) if by_shape else name
+        into[at] = tuple(map(copy, args))
         return real(*args, **kwargs)
 
     setattr(module, name, spy)
@@ -4023,6 +4410,8 @@ def main() -> int:
     errs.update(rq_errs)
     te_errs, paths["train_e2e"] = phase_train_e2e(ctx, smi)
     errs.update(te_errs)
+    serve_errs, paths["serve"] = phase_serve(ctx, smi)
+    errs.update(serve_errs)
     del ctx                          # frees the 1M-row index
     torch.cuda.empty_cache()
     tctx = phase_train(smi)

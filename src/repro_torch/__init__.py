@@ -27,6 +27,9 @@ PQ-compressed KV cache: prefill and decode of the dense LM configs
 ``configs.get``), the cache scored by the ``adc_batch`` kernel. Live
 churn on a single device: staged adds served by an ``adc_lookup`` side
 pass, tombstones, flush, compaction in the foreground or on a worker
-thread, and per-row staleness (``churn``). See ROADMAP.md for what is
-still to be ported.
+thread, and per-row staleness (``churn``). The multi-tenant serving
+front end over the Engine: continuous batching, SLO-adaptive nprobe and
+namespaces sharing one LUT budget (``serve``), with the BENCH trajectory
+writer (``obs.write_bench``). See ROADMAP.md for what is still to be
+ported.
 """

@@ -13,11 +13,21 @@ recall probe.
   * **probes** (``RecallProbe``): pinned-query recall@k replayed through
     the serving path, so a bad refresh shows as lower recall.
 
+  * **bench** (``write_bench``, ``validate_bench``, ``load_bench``,
+    ``bench_path``): the ``BENCH_*.json`` trajectory, one run record
+    appended a benchmark run, in the JAX package's schema.
+
 ``search.Engine`` records its requests on a private, always-on registry
 behind ``stats()``; ``index.maintain.refresh_health`` records the delta
-norm and the orthogonality drift on the global one. The BENCH trajectory
-writer (``obs/bench.py``) waits for a later slice (ROADMAP.md queue 10).
+norm and the orthogonality drift on the global one.
 """
+from repro_torch.obs.bench import (  # noqa: F401
+    SCHEMA as BENCH_SCHEMA,
+    bench_path,
+    load_bench,
+    validate_bench,
+    write_bench,
+)
 from repro_torch.obs.export import (  # noqa: F401
     JsonlSink,
     jsonable,
