@@ -4,8 +4,10 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases, one JSON line each:
-  env      the card (nvidia-smi name and power limit), torch and CUDA
-           versions, and the build of the CUDA kernels from csrc/;
+  env      the card (nvidia-smi name and power limit), the cards the
+           process sees (torch.cuda.device_count() and nvidia-smi -L),
+           torch and CUDA versions, and the build of the CUDA kernels from
+           csrc/;
   main     the serving slice at the two-tower-retrieval index width
            (n = 256, D = 32, K = 256, L = 1024) over N = 1,000,000 vectors:
            learn R with GCD steps, build the IVF-PQ index, serve ragged
@@ -253,7 +255,33 @@ Phases, one JSON line each:
            tables staged in two chunks), on Dp = 16 with r = 3 and S not a
            multiple of a block's rows, timed beside its plain version, its
            bound and one F.embedding_bag over per-group offsets; pq_assign
-           on the last token's last encode (16 rows), timed.
+           on the last token's last encode (16 rows), timed;
+  lm_train LM training on the port at olmo-1b's full width (16 layers,
+           d_model 2048, bf16, 1.28B parameters), the card freed between
+           its two arms. The kvq arm mirrors launch/cells.py's LM train
+           cell: long_500k's KVQuantConfig(128, 16, 256) with
+           train_kv_quant, forward_train with remat, _opt_cfg_for's
+           optimizer (AdamW lr 3e-4, clip 1.0, float32 moments, GCD-G at
+           lr 1e-3 on the stacked kvq/rot_k and rot_v), LMT_STEPS steps of
+           seeded lm_batch tokens at train_4k's sequence (4,096), batch 8
+           as two microbatches (cut: train_4k's 256 with accumulation 8 is
+           a pod's batch). Held: losses finite and the last below the
+           first, every layer's R moved and orthogonal within the bf16
+           bound lm_orth_bound, the launches exactly as the path implies
+           (lm_train_launches), and pq_assign, gcd_score and givens_rotate
+           on the last step's operands against their plain versions,
+           timed beside their bounds and library calls. Reported: step
+           ms p50 / p95, tokens/s, the device split by CUDA events, peak
+           memory, the loss and KV-term trajectories, ‖R − I‖_F, and the
+           trained and the initial kvq leaves through serve_prefill (4,096
+           tokens) and 8 serve_decode tokens on a PQ cache against a dense
+           one (top-1 agreement; its launches checked). The launcher arm:
+           launch.train("olmo-1b", full=True, batch 32, 8 steps), then the
+           same job stopped after 4 with a checkpoint under build/ and
+           resumed, under deterministic algorithms; the final loss held
+           within rtol 1e-4 of the straight run's, no kernel launched
+           (dense), the parameters' bit-equality, the checkpoint's bytes
+           and save / restore seconds and the free disk reported.
 Every check raises on failure, so the script exits non-zero with the error;
 it also exits non-zero without a CUDA device. The last three lines are the
 nvidia-smi line, the per-kernel JSON summary and the device JSON. A
@@ -264,7 +292,8 @@ their deltas); churn's attach, first search and both runs' steps; rq's
 build, serving, flat scan, refresh and fused Engine; train_e2e's three
 arms; serve's build of beta and its five frontends;
 train's parts; table1's run; fig4's and fig2's runs;
-decode's prefill and greedy tokens. The
+decode's prefill and greedy tokens; lm_train's kvq steps, and its decode
+of the trained and initial leaves. The
 checks that run beside them in a phase's window are left out.
 """
 from __future__ import annotations
@@ -493,6 +522,29 @@ SPLIT_REPS = 5                     # repetitions of the per-layer split
 DECODE_KERNELS = ("adc_batch", "pq_assign")
 
 
+# lm_train phase (cut to fit a run; see the module docstring)
+LMT_ARCH, LMT_SHAPE = "olmo-1b", "long_500k"
+LMT_SEQ, LMT_BATCH, LMT_ACCUM, LMT_STEPS = 4096, 8, 2, 12
+LMT_LR, LMT_ROT_LR = 3e-4, 1e-3   # launch/cells.py _opt_cfg_for (< 50B)
+#: the launcher arm: launch.train's job, then the same job stopped after
+#: LMT_STOP_AFTER steps and resumed; JAX's rtol on the final loss
+LMT_LAUNCH_STEPS, LMT_LAUNCH_BATCH, LMT_STOP_AFTER = 8, 32, 4
+LMT_RESUME_RTOL = 1e-4
+#: bf16's unit roundoff: a bf16 rotation leaf is R rounded entrywise
+BF16_U = 2.0 ** -8
+LMT_PROMPT, LMT_DECODE_TOKENS = 4096, 8
+LMT_KERNELS = ("pq_assign", "gcd_score", "givens_rotate")
+
+
+def lm_orth_bound(steps: int) -> float:
+    """The orthogonality bound of a bf16-stored R after ``steps`` GCD steps
+    from the identity (ROADMAP.md, parity hazards): each step rotates the
+    stored R in float32 (its Gram unchanged, to float32 rounding) and
+    rounds every entry to bf16, |F_ij| ≤ u·|Q_ij|, which moves each entry
+    of RᵀR − I by at most (2u + u²)(1 + e): e_T ≤ (1 + u)^(2T) − 1; plus
+    1e-5 for the float32 products."""
+    return (1.0 + BF16_U) ** (2 * steps) - 1.0 + 1e-5
+
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -603,9 +655,12 @@ def phase_env():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     smi = smi.splitlines()[0]
+    cards = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                           text=True, check=True).stdout.strip().splitlines()
     t0 = time.perf_counter()
     _build.library()
     emit("env", nvidia_smi=smi, torch=torch.__version__,
+         device_count=torch.cuda.device_count(), nvidia_smi_L=cards,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
          allow_tf32_cudnn=torch.backends.cudnn.allow_tf32,
@@ -4389,6 +4444,387 @@ def phase_decode_kernels(ctx: dict) -> dict:
     return rows, errs
 
 
+# -- lm_train ----------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _recorded(module, name: str, into: list):
+    """Inside the block, every result of ``module.<name>`` is appended
+    (detached) to ``into``; the call goes on as before."""
+    real = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        into.append(out.detach())
+        return out
+
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def lm_train_config():
+    """olmo-1b at full width with the PQ KV cache of long_500k
+    (KVQuantConfig(128, 16, 256)) and the distortion term in the loss."""
+    from repro_torch import configs
+
+    cfg = configs.get(LMT_ARCH).config_for_shape(LMT_SHAPE)
+    check(cfg.kv_quant is not None, f"{LMT_SHAPE} sets no kv_quant")
+    return cfg._replace(train_kv_quant=True)
+
+
+def lm_opt_config(cfg):
+    """``launch/cells.py`` ``_opt_cfg_for`` below 50B parameters: AdamW lr
+    3e-4, clip 1.0, float32 moments and update, GCD-G at lr 1e-3 on the
+    rotations; accumulation LMT_ACCUM (train_4k's 8 is a pod's batch)."""
+    import torch
+
+    from repro_torch import rotations
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import optimizer as opt_lib
+
+    check(tfm.num_params(cfg) <= 50e9, "lm_train takes the < 50B optimizer")
+    return opt_lib.OptimizerConfig(
+        lr=LMT_LR, grad_clip=1.0, moment_dtype=torch.float32,
+        compute_dtype=torch.float32, accum_steps=LMT_ACCUM,
+        accum_dtype=torch.float32,
+        rotation=rotations.RotationConfig(learner="gcd", method="greedy",
+                                          lr=LMT_ROT_LR))
+
+
+def lm_train_launches(cfg, steps: int) -> dict:
+    """What ``steps`` KV-quantised train steps launch: per layer and
+    microbatch, pq_assign for K and for V in the forward and again in the
+    remat's recompute; per step, one gcd_score and one givens_rotate per
+    layer of each of rot_k and rot_v."""
+    L = cfg.num_layers
+    remat = 2 if cfg.remat else 1
+    return {"pq_assign": steps * LMT_ACCUM * L * 2 * remat,
+            "gcd_score": steps * 2 * L, "givens_rotate": steps * 2 * L}
+
+
+def _lm_agreement(params, kvq, cfg, prompt) -> dict:
+    """PQ against a dense cache on one prompt, both fed the dense path's
+    greedy tokens (LMT_DECODE_TOKENS of them), with the ``kvq`` leaves
+    given: top-1 agreement and the largest logit gap per token."""
+    from repro_torch.models import transformer as tfm
+
+    p = dict(params, kvq=kvq)
+    dense_cfg = cfg._replace(kv_quant=None, train_kv_quant=False)
+    short = prompt.shape[1] + LMT_DECODE_TOKENS
+    lp, cp = tfm.serve_prefill(p, prompt, cfg, max_len=short)
+    ld, cd = tfm.serve_prefill(p, prompt, dense_cfg, max_len=short)
+    agree, gaps = [], []
+    for _ in range(LMT_DECODE_TOKENS):
+        tok = ld.argmax(-1)
+        lp, cp = tfm.serve_decode(p, tok, cp, cfg)
+        ld, cd = tfm.serve_decode(p, tok, cd, dense_cfg)
+        agree.append(bool((lp.argmax(-1) == ld.argmax(-1)).all()))
+        gaps.append(float((lp - ld).abs().max()))
+    return dict(top1_agree=agree, top1_share=sum(agree) / len(agree),
+                max_logit_gap=gaps)
+
+
+def _lm_kvq_arm(smi: str, errs: dict) -> tuple[dict, dict, dict]:
+    """The KV-quantised train step at olmo-1b's full width: LMT_STEPS steps
+    of (LMT_BATCH, LMT_SEQ) tokens, launches exact, then the kernels at
+    these shapes against their plain versions, timed, and the trained
+    leaves through a PQ decode. Returns (the phase's fields, the kernel
+    rows, the path's launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import device, rotations
+    from repro_torch.core import kv_quant
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import train_state as ts
+
+    cfg = lm_train_config()
+    ocfg = lm_opt_config(cfg)
+    L, hd = cfg.num_layers, cfg.head_dim
+    t_all = time.perf_counter()
+    g = device.generator(SEED + 40)
+    params = tfm.init_params(g, cfg)
+    for leaf in opt_lib.named_leaves(params).values():
+        leaf.requires_grad_(True)
+    kvq0 = {k: v.detach().clone() for k, v in params["kvq"].items()}
+    state = ts.init_state(device.generator(SEED + 41), params, ocfg)
+    timer = _StepTimer()
+    step = ts.make_train_step(
+        lambda p, a, b: tfm.forward_train(p, a, b, cfg), ocfg, marks=timer)
+    data = device.generator(SEED + 42)
+    losses, host_ms, dist_terms, seen = [], [], [], {}
+    launches: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    for i in range(LMT_STEPS):
+        tok, lab = synthetic.lm_batch(data, LMT_BATCH, LMT_SEQ,
+                                      cfg.vocab_size)
+        dists: list = []
+        with contextlib.ExitStack() as spies:
+            spies.enter_context(_recorded(kv_quant, "kv_distortion", dists))
+            if i == LMT_STEPS - 1:
+                for name in LMT_KERNELS:
+                    spies.enter_context(_last_call(name, seen,
+                                                   by_shape=True))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            timer.start()
+            with _counted(launches):
+                state, m = step(state, tok, lab)
+                torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        # the mean of the layers' terms over the microbatches; the remat's
+        # recompute stops once the backward has what it needs, before its
+        # call returns, so only the forward's calls are recorded
+        dist_terms.append(float(sum(dists)) / len(dists))
+    peak = torch.cuda.max_memory_allocated()
+    split = timer.split_ms()
+    check(all(math.isfinite(v) for v in losses), f"lm_train losses {losses}")
+    check(losses[-1] < losses[0], f"lm_train loss did not fall: {losses}")
+    want = lm_train_launches(cfg, LMT_STEPS)
+    _expect("lm_train kvq steps", launches, want)
+    bound = lm_orth_bound(LMT_STEPS)
+    leaves = {}
+    for key in ("rot_k", "rot_v"):
+        R = params["kvq"][key].detach()
+        check(R.dtype == cfg.param_dtype, f"{key} dtype {R.dtype}")
+        eye = torch.eye(hd, device=R.device)
+        orth = [float(rotations.orthogonality_error(r.float())) for r in R]
+        moved = [float(torch.linalg.norm(r.float() - eye)) for r in R]
+        check(all(v > 0 for v in moved), f"{key}: a layer's R did not move "
+              f"({moved})")
+        check(max(orth) <= bound, f"{key}: orthogonality {max(orth)} beyond "
+              f"the bf16 bound {bound}")
+        leaves[key] = dict(max_orth_err=max(orth), orth_err=orth,
+                           fro_from_identity=moved)
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      list(state.opt_state.mu.values())
+                      + list(state.opt_state.nu.values()))
+    train_s = time.perf_counter() - t_all
+    tokens = LMT_BATCH * LMT_SEQ
+    pct = _pcts(host_ms[1:])
+    fields = dict(
+        config=cfg.name, shape=LMT_SHAPE, layers=L, d_model=cfg.d_model,
+        heads=cfg.num_heads, kv_heads=cfg.num_kv_heads, head_dim=hd,
+        d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+        kv_quant=cfg.kv_quant._asdict(), dtype=str(cfg.dtype),
+        num_params=tfm.num_params(cfg), remat=cfg.remat,
+        optimizer=dict(name=ocfg.name, lr=ocfg.lr, grad_clip=ocfg.grad_clip,
+                       moment_dtype=str(ocfg.moment_dtype),
+                       warmup_steps=ocfg.warmup_steps,
+                       rotation=ocfg.rotation._asdict()),
+        cuts=dict(seq=LMT_SEQ, batch=LMT_BATCH, accum_steps=LMT_ACCUM,
+                  train_4k="global batch 256 with accumulation 8 is a "
+                           "pod's batch", steps=LMT_STEPS,
+                  weights="seeded init"),
+        losses=losses, kv_dist_per_layer=dist_terms,
+        step_host_ms=host_ms, step_host_ms_after_first=pct,
+        tokens_per_s=tokens / (pct["p50"] / 1e3) if pct.get("p50") else None,
+        device_split_ms=split, peak_memory_bytes=peak,
+        moment_bytes=state_bytes, rotations=leaves, orth_bound=bound,
+        launches=launches, train_s=train_s)
+    del state, m, step
+    torch.cuda.empty_cache()
+
+    # the kernels at this path's shapes, against their plain versions
+    held = _hold_rotation_kernels("lm_train", seen, errs)
+    rows = _lm_kernel_rows(seen)
+    fields["kernels_held"] = held
+    del seen
+
+    # reported only: the trained leaves through a PQ decode
+    before = dict(ops.LAUNCHES)
+    prompt = torch.from_numpy(np.random.default_rng(SEED + 43).integers(
+        0, cfg.vocab_size, (1, LMT_PROMPT))).to(params["embed"].device)
+    with torch.no_grad():
+        trained = {k: v.detach() for k, v in params["kvq"].items()}
+        fields["decode"] = dict(
+            prompt=LMT_PROMPT, tokens=LMT_DECODE_TOKENS,
+            trained=_lm_agreement(params, trained, cfg, prompt),
+            initial=_lm_agreement(params, kvq0, cfg, prompt))
+    decode_launches = _launch_delta(before)
+    per_run = {"pq_assign": 2 * L * (LMT_DECODE_TOKENS + 1),
+               "adc_batch": L * LMT_DECODE_TOKENS}
+    _expect("lm_train decode", decode_launches,
+            {k: 2 * v for k, v in per_run.items()})
+    fields["decode"]["launches"] = decode_launches
+    fields["seconds"] = time.perf_counter() - t_all
+    del params, kvq0, trained
+    torch.cuda.empty_cache()
+    return fields, rows, dict(kvq=launches, decode=decode_launches)
+
+
+def _lm_kernel_rows(seen: dict) -> dict:
+    """pq_assign, gcd_score and givens_rotate on the kvq arm's last call at
+    each shape: device ms per launch, the plain version's, the bound and
+    a library call computing the same function (none for pq_assign)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    rows = {}
+    for (name, shape), args in sorted(seen.items()):
+        tag = f"{name}_lm_train_{'x'.join(map(str, shape))}"
+        if name == "pq_assign":
+            X, C = args
+            m, n = X.shape
+            D, K, sub = C.shape
+            nbytes = m * n * 4 + D * K * sub * 4 + m * D * 4
+            flops = 2 * m * n * K
+            rows[tag] = dict(
+                shape=dict(m=m, n=n, D=D, K=K, sub=sub),
+                ms=graph_ms(lambda: ops.pq_assign(X, C), launches=100),
+                plain_ms=graph_ms(lambda: ref.pq_assign_ref(X, C),
+                                  launches=20),
+                bytes=nbytes, flops=flops, **_bound(nbytes, flops),
+                library_ms=None)
+        elif name == "gcd_score":
+            G, R = args
+            n = G.shape[0]
+            lhs = torch.cat([G, -R], dim=0).T.contiguous()
+            rhs = torch.cat([R, G], dim=0).contiguous()
+            check(torch.allclose(torch.matmul(lhs, rhs),
+                                 ref.gcd_score_ref(G, R), atol=GCD_ATOL),
+                  "gcd_score's library yardstick computes another function")
+            nbytes, flops = 3 * n * n * 4, 2 * n ** 3 + n * n
+            rows[tag] = dict(
+                shape=dict(n=n),
+                ms=graph_ms(lambda: ops.gcd_score(G, R), launches=100),
+                plain_ms=graph_ms(lambda: ref.gcd_score_ref(G, R),
+                                  launches=100),
+                bytes=nbytes, flops=flops, **_bound(nbytes, flops),
+                library_ms=graph_ms(lambda: torch.matmul(lhs, rhs),
+                                    launches=100))
+        else:
+            X, pi, pj, c, s = args
+            m, n = X.shape
+            p = pi.shape[0]
+            dense = ref.pair_rotate_ref(torch.eye(n, device=X.device), pi,
+                                        pj, c, s)
+            check(torch.allclose(X @ dense, ref.pair_rotate_ref(
+                X, pi, pj, c, s), atol=1e-6), "givens_rotate's library "
+                "yardstick computes another function")
+            nbytes, flops = 2 * m * n * 4 + 4 * p * 4, 6 * m * p
+            rows[tag] = dict(
+                shape=dict(m=m, n=n, pairs=p),
+                ms=graph_ms(lambda: ops.givens_rotate(X, pi, pj, c, s),
+                            launches=100),
+                plain_ms=graph_ms(lambda: ref.pair_rotate_ref(X, pi, pj, c,
+                                                              s),
+                                  launches=100),
+                bytes=nbytes, flops=flops, **_bound(nbytes, flops),
+                library_ms=graph_ms(lambda: torch.matmul(X, dense),
+                                    launches=100))
+    return rows
+
+
+def _lm_ckpt_dir() -> Path:
+    return Path(__file__).resolve().parent / "build" / "lm_train_ckpt"
+
+
+def _lm_launcher_arm(smi: str) -> dict:
+    """``launch.train`` on olmo-1b at full width: the job straight, then
+    stopped after LMT_STOP_AFTER steps with a checkpoint and resumed, under
+    deterministic algorithms; the final losses held within
+    LMT_RESUME_RTOL, no kernel launched (a dense config), the checkpoint's
+    bytes and seconds reported."""
+    import shutil
+
+    import torch
+
+    from repro_torch.bench import common
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import optimizer as opt_lib
+
+    d = _lm_ckpt_dir()
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    free0 = shutil.disk_usage(d).free
+    kw = dict(steps=LMT_LAUNCH_STEPS, batch=LMT_LAUNCH_BATCH, full=True,
+              seed=SEED, log_every=LMT_LAUNCH_STEPS)
+    io_ms: dict = {}
+    launches: dict = {}
+    t_all = time.perf_counter()
+    try:
+        with common.deterministic(), _counted(launches):
+            t0 = time.perf_counter()
+            state_a, hist_a = launch.train(LMT_ARCH, ckpt_dir=None, **kw)
+            torch.cuda.synchronize()
+            straight_s = time.perf_counter() - t0
+            want = {k: v.detach().cpu() for k, v in
+                    opt_lib.named_leaves(state_a.params).items()}
+            del state_a
+            torch.cuda.empty_cache()
+            with _timed_calls(ckpt, ("save", "restore"), io_ms):
+                t0 = time.perf_counter()
+                _, hist_c = launch.train(LMT_ARCH, ckpt_dir=str(d),
+                                         stop_after=LMT_STOP_AFTER, **kw)
+                stopped_s = time.perf_counter() - t0
+                step_dir = d / f"step_{LMT_STOP_AFTER:010d}"
+                ckpt_bytes = sum(f.stat().st_size
+                                 for f in step_dir.iterdir())
+                free_after_save = shutil.disk_usage(d).free
+                torch.cuda.empty_cache()
+                t0 = time.perf_counter()
+                state_b, hist_b = launch.train(LMT_ARCH, ckpt_dir=str(d),
+                                               **kw)
+                torch.cuda.synchronize()
+                resumed_s = time.perf_counter() - t0
+        got = opt_lib.named_leaves(state_b.params)
+        bit_equal = all(torch.equal(got[k].detach().cpu(), v)
+                        for k, v in want.items())
+        del state_b, got, want
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.empty_cache()
+    check(len(hist_a) == LMT_LAUNCH_STEPS and len(hist_c) == LMT_STOP_AFTER
+          and len(hist_b) == LMT_LAUNCH_STEPS - LMT_STOP_AFTER,
+          f"launcher step counts {len(hist_a)}, {len(hist_c)}, {len(hist_b)}")
+    check(all(math.isfinite(v) for v in hist_a + hist_b),
+          f"launcher losses {hist_a} {hist_b}")
+    rel = abs(hist_b[-1] - hist_a[-1]) / abs(hist_a[-1])
+    check(rel <= LMT_RESUME_RTOL, f"resumed final loss {hist_b[-1]} is "
+          f"{rel} from the straight run's {hist_a[-1]}")
+    _expect("launcher (dense olmo-1b)", launches, {})
+    return dict(steps=LMT_LAUNCH_STEPS, batch=LMT_LAUNCH_BATCH,
+                seq=launch.LM_SEQ, stop_after=LMT_STOP_AFTER,
+                losses_straight=hist_a, losses_stopped=hist_c,
+                losses_resumed=hist_b, final_rel_diff=rel,
+                params_bit_equal=bit_equal, deterministic=True,
+                checkpoint_bytes=ckpt_bytes, disk_free_before=free0,
+                disk_free_after_save=free_after_save,
+                save_ms=io_ms.get("save"), restore_ms=io_ms.get("restore"),
+                straight_s=straight_s, stopped_s=stopped_s,
+                resumed_s=resumed_s, launches=launches,
+                seconds=time.perf_counter() - t_all)
+
+
+def phase_lm_train(smi: str) -> tuple[dict, dict, dict]:
+    """LM training on the port at olmo-1b's full width: the kvq arm (the
+    kernels' path), then the launcher arm (the users' entry point), the
+    card freed between. Returns (kernel rows, errors, launches by
+    path)."""
+    import torch
+
+    errs: dict = {}
+    kvq, rows, launches = _lm_kvq_arm(smi, errs)
+    torch.cuda.empty_cache()
+    launcher = _lm_launcher_arm(smi)
+    emit("lm_train", kvq=kvq, launcher=launcher, kernels=rows,
+         max_abs_err=errs, card=smi)
+    return rows, errs, launches
+
+
 def main() -> int:
     import torch
 
@@ -4433,6 +4869,11 @@ def main() -> int:
     errs.update(decode_errs)
     paths["decode"] = dctx["main_launches"]
     del dctx
+    torch.cuda.empty_cache()
+    lm_rows, lm_errs, lm_paths = phase_lm_train(smi)
+    errs.update(lm_errs)
+    paths["lm_train"] = lm_paths["kvq"]
+    paths["lm_train_decode"] = lm_paths["decode"]
     summary = []
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]

@@ -7,10 +7,12 @@ from repro_torch.configs import (
     olmo_1b,
     paper_twotower,
     qwen1_5_4b,
+    two_tower_retrieval,
 )
 from repro_torch.configs.base import ArchSpec, Shape  # noqa: F401
 
-_MODULES = [qwen1_5_4b, olmo_1b, nemotron_4_340b, paper_twotower]
+_MODULES = [qwen1_5_4b, olmo_1b, nemotron_4_340b, two_tower_retrieval,
+            paper_twotower]
 
 REGISTRY: dict[str, ArchSpec] = {m.ARCH.arch_id: m.ARCH for m in _MODULES}
 

@@ -180,25 +180,40 @@ def twotower_params_from_numpy(arrays: dict, cfg: recsys.TwoTowerConfig, *,
 def opt_state_from_numpy(arrays: dict, cfg: opt_lib.OptimizerConfig, *,
                          device=None) -> opt_lib.OptState:
     """An ``OptState`` on ``device`` from the JAX one: ``mu`` and ``nu``
-    (path key -> array), ``step``, and ``rot`` (path key -> the learner
-    state's fields: ``R`` and ``step`` for every learner, and GCD's
-    ``accum`` and ``accum2``). A field the learner's state lacks is an
-    error; one the arrays lack keeps the fresh state's value."""
+    (path key -> array, kept in ``cfg.moment_dtype``), ``step``, and
+    ``rot`` (path key -> the learner state's fields: ``R`` and ``step``
+    for every learner, and GCD's ``accum`` and ``accum2``; a stacked
+    (L, n, n) ``R`` with every field stacked on L, as the JAX package's
+    vmapped state). A field the learner's state lacks is an error; one the
+    arrays lack keeps the fresh state's value."""
     dev = _device.resolve(device)
     learner = rot_lib.from_config(cfg.rotation)
-    rot = {}
-    for k, fields in arrays.get("rot", {}).items():
+
+    def one(fields: dict, k: str):
         st = learner.init_from(_t(fields["R"], dev, np.float32))
         extra = sorted(set(fields) - set(st._fields))
         if extra:
             raise KeyError(f"opt_state_from_numpy {k}: {extra} are not "
                            f"fields of {type(st).__name__}")
-        rot[k] = st._replace(**{
+        return st._replace(**{
             f: _t(fields[f], dev, np.int32 if f == "step" else np.float32)
             for f in st._fields if f != "R" and f in fields})
+
+    rot = {}
+    for k, fields in arrays.get("rot", {}).items():
+        if np.ndim(fields["R"]) == 3:
+            rot[k] = opt_lib.stack_states([
+                one({f: np.asarray(a)[i] for f, a in fields.items()}, k)
+                for i in range(np.shape(fields["R"])[0])])
+        else:
+            rot[k] = one(fields, k)
+
+    def moment(a):
+        return _leaf(a, dev, cfg.moment_dtype)
+
     return opt_lib.OptState(
-        mu={k: _t(v, dev, np.float32) for k, v in arrays["mu"].items()},
-        nu={k: _t(v, dev, np.float32) for k, v in arrays["nu"].items()},
+        mu={k: moment(v) for k, v in arrays["mu"].items()},
+        nu={k: moment(v) for k, v in arrays["nu"].items()},
         rot=rot, step=int(np.asarray(arrays["step"])))
 
 

@@ -1,5 +1,5 @@
-"""Synthetic data (port of ``repro/data/synthetic.py``: ``sift_like`` and
-the ``ClickLog`` of the two-tower experiments).
+"""Synthetic data (port of ``repro/data/synthetic.py``: ``sift_like``,
+the LM's ``lm_batch`` and the ``ClickLog`` of the two-tower experiments).
 
 A torch generator draws other numbers than a JAX key of the same seed, so
 the port's vectors match the JAX package's in distribution only. The click
@@ -41,6 +41,26 @@ def sift_like(generator: torch.Generator, num: int, dim: int,
         rows = torch.nonzero(assign == c).squeeze(1)
         out[rows] = (z[rows] * scales[c]) @ qs[c] + means[c]
     return out
+
+
+#: Zipf exponent of the LM token ids (the JAX package's logits −1.1·log r)
+LM_ZIPF = 1.1
+
+
+def lm_batch(generator: torch.Generator, batch: int, seq: int, vocab: int):
+    """Zipf(1.1) token ids: id t is drawn with probability ∝ (t + 1)^−1.1,
+    at (batch, seq + 1) on the generator's device, by inverting the
+    float64 CDF at uniform draws. Returns (tokens, labels), each
+    (batch, seq) int64, labels the next-token shift of the same row (the
+    JAX package returns int32)."""
+    dev = torch.device(generator.device)
+    ranks = torch.arange(1, vocab + 1, dtype=torch.float64, device=dev)
+    p = ranks ** -LM_ZIPF
+    cdf = torch.cumsum(p / p.sum(), dim=0)
+    u = torch.rand((batch, seq + 1), generator=generator,
+                   dtype=torch.float64, device=dev)
+    ids = torch.clamp(torch.searchsorted(cdf, u, right=True), max=vocab - 1)
+    return ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
 
 
 class ClickLog:

@@ -1,7 +1,11 @@
-"""Decoder-only transformer LM, the serving half (port of
-``repro/models/transformer.py``): dense and GQA variants with a dense or a
+"""Decoder-only transformer LM (port of ``repro/models/transformer.py``):
+dense and GQA variants, trained, and served with a dense or a
 PQ-compressed KV cache.
 
+  forward_train   tokens → mean cross-entropy, plus the KV-PQ distortion
+                  term when ``cfg.train_kv_quant`` (the paper's Eq. (1)
+                  second term on each layer's K/V stream, through the
+                  per-layer ``kvq`` rotations and codebooks)
   serve_prefill   tokens → last-token logits + a cache of ``max_len``
                   positions (dense, or PQ codes when ``cfg.kv_quant`` is set)
   serve_decode    one token in, one token's logits out; the cache is
@@ -9,6 +13,14 @@ PQ-compressed KV cache.
 
 Parameters carry a leading layer axis as in the JAX package, and the layers
 run as a Python loop over those stacked leaves (the JAX package scans).
+``forward_train`` unbinds each stacked leaf once, so the backward stacks
+the layers' gradients in one step. With ``cfg.remat`` each layer runs
+under ``torch.utils.checkpoint``: the backward keeps only the layer's
+input and recomputes the rest, the JAX package's full remat. The JAX
+package's ``scan_groups`` (a two-level scan that keeps only every group's
+boundary) changes what its backward saves, never the loss; on one card
+the port keeps every layer's boundary and reads ``scan_groups`` nowhere.
+
 The cache is updated in place: a decode step writes the new position into
 the cache's own tensors and returns a cache holding those same tensors,
 because a functional copy would move the whole cache (4.3 GB of codes for
@@ -20,16 +32,17 @@ dense path's ``layers.decode_attention`` does. The JAX package adds the
 float32 output to a bf16 residual, which its layer scan rejects (a carry of
 another dtype); in float32 the cast is a no-op (ROADMAP.md §3).
 
-MoE (``models/moe.py``) and the training forward are later slices: a config
-with ``moe`` raises NotImplementedError. ``rules``, ``remat``,
-``scan_groups`` and the other sharding and training fields are kept for
-them and not read on one card.
+MoE (``models/moe.py``) is a later slice: a config with ``moe`` raises
+NotImplementedError, so the MoE auxiliary loss of ``forward_train`` is 0
+here. ``rules``, ``scan_groups`` and the other sharding fields are kept
+for the sharded slices and not read on one card.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch import device as _device
 from repro_torch.core import kv_quant
@@ -143,6 +156,18 @@ def _layer(tree: dict | None, i: int) -> dict | None:
             for k, v in tree.items()}
 
 
+def _unstack(tree: dict | None, n: int) -> list:
+    """The n layer slices of a stacked (nested) leaf dict, each leaf
+    unbound once along its layer axis (its backward stacks the layers'
+    gradients in one step, where n separate slices would each add a
+    full-size gradient); [None] * n for None."""
+    if tree is None:
+        return [None] * n
+    parts = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
 def _kvq_params(kvq_l: dict | None) -> kv_quant.KVQuantParams | None:
     if kvq_l is None:
         return None
@@ -193,6 +218,71 @@ def _final_norm(params, x, cfg: TransformerConfig):
 
 def _logits(params, x: torch.Tensor) -> torch.Tensor:
     return x.float() @ params["head"].float().T
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+#: K/V positions of each layer the distortion term samples (the first ones)
+KV_DIST_POSITIONS = 64
+
+
+def _layer_train(x, lp, cfg: TransformerConfig, positions, kvq_l):
+    """One layer over the full sequence (``repro/models/transformer.py``
+    ``_layer_train``). Returns (x, the layer's KV distortion, float32; 0
+    without ``train_kv_quant``)."""
+    B, S = x.shape[:2]
+    h = _norm(lp, "ln1", x, cfg)
+    q, k, v = _qkv(lp, h, cfg, positions)
+    att = layers.blockwise_attention(q, k, v, q_chunk=cfg.q_chunk)
+    att = att.reshape(B, S, cfg.num_heads * cfg.head_dim)
+    x = x + att @ lp["attn"]["wo"].to(x.dtype)
+    x = x + _ffn(lp, _norm(lp, "ln2", x, cfg), cfg)
+    if cfg.train_kv_quant and kvq_l is not None:
+        n = min(KV_DIST_POSITIONS, S)
+        ks = k[:, :n].reshape(-1, cfg.head_dim)
+        vs = v[:, :n].reshape(-1, cfg.head_dim)
+        return x, kv_quant.kv_distortion(_kvq_params(kvq_l), ks, vs)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward_train(params, tokens: torch.Tensor, labels: torch.Tensor,
+                  cfg: TransformerConfig) -> torch.Tensor:
+    """tokens/labels (B, S) → the scalar float32 training loss:
+    mean cross-entropy (``layers.softmax_xent_chunked`` over
+    ``cfg.xent_chunk`` tokens) + 0.01·aux/L (aux, the MoE load loss, is 0
+    for a dense config) + 0.1·dist/L when ``cfg.train_kv_quant`` and the
+    params hold ``kvq``. dist sums each layer's ``kv_quant.kv_distortion``
+    over the first min(64, S) positions of its post-RoPE K and its V, so
+    the gradient reaches ``kvq/rot_k``, ``rot_v``, ``cb_k`` and ``cb_v``
+    (the assignment carries none). Each layer runs under
+    ``torch.utils.checkpoint`` when ``cfg.remat`` (the module docstring);
+    its distortion term, and with it the ``pq_assign`` launches, is then
+    computed again in the backward."""
+    _dense_only(cfg)
+    B, S = tokens.shape
+    L = cfg.num_layers
+    x = params["embed"][tokens.long()].to(cfg.dtype)
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    layer_p = _unstack(params["layers"], L)
+    kvq_p = _unstack(params.get("kvq"), L)
+    dist = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(L):
+        if cfg.remat:
+            x, d = _ckpt.checkpoint(_layer_train, x, layer_p[i], cfg,
+                                    positions, kvq_p[i], use_reentrant=False,
+                                    preserve_rng_state=False)
+        else:
+            x, d = _layer_train(x, layer_p[i], cfg, positions, kvq_p[i])
+        dist = dist + d
+    x = _final_norm(params, x, cfg)
+    loss = layers.softmax_xent_chunked(
+        x.reshape(B * S, cfg.d_model), params["head"], labels.reshape(-1),
+        chunk=cfg.xent_chunk)
+    if cfg.train_kv_quant and "kvq" in params:
+        loss = loss + 0.1 * dist / L
+    return loss
 
 
 # ---------------------------------------------------------------------------

@@ -24,11 +24,30 @@ reach, like the index layer during warm-up) gets a zero one, as every leaf
 does under ``jax.grad``: its moments decay, weight decay moves it, and a
 rotation goes through its learner all the same.
 
-The numerical constants are rounded to float32 as the JAX package's
-weak-typed float32 arithmetic rounds them. Gradient accumulation
+Parameters may also be a nested dict (the transformer's
+``layers/attn/wq``), flattened to the same path keys. The update is
+computed in ``compute_dtype`` (the gradient cast to it before the clip)
+and cast back to the parameter's dtype; the moments are stored in
+``moment_dtype`` whatever the parameter's dtype, as in the JAX package.
+Where all three are one dtype, the leaf is updated in place without a
+copy. The numerical constants are rounded to the compute dtype as the JAX
+package's weak-typed arithmetic rounds them. ``global_norm`` accumulates
+in float32 for half-precision gradients.
+
+A stacked (L, n, n) rotation (the per-layer KV rotations ``kvq/rot_k``,
+``kvq/rot_v``) keeps one learner state stacked on the leading L axis, the
+layout of the JAX package's vmapped state, so a checkpoint of either
+package reads in the other; the update runs layer by layer through the
+learner (and its kernels), a random learner taking its draws for each
+layer in turn from the one generator, and ``update_with_deltas`` returns
+the layers' deltas stacked on L. A rotation stored in bfloat16 is
+re-synced into the learner in float32 each step (the givens_rotate kernel
+takes float32) and the moved R is rounded back into the bf16 leaf; the
+learner state keeps float32 R where the JAX package keeps the leaf's
+dtype (ROADMAP.md, parity hazards). Gradient accumulation
 (``accum_steps``, ``accum_dtype``) lives in ``training.train_state``.
-Adafactor, bf16 moments and stacked (L, n, n) rotations wait for a later
-slice (ROADMAP.md).
+Adafactor waits for a later slice: ``name="adafactor"`` raises
+(``ADAFACTOR_LATER``).
 """
 from __future__ import annotations
 
@@ -41,6 +60,8 @@ from torch import nn
 from repro_torch import rotations as rot_lib
 
 MANIFOLD_LEAVES = ("R", "rot_k", "rot_v")
+ADAFACTOR_LATER = ("Adafactor is not ported yet (ROADMAP.md queue 1, "
+                   "item 14b)")
 
 
 class OptimizerConfig(NamedTuple):
@@ -56,6 +77,9 @@ class OptimizerConfig(NamedTuple):
     rotation: rot_lib.RotationConfig = rot_lib.RotationConfig()
     schedule: str = "cosine"         # cosine | constant
     accum_dtype: torch.dtype = torch.float32
+    name: str = "adamw"              # adamw (adafactor: a later slice)
+    moment_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.float32
 
 
 class OptState(NamedTuple):
@@ -75,21 +99,73 @@ def is_manifold(key: str) -> bool:
 
 
 def named_leaves(params) -> dict[str, torch.Tensor]:
-    """Parameters keyed by their JAX path keys."""
+    """Parameters keyed by their JAX path keys (a nested dict's keys
+    joined by ``/``)."""
     if isinstance(params, nn.Module):
         return {path_key(n): p for n, p in params.named_parameters()}
-    return dict(params)
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(tree: dict, prefix: str) -> None:
+        for k, v in tree.items():
+            key = f"{prefix}/{k}" if prefix else str(k)
+            if isinstance(v, dict):
+                walk(v, key)
+            else:
+                out[key] = v
+
+    walk(params, "")
+    return out
+
+
+def _check_name(cfg: OptimizerConfig) -> None:
+    if cfg.name == "adafactor":
+        raise NotImplementedError(ADAFACTOR_LATER)
+    if cfg.name != "adamw":
+        raise ValueError(f"unknown optimizer {cfg.name!r}")
+
+
+def stack_states(states: list):
+    """One learner state from per-layer states, every field stacked on a
+    new leading axis (the layout of a vmapped JAX state)."""
+    return type(states[0])(*(torch.stack(f) for f in zip(*states)))
+
+
+def layer_state(state, i: int):
+    """Layer i's learner state out of a stacked one."""
+    return type(state)(*(f[i] for f in state))
+
+
+def _stack_deltas(deltas: list):
+    first = deltas[0]
+    if isinstance(first, rot_lib.DenseDelta):
+        return rot_lib.DenseDelta(dR=torch.stack([d.dR for d in deltas]))
+    return rot_lib.GivensDelta(
+        pi=torch.stack([d.pi for d in deltas]),
+        pj=torch.stack([d.pj for d in deltas]),
+        theta=torch.stack([d.theta for d in deltas]),
+        overlapping=first.overlapping)
+
+
+def _init_rot_leaf(learner, p: torch.Tensor):
+    """The learner state of one manifold leaf, stacked for (L, n, n)."""
+    R = p.detach().float().clone()
+    if R.dim() == 3:
+        return stack_states([learner.init_from(r) for r in R])
+    return learner.init_from(R)
 
 
 def init(params, cfg: OptimizerConfig) -> OptState:
+    _check_name(cfg)
     leaves = named_leaves(params)
     learner = rot_lib.from_config(cfg.rotation)
+
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+
     return OptState(
-        mu={k: torch.zeros_like(p, memory_format=torch.contiguous_format)
-            for k, p in leaves.items()},
-        nu={k: torch.zeros_like(p, memory_format=torch.contiguous_format)
-            for k, p in leaves.items()},
-        rot={k: learner.init_from(p.detach().clone())
+        mu={k: zeros(p) for k, p in leaves.items()},
+        nu={k: zeros(p) for k, p in leaves.items()},
+        rot={k: _init_rot_leaf(learner, p)
              for k, p in leaves.items() if is_manifold(k)},
         step=0)
 
@@ -115,10 +191,15 @@ def schedule_lr(cfg: OptimizerConfig, step: int) -> float:
 
 def global_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:
     """√(Σ over leaves of ⟨g, g⟩), float32, on the gradients' device; one
-    dot product per leaf, so no squared copy of the table is made."""
+    dot product per leaf, so no squared copy of the table is made. A
+    half-precision leaf is widened to float32 first, so its sum
+    accumulates in float32 (as the JAX package's
+    ``preferred_element_type``), not in the leaf's dtype."""
     total = None
     for g in grads.values():
         g = g.reshape(-1)
+        if g.dtype in (torch.bfloat16, torch.float16):
+            g = g.float()
         sq = torch.dot(g, g)
         total = sq if total is None else total + sq
     if total is None:
@@ -126,28 +207,67 @@ def global_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _cst(x, dtype: torch.dtype) -> float:
+    """A constant rounded to ``dtype``, as the JAX package's
+    ``jnp.asarray(x, dtype)`` and weak-typed arithmetic round it."""
+    return float(torch.tensor(float(x), dtype=torch.float64).to(dtype))
+
+
 def _adamw_leaf(cfg, p, g, mu, nu, lr: float, b1c: float, b2c: float):
-    """One AdamW leaf in place; ``g`` is the clipped gradient (consumed)."""
-    b1, b2 = _f32(cfg.beta1), _f32(cfg.beta2)
-    mu.mul_(float(b1)).add_(g * float(_f32(1.0) - b1))
+    """One AdamW leaf; ``g`` is the clipped gradient in the compute dtype
+    (consumed). The moments are updated in the compute dtype and stored
+    in theirs, the parameter likewise; where the dtypes agree, in place."""
+    cdt = cfg.compute_dtype
+    b1, b2 = _cst(cfg.beta1, cdt), _cst(cfg.beta2, cdt)
+    m = mu if mu.dtype == cdt else mu.to(cdt)
+    v = nu if nu.dtype == cdt else nu.to(cdt)
+    m.mul_(b1).add_(g * _cst(1.0 - b1, cdt))
     tmp = g * g
-    nu.mul_(float(b2)).add_(tmp.mul_(float(_f32(1.0) - b2)))
-    torch.div(nu, b2c, out=tmp).sqrt_().add_(float(_f32(cfg.eps)))
-    upd = torch.div(mu, b1c, out=g).div_(tmp)
+    v.mul_(b2).add_(tmp.mul_(_cst(1.0 - b2, cdt)))
+    torch.div(v, _cst(b2c, cdt), out=tmp).sqrt_().add_(_cst(cfg.eps, cdt))
+    upd = torch.div(m, _cst(b1c, cdt), out=g).div_(tmp)
+    if m is not mu:
+        mu.copy_(m)
+        nu.copy_(v)
     if cfg.weight_decay > 0:
-        upd.add_(p * float(_f32(cfg.weight_decay)))
-    p.sub_(upd.mul_(lr))
+        upd.add_(p.to(cdt) * _cst(cfg.weight_decay, cdt))
+    upd.mul_(_cst(lr, cdt))
+    if p.dtype == cdt:
+        p.sub_(upd)
+    else:
+        p.copy_(p.to(cdt).sub_(upd))
+
+
+def _rotation_leaf(learner, cfg, p, g, st, generator):
+    """One manifold leaf: (new learner state, delta), p written in place.
+    A stacked (L, n, n) leaf goes layer by layer and comes back stacked."""
+    lr = cfg.rotation.lr
+    if p.dim() == 3:
+        states, deltas = [], []
+        for i in range(p.shape[0]):
+            s_i = learner.with_rotation(layer_state(st, i), p[i].float())
+            s_i, d_i = learner.update(s_i, g[i], lr, generator)
+            p[i].copy_(learner.materialize(s_i))
+            states.append(s_i)
+            deltas.append(d_i)
+        return stack_states(states), _stack_deltas(deltas)
+    st = learner.with_rotation(st, p.detach().float())
+    st2, delta = learner.update(st, g, lr, generator)
+    p.copy_(learner.materialize(st2))
+    return st2, delta
 
 
 def _update_impl(grads, state: OptState, params, cfg: OptimizerConfig,
                  generator: torch.Generator | None = None,
                  marks: Callable[[str], None] | None = None):
+    _check_name(cfg)
     leaves = named_leaves(params)
     step = state.step
     lr = schedule_lr(cfg, step)
     t = _f32(step + 1)
     b1c = float(_f32(1.0) - _f32(cfg.beta1) ** t)
     b2c = float(_f32(1.0) - _f32(cfg.beta2) ** t)
+    cdt = cfg.compute_dtype
     learner = rot_lib.from_config(cfg.rotation)
     rot_n = dict(state.rot)
     deltas: dict[str, Any] = {}
@@ -158,13 +278,13 @@ def _update_impl(grads, state: OptState, params, cfg: OptimizerConfig,
         if cfg.grad_clip > 0:
             clip = torch.clamp(
                 cfg.grad_clip / torch.clamp(global_norm(grads), min=1e-9),
-                max=1.0)
+                max=1.0).to(cdt)
 
         def clipped(k):
-            g = grads[k]
+            g = grads[k].to(cdt)
             return g.mul_(clip) if clip is not None else g
 
-        for k, g in grads.items():
+        for k in grads:
             if not is_manifold(k):
                 _adamw_leaf(cfg, leaves[k], clipped(k), state.mu[k],
                             state.nu[k], lr, b1c, b2c)
@@ -172,13 +292,9 @@ def _update_impl(grads, state: OptState, params, cfg: OptimizerConfig,
             marks("adamw")
         for k in grads:
             if is_manifold(k):
-                p = leaves[k]
-                st = learner.with_rotation(state.rot[k], p.detach())
-                st2, delta = learner.update(st, clipped(k),
-                                            cfg.rotation.lr, generator)
-                p.copy_(learner.materialize(st2))
-                rot_n[k] = st2
-                deltas[k] = delta
+                rot_n[k], deltas[k] = _rotation_leaf(
+                    learner, cfg, leaves[k], clipped(k), state.rot[k],
+                    generator)
         if marks is not None:
             marks("rotation")
     return params, OptState(mu=state.mu, nu=state.nu, rot=rot_n,
@@ -202,5 +318,6 @@ def update_with_deltas(grads: dict[str, torch.Tensor], state: OptState,
                        generator: torch.Generator | None = None,
                        marks: Callable[[str], None] | None = None):
     """``update`` that also returns ``{path key: RotationDelta}`` for the
-    manifold leaves, for a live index to absorb."""
+    manifold leaves, for a live index to absorb (a stacked leaf's deltas
+    stacked on its leading layer axis)."""
     return _update_impl(grads, state, params, cfg, generator, marks)
