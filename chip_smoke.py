@@ -146,8 +146,9 @@ Phases, one JSON line each:
            1,500 requests, load 1.1, SLO 4× the top rung's bucket time,
            admission 2 ms, buckets of 16, a cross-subspace GCD refresh of
            alpha every 200 arrivals, 30% warm-up), one trace replayed by
-           the three fixed cells and the adaptive one after a calibration
-           frontend. Held: the script's five non-timing checks, both built
+           the three fixed cells and the adaptive one after three
+           calibration frontends (the median top-rung time sets the
+           rate). Held: the script's five non-timing checks, both built
            states bit-equal after the cells, SERVE_SAMPLES served tickets
            a cell equal to a direct IVF.search of the row at the rung it
            was served at on the state that served it (ids, or a float32
@@ -281,7 +282,41 @@ Phases, one JSON line each:
            resumed, under deterministic algorithms; the final loss held
            within rtol 1e-4 of the straight run's, no kernel launched
            (dense), the parameters' bit-equality, the checkpoint's bytes
-           and save / restore seconds and the free disk reported.
+           and save / restore seconds and the free disk reported;
+  moe      MoE on the port at full width and MOE_LAYERS layers
+           (models/moe.py, the dense/MoE interleave, moe_chunk, Adafactor),
+           the card freed between the architectures. moe_block in float32
+           against a plain per-token reference in float64 (the same
+           float32 routing; each (token, choice) in order takes its
+           expert's next slot while one is left), within MOE_RTOL of the
+           largest entry: at grok-1's width (d 6,144, d_ff 32,768, 8
+           experts, top-2) on 512 tokens, and at llama4's 128 experts
+           (top-1) on 4,096 tokens at capacity factor 0.5, so about half
+           of them drop (d_ff cut to 1,024: 8,192 in float32 is 64 GB).
+           grok-1-314b (2 of its 64 layers, bf16, 11.45e9 parameters):
+           serve_prefill of prefill_32k's 32,768 tokens at batch 1 into a
+           dense cache with moe_chunk 16,384 (two chunks; the shape's
+           131,072 would need 21.5 GB (E·C, d_ff) buffers), no kernel; 6
+           train steps of train_4k's 4,096 tokens at batch 1
+           (accumulation 1: the 16 is ROADMAP 14d) with the KV term of
+           long_500k's KVQuantConfig(128, 16, 256),
+           launch.cells._opt_cfg_for's Adafactor in bf16 and GCD-G on
+           the stacked kvq rotations, under deterministic algorithms (the
+           loss falls, every R moved and within lm_orth_bound, launches
+           exact); then the decode phase's PQ path on the trained weights:
+           a 4,096-token prompt, the KV codebooks fitted per layer, 524,288
+           positions filled by tiling, 4 greedy tokens, compressed against
+           dense attention on the last layer, and PQ against a dense cache
+           of 32,768 positions (top-1 agreement, largest logit gap).
+           llama4-maverick-400b-a17b (2 of 48 layers: one dense/MoE block,
+           128 experts, 18.43e9 parameters): the prefill (one chunk) and
+           the decode; it does not train on one card (parameters and
+           gradients alone are 73.7 GB). A memory reckoning is printed
+           before each arm and the peak after it; each MoE call's route /
+           dispatch / experts / combine split (CUDA events), its entries
+           over capacity and aux; pq_assign, gcd_score, givens_rotate and
+           adc_batch held against their plain versions at every shape the
+           phase launched them at, and timed.
 Every check raises on failure, so the script exits non-zero with the error;
 it also exits non-zero without a CUDA device. The last three lines are the
 nvidia-smi line, the per-kernel JSON summary and the device JSON. A
@@ -290,16 +325,17 @@ with the split by path: serving's learn, build, serve and refresh; the
 Engine's attach, requests and refreshes (with the learner steps that give
 their deltas); churn's attach, first search and both runs' steps; rq's
 build, serving, flat scan, refresh and fused Engine; train_e2e's three
-arms; serve's build of beta and its five frontends;
+arms; serve's build of beta and its seven frontends;
 train's parts; table1's run; fig4's and fig2's runs;
 decode's prefill and greedy tokens; lm_train's kvq steps, and its decode
-of the trained and initial leaves. The
-checks that run beside them in a phase's window are left out.
+of the trained and initial leaves; moe's PQ prefills, greedy tokens and
+train steps. The checks that run beside them in a phase's window are left out.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import math
 import statistics
@@ -534,6 +570,28 @@ LMT_RESUME_RTOL = 1e-4
 BF16_U = 2.0 ** -8
 LMT_PROMPT, LMT_DECODE_TOKENS = 4096, 8
 LMT_KERNELS = ("pq_assign", "gcd_score", "givens_rotate")
+
+
+# moe phase (cut to fit a run; see the module docstring)
+MOE_ARCHS = ("grok-1-314b", "llama4-maverick-400b-a17b")
+MOE_TRAIN_ARCH = "grok-1-314b"     # llama4's params and grads are 73.7 GB
+MOE_LAYERS = 2                     # 64 and 48 layers are 630 and 800 GB
+MOE_SEQ = 32768                    # prefill_32k's sequence, at batch 1
+#: prefill_32k's moe_chunk (131,072) cut so grok's prefill runs two chunks
+MOE_CHUNK = {"grok-1-314b": 16384}
+MOE_PROMPT, MOE_DECODE_TOKENS = 4096, 4
+MOE_PQ_LEN = 524288                # long_500k's PQ cache
+MOE_DENSE_LEN = 32768              # the dense cache beside it
+MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 4096, 6   # train_4k's sequence at batch 1
+MOE_CHECK_TOKENS = 512
+MOE_RTOL = 1e-4                    # moe_block vs float64: of the largest
+#: the 128-expert check: factor 0.5 over 4,096 tokens gives 16 slots an
+#: expert for 32 tokens on average, so about half drop (512 tokens would
+#: get the floor of 8 slots for 4 and drop almost none); d_ff 8,192 in
+#: float32 would be 64 GB
+MOE_DROP_FACTOR, MOE_DROP_TOKENS, MOE_CHECK_FF = 0.5, 4096, 1024
+MOE_PARTS = ("route", "dispatch", "experts", "combine")
+MOE_KERNELS = ("pq_assign", "adc_batch", "gcd_score", "givens_rotate")
 
 
 def lm_orth_bound(steps: int) -> float:
@@ -2907,7 +2965,7 @@ def phase_serve(ctx: dict, smi: str):
     before = {nm: {p: v.clone() for p, v in _state_tensors(c["state"])
                    .items()} for nm, c in corpora.items()}
 
-    # the path: the calibration frontend, three fixed cells and the
+    # the path: the calibration frontends, three fixed cells and the
     # adaptive one, on one trace
     parts, part_ms, submits, served = {}, {}, {}, []
     t0 = time.perf_counter()
@@ -2929,7 +2987,7 @@ def phase_serve(ctx: dict, smi: str):
     launches = {k: v for k, v in ops.LAUNCHES.items() if v}
     cells = results["cells"]
 
-    # the states given to the five frontends are left as they were built
+    # the states given to the seven frontends are left as they were built
     for nm, c in corpora.items():
         now = _state_tensors(c["state"])
         if now.keys() != before[nm].keys() or not all(
@@ -2965,8 +3023,8 @@ def phase_serve(ctx: dict, smi: str):
                      f"the cells count {ticks}")
 
     # sampled tickets against direct searches on the state that served them
-    names = ["calibration"] + [f"fixed_np{r}" for r in SERVE_LADDER] + [
-        "adaptive"]
+    names = ([f"calibration{i}" for i in range(sl.CALIBRATIONS)]
+             + [f"fixed_np{r}" for r in SERVE_LADDER] + ["adaptive"])
     check(len(served) == len(names), f"{len(served)} frontends made")
     sampled = {}
     for cell, tickets in zip(names, served):
@@ -3063,6 +3121,7 @@ def phase_serve(ctx: dict, smi: str):
          ladder=SERVE_LADDER, **SERVE_TRAFFIC, build_s=t_build,
          cells_s=t_cells, rate_qps=results["rate_qps"],
          slo_ms=results["slo_ms"], top_ms=results["top_ms"],
+         top_ms_samples=results["top_ms_samples"],
          checks=held, timing_checks=timing,
          cells=cells,
          waited_ms=waits, sampled=sampled,
@@ -4345,11 +4404,48 @@ def phase_decode(smi: str) -> dict:
                 codes=codes, assign_X=assign_X, assign_C=assign_C)
 
 
+def _adc_batch_row(lut, codes) -> dict:
+    """adc_batch at (lut, codes): device ms per launch, its plain
+    version's, the bound, and one F.embedding_bag computing the same
+    function (held to BATCH_RTOL of it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    dev = codes.device
+    gq, r, Dp, K = lut.shape
+    S = codes.shape[1]
+    k_ms = graph_ms(lambda: ops.adc_batch(lut, codes), launches=20)
+    p_ms = graph_ms(lambda: ref.adc_batch_ref(lut, codes), launches=2)
+    # the library yardstick: one embedding_bag, each (group, row) a bag of
+    # its Dp entries of a (g·Dp·K, r) table, the group's offset g·Dp·K
+    # added to its codes; the int32 index tensor is made outside the call
+    offs = (torch.arange(gq, device=dev, dtype=torch.int32)[:, None, None]
+            * (Dp * K)
+            + torch.arange(Dp, device=dev, dtype=torch.int32) * K)
+    bag = (codes.int() + offs).reshape(gq * S, Dp)
+    table = lut.permute(0, 2, 3, 1).reshape(gq * Dp * K, r).contiguous()
+    lib = functools.partial(F.embedding_bag, bag, table, mode="sum")
+    want = ref.adc_batch_ref(lut, codes)
+    lib_err = float((lib().reshape(gq, S, r).permute(0, 2, 1) - want).abs()
+                    .max()) / float(want.abs().max())
+    check(lib_err <= BATCH_RTOL, f"library yardstick computes another "
+          f"function (relative error {lib_err})")
+    del want
+    lib_ms = graph_ms(lib, launches=5)
+    del bag, table, lib, offs
+    nbytes = codes.numel() + gq * r * S * 4 + lut.numel() * 4
+    flops = gq * r * S * Dp
+    return dict(shape=dict(g=gq, r=r, Dp=Dp, K=K, S=S), ms=k_ms,
+                plain_ms=p_ms, bytes=nbytes, flops=flops,
+                **_bound(nbytes, flops), library_ms=lib_ms)
+
+
 def phase_decode_kernels(ctx: dict) -> dict:
     """adc_batch against its plain version on the decode's operands and on
     other geometries, timed beside its bound and a library call."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
 
@@ -4383,27 +4479,7 @@ def phase_decode_kernels(ctx: dict) -> dict:
                       f"error {rel}")
                 errs[f"adc_batch/{name}/{dt}"] = err
             del got, want
-    gq, r, Dp, K = lut.shape
-    S = codes.shape[1]
-    k_ms = graph_ms(lambda: ops.adc_batch(lut, codes), launches=20)
-    p_ms = graph_ms(lambda: ref.adc_batch_ref(lut, codes), launches=2)
-    # the library yardstick: one embedding_bag, each (group, row) a bag of
-    # its Dp entries of a (g·Dp·K, r) table, the group's offset g·Dp·K
-    # added to its codes; the int32 index tensor is made outside the call
-    offs = (torch.arange(gq, device=dev, dtype=torch.int32)[:, None, None]
-            * (Dp * K)
-            + torch.arange(Dp, device=dev, dtype=torch.int32) * K)
-    bag = (codes.int() + offs).reshape(gq * S, Dp)
-    table = lut.permute(0, 2, 3, 1).reshape(gq * Dp * K, r).contiguous()
-    lib = functools.partial(F.embedding_bag, bag, table, mode="sum")
-    want = ref.adc_batch_ref(lut, codes)
-    lib_err = float((lib().reshape(gq, S, r).permute(0, 2, 1) - want).abs()
-                    .max()) / float(want.abs().max())
-    check(lib_err <= BATCH_RTOL, f"library yardstick computes another "
-          f"function (relative error {lib_err})")
-    del want
-    lib_ms = graph_ms(lib, launches=5)
-    del bag, table, lib, offs
+    row = _adc_batch_row(lut, codes)
     extra = {}
     for dt in ("int8", "uint8"):
         lv, sc = ops.quantize_luts(lut, dt)
@@ -4431,14 +4507,9 @@ def phase_decode_kernels(ctx: dict) -> dict:
         ms=graph_ms(lambda: ops.pq_assign(Xa, Ca), launches=100),
         plain_ms=graph_ms(lambda: ref.pq_assign_ref(Xa, Ca), launches=100),
         bytes=a_bytes, flops=a_flops, **_bound(a_bytes, a_flops))
-    nbytes = codes.numel() + gq * r * S * 4 + lut.numel() * 4
-    flops = gq * r * S * Dp
     rows = {"adc_batch": dict(
-        shape=dict(g=gq, r=r, Dp=Dp, K=K, S=S), ms=k_ms, plain_ms=p_ms,
-        bytes=nbytes, flops=flops, **_bound(nbytes, flops),
-        library_ms=lib_ms,
-        max_abs_err=max(v for key, v in errs.items()
-                        if key.startswith("adc_batch/")))}
+        **row, max_abs_err=max(v for key, v in errs.items()
+                               if key.startswith("adc_batch/")))}
     emit("decode_kernels", max_abs_err=errs, kernels=rows, extra=extra,
          launches=ctx["launches"], card=torch.cuda.get_device_name(0))
     return rows, errs
@@ -4662,8 +4733,8 @@ def _lm_kvq_arm(smi: str, errs: dict) -> tuple[dict, dict, dict]:
     return fields, rows, dict(kvq=launches, decode=decode_launches)
 
 
-def _lm_kernel_rows(seen: dict) -> dict:
-    """pq_assign, gcd_score and givens_rotate on the kvq arm's last call at
+def _lm_kernel_rows(seen: dict, phase: str = "lm_train") -> dict:
+    """pq_assign, gcd_score and givens_rotate on a phase's last call at
     each shape: device ms per launch, the plain version's, the bound and
     a library call computing the same function (none for pq_assign)."""
     import torch
@@ -4672,7 +4743,7 @@ def _lm_kernel_rows(seen: dict) -> dict:
 
     rows = {}
     for (name, shape), args in sorted(seen.items()):
-        tag = f"{name}_lm_train_{'x'.join(map(str, shape))}"
+        tag = f"{name}_{phase}_{'x'.join(map(str, shape))}"
         if name == "pq_assign":
             X, C = args
             m, n = X.shape
@@ -4825,6 +4896,563 @@ def phase_lm_train(smi: str) -> tuple[dict, dict, dict]:
     return rows, errs, launches
 
 
+# -- moe ---------------------------------------------------------------------
+
+
+class _MoESpy:
+    """Inside ``with``, every ``moe.moe_block`` call runs with a CUDA event
+    at each of its marks; ``split_ms`` gives each call's parts in ms, the
+    entries over capacity and aux (read after the arm, one sync)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+
+        self._real = real = moe.moe_block
+
+        def spy(x, router_w, wi, wg, wo, cfg, *, activation, marks=None):
+            events = []
+
+            def mark(name):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events.append((name, ev))
+
+            mark("start")
+            out, aux = real(x, router_w, wi, wg, wo, cfg,
+                            activation=activation, marks=mark)
+            with torch.no_grad():
+                over = moe.dropped(moe.route(x, router_w, cfg)[2], cfg,
+                                   x.shape[0])
+            self.calls.append(dict(tokens=x.shape[0], events=events,
+                                   aux=aux.detach(), dropped=over))
+            return out, aux
+
+        moe.moe_block = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.moe_block = self._real
+        return False
+
+    def report(self) -> dict:
+        """Per call: tokens, each part's ms, dropped entries, aux; and the
+        median of each part over the calls. Clears the calls."""
+        import torch
+
+        torch.cuda.synchronize()
+        calls = []
+        for c in self.calls:
+            ev = c["events"]
+            calls.append(dict(
+                tokens=c["tokens"], dropped=int(c["dropped"]),
+                aux=float(c["aux"]),
+                **{name: a.elapsed_time(b)
+                   for (_, a), (name, b) in zip(ev, ev[1:])}))
+        self.calls = []
+        med = {p: statistics.median(c[p] for c in calls) for p in MOE_PARTS} \
+            if calls else {}
+        return dict(calls=len(calls), median_ms=med, per_call=calls)
+
+
+def _moe_reference(x, router_w, wi, wg, wo, cfg, activation: str):
+    """The plain per-token MoE: the float32 routing of ``moe.route``, then
+    a loop over the tokens and their k choices in order, each (token,
+    choice) taking its expert's next slot while slots remain (the stable
+    sort's order), each expert's kept tokens through its products in
+    float64, weighted by their gates and summed. Returns (out float64,
+    dropped entries)."""
+    import torch
+
+    from repro_torch.models import layers, moe
+
+    T, d = x.shape
+    C = moe.capacity(T, cfg)
+    _, gates, ids = moe.route(x, router_w, cfg)
+    used = [0] * cfg.num_experts
+    kept: dict[int, list] = {}
+    dropped = 0
+    for t, row in enumerate(ids.tolist()):
+        for j, e in enumerate(row):
+            if used[e] < C:
+                used[e] += 1
+                kept.setdefault(e, []).append((t, j))
+            else:
+                dropped += 1
+    out = torch.zeros((T, d), dtype=torch.float64, device=x.device)
+    x64, g64 = x.double(), gates.double()
+    for e, pairs in kept.items():
+        tt = torch.tensor([t for t, _ in pairs], device=x.device)
+        jj = torch.tensor([j for _, j in pairs], device=x.device)
+        xe = x64[tt]
+        h = layers.activate(xe @ wi[e].double(), activation)
+        if wg is not None:
+            h = h * (xe @ wg[e].double())
+        out.index_add_(0, tt, (h @ wo[e].double()) * g64[tt, jj][:, None])
+    return out, dropped
+
+
+def _moe_block_check(name: str, T: int, d: int, f: int, cfg,
+                     activation: str, glu: bool, errs: dict) -> dict:
+    """moe_block in float32 on T seeded tokens against
+    ``_moe_reference``: within MOE_RTOL of the largest entry, the same
+    entries dropped, aux against its float64 value."""
+    import torch
+
+    from repro_torch import device
+    from repro_torch.models import moe
+
+    g = device.generator(SEED + 60)
+    E = cfg.num_experts
+
+    def w(*shape):
+        return torch.randn(shape, generator=g, device=g.device) / math.sqrt(
+            shape[-2])
+
+    x = torch.randn((T, d), generator=g, device=g.device)
+    router, wi, wo = w(d, E), w(E, d, f), w(E, f, d)
+    wg = w(E, d, f) if glu else None
+    out, aux = moe.moe_block(x, router, wi, wg, wo, cfg,
+                             activation=activation)
+    want, dropped = _moe_reference(x, router, wi, wg, wo, cfg, activation)
+    err = float((out.double() - want).abs().max())
+    rel = err / float(want.abs().max())
+    check(rel <= MOE_RTOL, f"moe_block {name}: {rel} of the largest entry "
+          "from its plain per-token reference")
+    probs, _, ids = moe.route(x, router, cfg)
+    density = torch.nn.functional.one_hot(ids[:, 0], E).double().mean(0)
+    aux64 = float((density * probs.double().mean(0)).sum() * E)
+    check(abs(float(aux) - aux64) <= 1e-5 * abs(aux64),
+          f"moe_block {name}: aux {float(aux)} against {aux64}")
+    errs[f"moe_block/{name}"] = err
+    return dict(tokens=T, d_model=d, d_ff=f, experts=E, top_k=cfg.top_k,
+                capacity_factor=cfg.capacity_factor,
+                capacity=moe.capacity(T, cfg), dropped=dropped,
+                entries=T * cfg.top_k, max_abs_err=err, rel=rel,
+                aux=float(aux), aux_float64=aux64)
+
+
+def _moe_reckoning(cfg, arm: str, tokens: int) -> dict:
+    """What an arm should hold at its peak, in bytes, from the shapes:
+    the bf16 parameters, and per arm the gradients, the float32 logits
+    chunk and its gradient, the caches, one MoE layer's dispatch buffers
+    (E·C rows of d and of d_ff in bf16: xe, ye, and h, g, their product
+    and, in training, the recompute's copies) and a query chunk's float32
+    attention scores."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+
+    E, f, d = cfg.moe.num_experts, cfg.d_ff, cfg.d_model
+    T = min(tokens, cfg.moe_chunk) if cfg.moe_chunk else tokens
+    rows = E * moe.capacity(T, cfg.moe)
+    terms = dict(params=2 * tfm.num_params(cfg),
+                 dispatch=rows * (2 * d + 4 * f) * 2)
+    if arm == "train":
+        terms["grads"] = terms["params"]
+        terms["logits_chunk"] = 2 * 4 * min(tokens, cfg.xent_chunk) \
+            * cfg.vocab_size
+        terms["dispatch"] *= 2
+    else:
+        L, Hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+        terms["attention_chunk"] = 4 * cfg.num_heads * cfg.q_chunk * tokens
+        if arm == "decode":
+            terms["pq_cache"] = 2 * L * Hkv * MOE_PQ_LEN \
+                * cfg.kv_quant.num_subspaces
+            terms["dense_cache"] = 2 * 2 * L * Hkv * MOE_DENSE_LEN * hd
+        else:
+            terms["dense_cache"] = 2 * 2 * L * Hkv * tokens * hd
+    return dict(terms=terms, total=sum(terms.values()))
+
+
+def _moe_plan(arch: str, arm: str, cfg, tokens: int) -> int:
+    """Print an arm's memory reckoning and reset the peak; returns the
+    reckoned bytes."""
+    import torch
+
+    plan = _moe_reckoning(cfg, arm, tokens)
+    emit("moe_plan", arch=arch, arm=arm, layers=cfg.num_layers,
+         gb={k: v / 1e9 for k, v in plan["terms"].items()},
+         total_gb=plan["total"] / 1e9)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return plan["total"]
+
+
+def _moe_layers(cfg) -> int:
+    return cfg.num_layers // 2 if cfg.interleaved else cfg.num_layers
+
+
+def _moe_prefill(arch: str, params, cfg, spy: _MoESpy) -> dict:
+    """serve_prefill of MOE_SEQ seeded tokens at batch 1 into a dense
+    cache; no kernel launches; every MoE layer runs once a chunk."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    tok = torch.from_numpy(np.random.default_rng(SEED + 64).integers(
+        0, cfg.vocab_size, (1, MOE_SEQ))).to(params["embed"].device)
+    reckoned = _moe_plan(arch, "prefill", cfg, MOE_SEQ)
+    launches: dict = {}
+    with torch.no_grad(), spy, _counted(launches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = tfm.serve_prefill(params, tok, cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    _expect(f"{arch} prefill (dense cache)", launches, {})
+    chunks = (MOE_SEQ // cfg.moe_chunk
+              if cfg.moe_chunk and MOE_SEQ > cfg.moe_chunk else 1)
+    split = spy.report()
+    check(split["calls"] == _moe_layers(cfg) * chunks,
+          f"{arch} prefill: {split['calls']} MoE calls")
+    check(bool(torch.isfinite(logits).all())
+          and logits.shape == (1, cfg.vocab_size), f"{arch} prefill logits")
+    del cache, logits
+    return dict(seq=MOE_SEQ, batch=1, moe_chunk=cfg.moe_chunk, chunks=chunks,
+                host_ms=ms, tokens_per_s=MOE_SEQ / ms * 1e3, moe=split,
+                peak_memory_bytes=peak, reckoned_bytes=reckoned)
+
+
+def _moe_decode(arch: str, params, cfg, g, spy: _MoESpy, seen: dict,
+                adc_seen: dict, main: dict) -> dict:
+    """The PQ cache of long_500k: a MOE_PROMPT-token prompt through a
+    dense prefill, the KV codebooks fitted per layer, the PQ prefill into
+    MOE_PQ_LEN positions filled by tiling, MOE_DECODE_TOKENS greedy
+    tokens (the last over every position), compressed against dense
+    attention on the last layer; then PQ against a dense cache of
+    MOE_DENSE_LEN positions, both fed the dense path's greedy tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import kv_quant
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tfm
+
+    L, S, N = cfg.num_layers, MOE_PQ_LEN, MOE_DECODE_TOKENS
+    dense_cfg = cfg._replace(kv_quant=None)
+    prompt = torch.from_numpy(np.random.default_rng(SEED + 65).integers(
+        0, cfg.vocab_size, (1, MOE_PROMPT))).to(params["embed"].device)
+    reckoned = _moe_plan(arch, "decode", cfg, MOE_PROMPT)
+    fit: dict = {}
+    path: dict = {}
+    agree_l: dict = {}
+    with torch.no_grad():
+        with _counted(fit):
+            dense_logits, dcache = tfm.serve_prefill(params, prompt,
+                                                     dense_cfg)
+            _fit_codebooks(g, params, dcache, cfg)
+        del dcache
+        _expect(f"{arch} codebook fit", fit,
+                {"pq_assign": 2 * L * FIT_ITERS})
+        with _counted(path), _last_call("pq_assign", seen, by_shape=True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = tfm.serve_prefill(params, prompt, cfg,
+                                              max_len=S)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(logits, dense_logits), f"{arch}: the PQ prefill's "
+              "logits differ from the dense prefill's")
+        cache = _tile_prompt_codes(cache, MOE_PROMPT, S - N)
+        tok = logits.argmax(-1)
+        host_ms, out_tokens, att = [], [], {}
+        with spy:
+            for i in range(N):
+                with contextlib.ExitStack() as spies:
+                    if i == N - 1:
+                        spies.enter_context(_last_call(
+                            "adc_batch", adc_seen, key=lambda a: arch))
+                        spies.enter_context(_last_call(
+                            "pq_assign", seen, by_shape=True))
+                        spies.enter_context(_last_call(
+                            "adc_decode_attention", att, module=kv_quant))
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    with _counted(path):
+                        logits, cache = tfm.serve_decode(params, tok, cache,
+                                                         cfg)
+                    torch.cuda.synchronize()
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+                check(bool(torch.isfinite(logits).all()),
+                      f"{arch} decode step {i}: logits")
+                tok = logits.argmax(-1)
+                out_tokens.append(int(tok[0]))
+        split = spy.report()
+        check(int(cache.length[0]) == S, f"{arch} cache length")
+        _expect(f"{arch} PQ prefill and decode", path,
+                {"pq_assign": 2 * L * (N + 1), "adc_batch": L * N})
+        check(split["calls"] == _moe_layers(cfg) * N,
+              f"{arch} decode: {split['calls']} MoE calls")
+        kvp, q, kc, vc, mask = att["adc_decode_attention"]
+        check(bool(mask.all()), "the last token's mask is not all of S")
+        got = kv_quant.adc_decode_attention(kvp, q, kc, vc, mask)
+        khat, vhat = kv_quant.decode_k(kvp, kc), kv_quant.decode_v(kvp, vc)
+        want = layers.decode_attention(q.float(), khat, vhat,
+                                       torch.full((1,), S, device=q.device))
+        attn_err = float((got - want).abs().max())
+        attn_rel = attn_err / float(want.abs().max())
+        check(attn_rel <= ATTN_RTOL, f"{arch}: compressed attention is "
+              f"{attn_rel} (relative) from dense attention")
+        del got, want, khat, vhat, att, cache
+        peak = torch.cuda.max_memory_allocated()
+        with _counted(agree_l):
+            lp, cp = tfm.serve_prefill(params, prompt, cfg,
+                                       max_len=MOE_DENSE_LEN)
+            ld, cd = tfm.serve_prefill(params, prompt, dense_cfg,
+                                       max_len=MOE_DENSE_LEN)
+            agree, gaps = [], []
+            for _ in range(N):
+                nxt = ld.argmax(-1)
+                lp, cp = tfm.serve_decode(params, nxt, cp, cfg)
+                ld, cd = tfm.serve_decode(params, nxt, cd, dense_cfg)
+                agree.append(bool((lp.argmax(-1) == ld.argmax(-1)).all()))
+                gaps.append(float((lp - ld).abs().max()))
+        del cp, cd
+        _expect(f"{arch} PQ against dense", agree_l,
+                {"pq_assign": 2 * L * (N + 1), "adc_batch": L * N})
+    for k, v in path.items():
+        main[k] = main.get(k, 0) + v
+    return dict(prompt=MOE_PROMPT, max_len=S, tiled=[MOE_PROMPT, S - N - 1],
+                decode_tokens=N, tokens=out_tokens, prefill_host_ms=prefill_ms,
+                step_host_ms=host_ms,
+                step_host_ms_median=statistics.median(host_ms), moe=split,
+                attention_vs_dense=dict(max_abs_err=attn_err, rel=attn_rel),
+                pq_vs_dense=dict(max_len=MOE_DENSE_LEN, top1_agree=agree,
+                                 max_logit_gap=gaps),
+                launches=dict(fit=fit, path=path, pq_vs_dense=agree_l),
+                peak_memory_bytes=peak, reckoned_bytes=reckoned)
+
+
+def _moe_train(arch: str, params, cfg, full_cfg, spy: _MoESpy, seen: dict,
+               main: dict) -> dict:
+    """MOE_TRAIN_STEPS steps of (1, MOE_TRAIN_SEQ) seeded tokens with the
+    KV term, ``_opt_cfg_for`` of the full config (Adafactor in bf16) and
+    GCD-G on the stacked kvq rotations, under deterministic algorithms:
+    losses finite and falling, launches exact, every R moved and within
+    the bf16 bound."""
+    import torch
+
+    from repro_torch import device, rotations
+    from repro_torch.bench import common
+    from repro_torch.data import synthetic
+    from repro_torch.launch import cells
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import train_state as ts
+
+    L, hd = cfg.num_layers, cfg.head_dim
+    ocfg = cells._opt_cfg_for(full_cfg)
+    check(ocfg.name == "adafactor" and ocfg.compute_dtype == torch.bfloat16,
+          f"{arch}: _opt_cfg_for gave {ocfg.name}")
+    for leaf in opt_lib.named_leaves(params).values():
+        leaf.requires_grad_(True)
+    reckoned = _moe_plan(arch, "train", cfg, MOE_TRAIN_SEQ)
+    state = ts.init_state(device.generator(SEED + 66), params, ocfg)
+    timer = _StepTimer()
+    part_peaks: dict = {}
+
+    def marks(name: str) -> None:
+        """The step's CUDA event, and the peak memory of the part it
+        ends (forward, backward, the optimizer, rotation)."""
+        timer(name)
+        part_peaks[name] = max(part_peaks.get(name, 0),
+                               torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    step = ts.make_train_step(
+        lambda p, a, b: tfm.forward_train(p, a, b, cfg), ocfg, marks=marks)
+    data = device.generator(SEED + 67)
+    losses, host_ms, launches = [], [], {}
+    split = {}
+    with common.deterministic():
+        for i in range(MOE_TRAIN_STEPS):
+            tok, lab = synthetic.lm_batch(data, 1, MOE_TRAIN_SEQ,
+                                          cfg.vocab_size)
+            with contextlib.ExitStack() as spies:
+                if i == MOE_TRAIN_STEPS - 1:
+                    for name in LMT_KERNELS:
+                        spies.enter_context(_last_call(name, seen,
+                                                       by_shape=True))
+                    spies.enter_context(spy)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                timer.start()
+                with _counted(launches):
+                    state, m = step(state, tok, lab)
+                    torch.cuda.synchronize()
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        split = spy.report()
+    peak = max(torch.cuda.max_memory_allocated(), *part_peaks.values())
+    device_ms = timer.split_ms()
+    check(all(math.isfinite(v) for v in losses), f"{arch} losses {losses}")
+    check(losses[-1] < losses[0], f"{arch} loss did not fall: {losses}")
+    remat = 2 if cfg.remat else 1
+    _expect(f"{arch} train steps", launches,
+            {"pq_assign": MOE_TRAIN_STEPS * L * 2 * remat,
+             "gcd_score": MOE_TRAIN_STEPS * 2 * L,
+             "givens_rotate": MOE_TRAIN_STEPS * 2 * L})
+    check(split["calls"] == _moe_layers(cfg) * remat,
+          f"{arch} train: {split['calls']} MoE calls in the last step")
+    bound = lm_orth_bound(MOE_TRAIN_STEPS)
+    rots = {}
+    for key in ("rot_k", "rot_v"):
+        R = params["kvq"][key].detach()
+        eye = torch.eye(hd, device=R.device)
+        orth = [float(rotations.orthogonality_error(r.float())) for r in R]
+        moved = [float(torch.linalg.norm(r.float() - eye)) for r in R]
+        check(all(v > 0 for v in moved), f"{arch} {key}: a layer's R did "
+              f"not move ({moved})")
+        check(max(orth) <= bound, f"{arch} {key}: orthogonality "
+              f"{max(orth)} beyond the bf16 bound {bound}")
+        rots[key] = dict(max_orth_err=max(orth), fro_from_identity=moved)
+    stat_bytes = sum(t.numel() * t.element_size() for t in
+                     list(state.opt_state.mu.values())
+                     + list(state.opt_state.nu.values()))
+    del state, m, step
+    for leaf in opt_lib.named_leaves(params).values():
+        leaf.requires_grad_(False)
+    torch.cuda.empty_cache()
+    for k, v in launches.items():
+        main[k] = main.get(k, 0) + v
+    pct = _pcts(host_ms[1:])
+    return dict(seq=MOE_TRAIN_SEQ, batch=1, accum_steps=ocfg.accum_steps,
+                steps=MOE_TRAIN_STEPS,
+                optimizer=dict(name=ocfg.name, lr=ocfg.lr,
+                               grad_clip=ocfg.grad_clip,
+                               compute_dtype=str(ocfg.compute_dtype),
+                               warmup_steps=ocfg.warmup_steps,
+                               rotation=ocfg.rotation._asdict()),
+                losses=losses, step_host_ms=host_ms,
+                step_host_ms_after_first=pct,
+                tokens_per_s=(MOE_TRAIN_SEQ / (pct["p50"] / 1e3)
+                              if pct.get("p50") else None),
+                device_split_ms=device_ms, moe=split, rotations=rots,
+                orth_bound=bound, adafactor_stat_bytes=stat_bytes,
+                launches=launches, deterministic=True,
+                peak_memory_bytes=peak, peak_memory_by_part=part_peaks,
+                reckoned_bytes=reckoned)
+
+
+def phase_moe(smi: str) -> tuple[dict, dict, dict]:
+    """MoE on the port at full width and MOE_LAYERS layers: moe_block held
+    to its plain per-token reference at grok-1's width and at llama4's 128
+    experts with tokens dropped; grok-1 prefills MOE_SEQ tokens through
+    two MoE chunks, trains (MOE_TRAIN_ARCH) and decodes with the PQ cache;
+    llama4-maverick prefills and decodes; then the kernels at the shapes
+    this phase launched them at against their plain versions, timed.
+    Returns (kernel rows, errors, the main path's launches)."""
+    import torch
+
+    from repro_torch import configs, device
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+
+    t_all = time.perf_counter()
+    gc.collect()               # earlier phases' tensors held in cycles
+    torch.cuda.empty_cache()
+    at_start = torch.cuda.memory_allocated()
+    errs: dict = {}
+    grok, llama = (configs.get(a).make_config() for a in MOE_ARCHS)
+    blocks = dict(
+        grok_width=_moe_block_check(
+            "grok_width", MOE_CHECK_TOKENS, grok.d_model, grok.d_ff,
+            grok.moe, grok.activation, grok.use_glu, errs),
+        llama4_experts=_moe_block_check(
+            "llama4_128_experts", MOE_DROP_TOKENS, llama.d_model,
+            MOE_CHECK_FF,
+            llama.moe._replace(capacity_factor=MOE_DROP_FACTOR),
+            llama.activation, llama.use_glu, errs))
+    check(blocks["llama4_experts"]["dropped"] > 0,
+          "the 128-expert check dropped no token")
+    torch.cuda.empty_cache()
+
+    seen: dict = {}
+    adc_seen: dict = {}
+    main: dict = {}
+    arms: dict = {}
+    spy = _MoESpy()
+    for arch in MOE_ARCHS:
+        spec = configs.get(arch)
+        full = spec.make_config()
+        base = full._replace(num_layers=MOE_LAYERS)
+        pre_cfg = spec.adjust(base, "prefill_32k")
+        if arch in MOE_CHUNK:
+            pre_cfg = pre_cfg._replace(moe_chunk=MOE_CHUNK[arch])
+        dec_cfg = spec.adjust(base, "long_500k")
+        t0 = time.perf_counter()
+        g = device.generator(SEED + 63)
+        params = tfm.init_params(g, dec_cfg)
+        arm = dict(num_params=tfm.num_params(dec_cfg),
+                   full_num_params=tfm.num_params(full),
+                   init_s=time.perf_counter() - t0)
+        arm["prefill"] = _moe_prefill(arch, params, pre_cfg, spy)
+        if arch == MOE_TRAIN_ARCH:
+            arm["train"] = _moe_train(
+                arch, params, dec_cfg._replace(train_kv_quant=True), full,
+                spy, seen, main)
+        arm["decode"] = _moe_decode(arch, params, dec_cfg, g, spy, seen,
+                                    adc_seen, main)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        arm["allocated_after"] = torch.cuda.memory_allocated()
+        arm["seconds"] = time.perf_counter() - t0
+        arms[arch] = dict(config=dict(
+            layers=MOE_LAYERS, d_model=full.d_model, heads=full.num_heads,
+            kv_heads=full.num_kv_heads, d_ff=full.d_ff,
+            experts=full.moe.num_experts, top_k=full.moe.top_k,
+            moe_every=full.moe_every, vocab=full.vocab_size,
+            dtype=str(full.dtype)), **arm)
+
+    # the kernels at this phase's shapes against their plain versions
+    held = _hold_rotation_kernels("moe", seen, errs)
+    rows = _lm_kernel_rows(seen, "moe")
+    del seen
+    for (_, arch), (lut, codes) in sorted(adc_seen.items()):
+        lut = lut.contiguous()
+        check(torch.equal(ops.adc_batch(lut, codes),
+                          ref.adc_batch_ref(lut, codes)),
+              f"adc_batch at {arch}'s decode is not bit-equal to its plain "
+              "version")
+        errs[f"adc_batch/moe_{arch}"] = 0.0
+        rows[f"adc_batch_moe_{arch}"] = _adc_batch_row(lut, codes)
+    del adc_seen
+    torch.cuda.empty_cache()
+    for name in MOE_KERNELS:
+        check(main.get(name, 0) > 0, f"kernel {name} was not launched on the "
+              "moe path")
+    emit("moe", allocated_at_start=at_start, block_checks=blocks,
+         arms=arms, kernels=rows,
+         kernels_held=held, max_abs_err=errs, launches=main,
+         cuts=dict(layers=f"{MOE_LAYERS} (grok-1 has 64, llama4 48: 630 GB "
+                          "and 800 GB in bf16)",
+                   prefill="batch 1 (prefill_32k's 32 is 1M tokens); "
+                           f"moe_chunk {MOE_CHUNK} (prefill_32k's 131,072 "
+                           "needs (E·C, d_ff) buffers of 21.5 GB for grok)",
+                   decode=f"a {MOE_PROMPT}-token prompt tiled to "
+                          f"{MOE_PQ_LEN} positions, {MOE_DECODE_TOKENS} "
+                          "tokens",
+                   train=f"{MOE_TRAIN_ARCH} only (llama4's parameters and "
+                         "gradients are 73.7 GB), batch 1 at seq "
+                         f"{MOE_TRAIN_SEQ}, accumulation 1 (train_4k's 16 "
+                         f"waits for ROADMAP 14d), {MOE_TRAIN_STEPS} steps",
+                   block_check=f"llama4's 128 experts at d_ff {MOE_CHECK_FF} "
+                               "(8,192 in float32 is 64 GB)",
+                   weights="seeded init"),
+         seconds=time.perf_counter() - t_all, card=smi)
+    return rows, errs, main
+
+
 def main() -> int:
     import torch
 
@@ -4874,6 +5502,9 @@ def main() -> int:
     errs.update(lm_errs)
     paths["lm_train"] = lm_paths["kvq"]
     paths["lm_train_decode"] = lm_paths["decode"]
+    torch.cuda.empty_cache()
+    _, moe_errs, paths["moe"] = phase_moe(smi)
+    errs.update(moe_errs)
     summary = []
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]

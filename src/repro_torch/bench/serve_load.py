@@ -16,9 +16,14 @@ which keep the LUT cache meaningful).
 
 Time is virtual (``serve.VirtualClock``): queueing unfolds on the virtual
 axis while each batch's service time is measured and folded in through
-``advance``. The arrival rate is calibrated from a throwaway adaptive
-Frontend's warm-up model, ``load`` × the top rung's full-bucket
-throughput, so "near capacity" means the same on any host.
+``advance``. The arrival rate is calibrated from throwaway adaptive
+Frontends' warm-up models, ``load`` × the top rung's full-bucket
+throughput, so "near capacity" means the same on any host. One departure
+from the JAX script, which times one Frontend's warm-up: the port takes
+the median top-rung time of ``CALIBRATIONS`` Frontends, so that one busy
+moment of a shared host (a warm-up timed slow, then cells that see no
+backlog, or timed fast, then cells with no idle slot) does not set the
+rate.
 
 During a run alpha absorbs a cross-subspace GCD delta every
 ``refresh_every`` arrivals (one fused refresh cannot keep LUTs through):
@@ -26,7 +31,7 @@ alpha's cache is invalidated, and the isolation check holds that beta's
 never is. The first ``warm_frac`` of the completed tickets are left out;
 p50 / p99 / QPS / SLO attainment / recall@10 come from the rest.
 
-The built states are handed to five Frontends and never written: a
+The built states are handed to every Frontend and never written: a
 refresh swaps a new state into the Engine, the ChurnController's staging
 install makes a new state, and churn's ops copy before they write.
 
@@ -42,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import statistics
 import sys
 import time
 
@@ -58,6 +64,8 @@ from repro_torch.obs import jsonable
 
 NAMESPACES = ("alpha", "beta")
 POOL = 64
+#: calibration frontends whose median top-rung time sets the arrival rate
+CALIBRATIONS = 3
 FAST = dict(n=8000, dim=32, lists=128, subspaces=16, codewords=64,
             ladder=(2, 4, 16), requests=600, max_admit=8, refresh_every=150)
 
@@ -241,15 +249,20 @@ def serve_cells(searcher, corpora, *, dim, ladder=(2, 8, 32),
     out = (lambda **f: emit("cell", **f)) if verbose else (lambda **f: None)
     ladder = tuple(sorted(ladder))
 
-    # the arrival rate from a throwaway adaptive frontend's warm-up model:
-    # load × the top rung's full-bucket throughput
-    cal_clock = serve.VirtualClock()
-    cal = _make_frontend(searcher, corpora, ladder=ladder, fixed_nprobe=None,
-                         slo_ms=1e9, admission_ms=admission_ms,
-                         max_admit=max_admit, clock=cal_clock)
-    top_ms = max(cal.namespaces.get(nm).slo.predict_ms(max_admit, ladder[-1])
-                 for nm in NAMESPACES)
-    del cal
+    # the arrival rate from throwaway adaptive frontends' warm-up models:
+    # load × the top rung's full-bucket throughput, the median over
+    # CALIBRATIONS frontends (the JAX script times one)
+    top_samples = []
+    for _ in range(CALIBRATIONS):
+        cal = _make_frontend(searcher, corpora, ladder=ladder,
+                             fixed_nprobe=None, slo_ms=1e9,
+                             admission_ms=admission_ms, max_admit=max_admit,
+                             clock=serve.VirtualClock())
+        top_samples.append(max(
+            cal.namespaces.get(nm).slo.predict_ms(max_admit, ladder[-1])
+            for nm in NAMESPACES))
+        del cal
+    top_ms = statistics.median(top_samples)
     rate_qps = load * max_admit / (top_ms * 1e-3)
     slo_ms = slo_factor * top_ms
 
@@ -276,6 +289,7 @@ def serve_cells(searcher, corpora, *, dim, ladder=(2, 8, 32),
 
     results = dict(
         rate_qps=rate_qps, slo_ms=slo_ms, top_ms=top_ms,
+        top_ms_samples=top_samples,
         ladder=list(ladder), requests=requests, cells=cells,
         comparable_fixed=sorted(comparable),
         best_fixed_p99_ms=best_fixed_p99,

@@ -3,6 +3,8 @@ ported so far: ``get(arch_id)`` and ``REGISTRY``."""
 from __future__ import annotations
 
 from repro_torch.configs import (
+    grok_1_314b,
+    llama4_maverick_400b,
     nemotron_4_340b,
     olmo_1b,
     paper_twotower,
@@ -11,8 +13,8 @@ from repro_torch.configs import (
 )
 from repro_torch.configs.base import ArchSpec, Shape  # noqa: F401
 
-_MODULES = [qwen1_5_4b, olmo_1b, nemotron_4_340b, two_tower_retrieval,
-            paper_twotower]
+_MODULES = [qwen1_5_4b, olmo_1b, nemotron_4_340b, grok_1_314b,
+            llama4_maverick_400b, two_tower_retrieval, paper_twotower]
 
 REGISTRY: dict[str, ArchSpec] = {m.ARCH.arch_id: m.ARCH for m in _MODULES}
 

@@ -180,7 +180,8 @@ def twotower_params_from_numpy(arrays: dict, cfg: recsys.TwoTowerConfig, *,
 def opt_state_from_numpy(arrays: dict, cfg: opt_lib.OptimizerConfig, *,
                          device=None) -> opt_lib.OptState:
     """An ``OptState`` on ``device`` from the JAX one: ``mu`` and ``nu``
-    (path key -> array, kept in ``cfg.moment_dtype``), ``step``, and
+    (path key -> array, kept in ``cfg.moment_dtype``; Adafactor's factored
+    row and column statistics in float32 whatever it says), ``step``, and
     ``rot`` (path key -> the learner state's fields: ``R`` and ``step``
     for every learner, and GCD's ``accum`` and ``accum2``; a stacked
     (L, n, n) ``R`` with every field stacked on L, as the JAX package's
@@ -208,8 +209,11 @@ def opt_state_from_numpy(arrays: dict, cfg: opt_lib.OptimizerConfig, *,
         else:
             rot[k] = one(fields, k)
 
+    moment_dtype = (torch.float32 if cfg.name == "adafactor"
+                    else cfg.moment_dtype)
+
     def moment(a):
-        return _leaf(a, dev, cfg.moment_dtype)
+        return _leaf(a, dev, moment_dtype)
 
     return opt_lib.OptState(
         mu={k: moment(v) for k, v in arrays["mu"].items()},

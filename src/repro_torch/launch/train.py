@@ -12,10 +12,12 @@ step (AdamW + the manifold learner on every rotation leaf) → checkpoints
     ``watchdog_factor`` × the median of the last 64 is printed and counted
     (``train.straggler_steps``).
 
-The families ported so far run: ``lm`` (the dense transformer; a config
-with MoE raises, queue 1, item 15) and the two-tower recommender. GNN,
-Wide&Deep, MIND and DIN raise NotImplementedError (queue 1, item 13).
-The LM batch is (batch, 128) tokens, as in the JAX launcher.
+The families ported so far run: ``lm`` (the transformer, dense or MoE:
+grok-1, llama4-maverick) and the two-tower recommender. GNN, Wide&Deep,
+MIND and DIN raise NotImplementedError (queue 1, item 13). The LM batch is
+(batch, 128) tokens, as in the JAX launcher, which trains every family
+with AdamW (``launch.cells._opt_cfg_for`` picks Adafactor above 50B
+parameters for the full-size cells).
 
 The step runs on the card unless ``device="cpu"``. The parameters come
 from a generator seeded with ``seed``, the learner's from ``(seed << 32) |

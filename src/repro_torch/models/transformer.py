@@ -1,11 +1,12 @@
 """Decoder-only transformer LM (port of ``repro/models/transformer.py``):
-dense and GQA variants, trained, and served with a dense or a
+dense, GQA and MoE variants, trained, and served with a dense or a
 PQ-compressed KV cache.
 
-  forward_train   tokens → mean cross-entropy, plus the KV-PQ distortion
-                  term when ``cfg.train_kv_quant`` (the paper's Eq. (1)
-                  second term on each layer's K/V stream, through the
-                  per-layer ``kvq`` rotations and codebooks)
+  forward_train   tokens → mean cross-entropy, plus the MoE load-balance
+                  loss, plus the KV-PQ distortion term when
+                  ``cfg.train_kv_quant`` (the paper's Eq. (1) second term
+                  on each layer's K/V stream, through the per-layer
+                  ``kvq`` rotations and codebooks)
   serve_prefill   tokens → last-token logits + a cache of ``max_len``
                   positions (dense, or PQ codes when ``cfg.kv_quant`` is set)
   serve_decode    one token in, one token's logits out; the cache is
@@ -32,10 +33,17 @@ dense path's ``layers.decode_attention`` does. The JAX package adds the
 float32 output to a bf16 residual, which its layer scan rejects (a carry of
 another dtype); in float32 the cast is a no-op (ROADMAP.md §3).
 
-MoE (``models/moe.py``) is a later slice: a config with ``moe`` raises
-NotImplementedError, so the MoE auxiliary loss of ``forward_train`` is 0
-here. ``rules``, ``scan_groups`` and the other sharding fields are kept
-for the sharded slices and not read on one card.
+MoE layers (``models/moe.py``) replace the dense MLP of every layer, or,
+with ``moe_every = 2`` (llama4), of every second one: the layers then come
+as two stacks of L/2, ``layers/a`` (dense) and ``layers/b`` (MoE), and
+layer 2j + i is row j of stack "a" (i = 0) or "b" (i = 1); its KV-quant
+leaves are row 2j + i of ``kvq`` and its cache layer 2j + i. With
+``moe_chunk`` > 0 a MoE layer runs T > ``moe_chunk`` tokens as equal
+chunks (T must divide), which bounds the (E·C, d_ff) dispatch buffers of
+a long prefill; the chunks' load-balance losses are averaged.
+``forward_train`` adds 0.01·aux/L, aux summed over the layers; serving
+drops aux. ``rules``, ``scan_groups`` and the other sharding fields are
+kept for the sharded slices and not read on one card.
 """
 from __future__ import annotations
 
@@ -47,10 +55,8 @@ from torch.utils import checkpoint as _ckpt
 from repro_torch import device as _device
 from repro_torch.core import kv_quant
 from repro_torch.models import layers, param
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.param import ParamSpec
-
-MOE_LATER = ("MoE layers (models/moe.py) are not ported yet "
-             "(ROADMAP.md queue 1, slice 15)")
 
 
 class TransformerConfig(NamedTuple):
@@ -67,8 +73,8 @@ class TransformerConfig(NamedTuple):
     qkv_bias: bool = False
     norm: str = "rmsnorm"
     rope_theta: float = 10000.0
-    moe: Any = None                  # MoE config: a later slice
-    moe_every: int = 1
+    moe: moe_lib.MoEConfig | None = None
+    moe_every: int = 1               # 2 → dense/MoE interleave (llama4)
     kv_quant: kv_quant.KVQuantConfig | None = None
     train_kv_quant: bool = False
     dtype: Any = torch.bfloat16      # activation dtype
@@ -81,21 +87,22 @@ class TransformerConfig(NamedTuple):
     train_accum_steps: int = 1
     rules: str = "lm_base"           # sharding rules: unused on one card
 
+    @property
+    def interleaved(self) -> bool:
+        return self.moe is not None and self.moe_every == 2
 
-def _dense_only(cfg: TransformerConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(MOE_LATER)
+    @property
+    def scan_len(self) -> int:
+        return self.num_layers // (2 if self.interleaved else 1)
 
 
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
 
-def param_specs(cfg: TransformerConfig) -> dict:
-    """The JAX package's nested spec tree (dense layers only)."""
-    _dense_only(cfg)
-    d, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
-    Hq, Hkv, hd, f = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
+def _sublayer_specs(cfg: TransformerConfig, L: int, moe_on: bool) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     attn = {
         "wq": ParamSpec((L, d, Hq * hd), ("layers", "w_embed", "w_heads")),
         "wk": ParamSpec((L, d, Hkv * hd), ("layers", "w_embed", "w_kv_heads")),
@@ -109,16 +116,41 @@ def param_specs(cfg: TransformerConfig) -> dict:
                                init="zeros")
         attn["bv"] = ParamSpec((L, Hkv * hd), ("layers", "w_kv_heads"),
                                init="zeros")
-    ffn = {
-        "wi": ParamSpec((L, d, f), ("layers", "w_embed", "w_mlp")),
-        "wo": ParamSpec((L, f, d), ("layers", "w_mlp", "w_embed")),
-    }
-    if cfg.use_glu:
-        ffn["wg"] = ParamSpec((L, d, f), ("layers", "w_embed", "w_mlp"))
-    layer_specs = {"attn": attn, "ffn": ffn}
+    if moe_on:
+        E = cfg.moe.num_experts
+        e_in = ("layers", "w_experts", "w_embed", "w_expert_mlp")
+        ffn = {
+            "router": ParamSpec((L, d, E), ("layers", "w_embed", None)),
+            "wi": ParamSpec((L, E, d, f), e_in),
+            "wo": ParamSpec((L, E, f, d), ("layers", "w_experts",
+                                           "w_expert_mlp", "w_embed")),
+        }
+        if cfg.use_glu:
+            ffn["wg"] = ParamSpec((L, E, d, f), e_in)
+    else:
+        ffn = {
+            "wi": ParamSpec((L, d, f), ("layers", "w_embed", "w_mlp")),
+            "wo": ParamSpec((L, f, d), ("layers", "w_mlp", "w_embed")),
+        }
+        if cfg.use_glu:
+            ffn["wg"] = ParamSpec((L, d, f), ("layers", "w_embed", "w_mlp"))
+    out = {"attn": attn, "ffn": ffn}
     if cfg.norm == "rmsnorm":
-        layer_specs["ln1"] = ParamSpec((L, d), ("layers", None), init="ones")
-        layer_specs["ln2"] = ParamSpec((L, d), ("layers", None), init="ones")
+        out["ln1"] = ParamSpec((L, d), ("layers", None), init="ones")
+        out["ln2"] = ParamSpec((L, d), ("layers", None), init="ones")
+    return out
+
+
+def param_specs(cfg: TransformerConfig) -> dict:
+    """The JAX package's nested spec tree: ``layers`` stacked on L, or the
+    interleave's ``layers/a`` (dense) and ``layers/b`` (MoE), each on L/2."""
+    d, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
+    hd = cfg.head_dim
+    if cfg.interleaved:
+        layer_specs = {"a": _sublayer_specs(cfg, L // 2, moe_on=False),
+                       "b": _sublayer_specs(cfg, L // 2, moe_on=True)}
+    else:
+        layer_specs = _sublayer_specs(cfg, L, moe_on=cfg.moe is not None)
     specs = {
         "embed": ParamSpec((V, d), ("w_vocab", "w_embed"), scale=1.0),
         "head": ParamSpec((V, d), ("w_vocab", "w_embed")),
@@ -168,6 +200,24 @@ def _unstack(tree: dict | None, n: int) -> list:
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
+def _slices(tree: dict | None, n: int) -> list:
+    """The n layer slices of a stacked (nested) leaf dict, each indexed
+    on its own (for the serving paths, which record no gradient)."""
+    return [_layer(tree, i) for i in range(n)]
+
+
+def _layer_plan(cfg: TransformerConfig, tree: dict, split) -> list:
+    """[(layer i's parameters, whether it is a MoE layer)] for i = 0 …
+    L − 1, ``split(stack, n)`` slicing each stack: with the interleave,
+    layer 2j is row j of ``a`` (dense) and layer 2j + 1 row j of ``b``
+    (MoE)."""
+    if cfg.interleaved:
+        Lb = cfg.scan_len
+        a, b = split(tree["a"], Lb), split(tree["b"], Lb)
+        return [p for j in range(Lb) for p in ((a[j], False), (b[j], True))]
+    return [(p, cfg.moe is not None) for p in split(tree, cfg.num_layers)]
+
+
 def _kvq_params(kvq_l: dict | None) -> kv_quant.KVQuantParams | None:
     if kvq_l is None:
         return None
@@ -195,15 +245,35 @@ def _qkv(lp, h, cfg: TransformerConfig, positions):
     return q, k, v.reshape(B, S, Hkv, hd)
 
 
-def _ffn(lp, h, cfg: TransformerConfig):
-    """Dense MLP on (..., d)."""
+def _ffn(lp, h, cfg: TransformerConfig, moe_on: bool):
+    """Dense MLP or MoE on (B, S, d) → (out, the float32 load-balance loss:
+    0 for a dense layer; the chunks' mean under ``moe_chunk``)."""
     ffn = lp["ffn"]
+    if moe_on:
+        B, S, d = h.shape
+        T = B * S
+
+        def run(tokens):
+            return moe_lib.moe_block(
+                tokens, ffn["router"].float(), ffn["wi"], ffn.get("wg"),
+                ffn["wo"], cfg.moe, activation=cfg.activation)
+
+        flat = h.reshape(T, d)
+        if cfg.moe_chunk and T > cfg.moe_chunk:
+            if T % cfg.moe_chunk:
+                raise ValueError(f"moe_chunk {cfg.moe_chunk} does not divide "
+                                 f"{T} tokens")
+            outs, auxs = zip(*(run(c) for c in flat.split(cfg.moe_chunk)))
+            return torch.cat(outs).reshape(B, S, d), torch.stack(auxs).mean()
+        out, aux = run(flat)
+        return out.reshape(B, S, d), aux
     hh = h @ ffn["wi"].to(h.dtype)
     if cfg.use_glu:
         hh = layers.activate(hh, cfg.activation) * (h @ ffn["wg"].to(h.dtype))
     else:
         hh = layers.activate(hh, cfg.activation)
-    return hh @ ffn["wo"].to(h.dtype)
+    return (hh @ ffn["wo"].to(h.dtype),
+            torch.zeros((), dtype=torch.float32, device=h.device))
 
 
 def _norm(lp, name, x, cfg: TransformerConfig):
@@ -228,58 +298,64 @@ def _logits(params, x: torch.Tensor) -> torch.Tensor:
 KV_DIST_POSITIONS = 64
 
 
-def _layer_train(x, lp, cfg: TransformerConfig, positions, kvq_l):
+def _layer_train(x, lp, cfg: TransformerConfig, positions, kvq_l,
+                 moe_on: bool):
     """One layer over the full sequence (``repro/models/transformer.py``
-    ``_layer_train``). Returns (x, the layer's KV distortion, float32; 0
-    without ``train_kv_quant``)."""
+    ``_layer_train``). Returns (x, the layer's load-balance loss, its KV
+    distortion; both float32, 0 for a dense layer and without
+    ``train_kv_quant``)."""
     B, S = x.shape[:2]
     h = _norm(lp, "ln1", x, cfg)
     q, k, v = _qkv(lp, h, cfg, positions)
     att = layers.blockwise_attention(q, k, v, q_chunk=cfg.q_chunk)
     att = att.reshape(B, S, cfg.num_heads * cfg.head_dim)
     x = x + att @ lp["attn"]["wo"].to(x.dtype)
-    x = x + _ffn(lp, _norm(lp, "ln2", x, cfg), cfg)
+    y, aux = _ffn(lp, _norm(lp, "ln2", x, cfg), cfg, moe_on)
+    x = x + y
     if cfg.train_kv_quant and kvq_l is not None:
         n = min(KV_DIST_POSITIONS, S)
         ks = k[:, :n].reshape(-1, cfg.head_dim)
         vs = v[:, :n].reshape(-1, cfg.head_dim)
-        return x, kv_quant.kv_distortion(_kvq_params(kvq_l), ks, vs)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, aux, kv_quant.kv_distortion(_kvq_params(kvq_l), ks, vs)
+    return x, aux, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def forward_train(params, tokens: torch.Tensor, labels: torch.Tensor,
                   cfg: TransformerConfig) -> torch.Tensor:
     """tokens/labels (B, S) → the scalar float32 training loss:
     mean cross-entropy (``layers.softmax_xent_chunked`` over
-    ``cfg.xent_chunk`` tokens) + 0.01·aux/L (aux, the MoE load loss, is 0
-    for a dense config) + 0.1·dist/L when ``cfg.train_kv_quant`` and the
-    params hold ``kvq``. dist sums each layer's ``kv_quant.kv_distortion``
-    over the first min(64, S) positions of its post-RoPE K and its V, so
-    the gradient reaches ``kvq/rot_k``, ``rot_v``, ``cb_k`` and ``cb_v``
-    (the assignment carries none). Each layer runs under
+    ``cfg.xent_chunk`` tokens) + 0.01·aux/L (aux, the MoE load-balance
+    loss summed over the layers, is 0 for a dense config) + 0.1·dist/L
+    when ``cfg.train_kv_quant`` and the params hold ``kvq``. dist sums
+    each layer's ``kv_quant.kv_distortion`` over the first min(64, S)
+    positions of its post-RoPE K and its V, so the gradient reaches
+    ``kvq/rot_k``, ``rot_v``, ``cb_k`` and ``cb_v`` (the assignment
+    carries none). Each layer runs under
     ``torch.utils.checkpoint`` when ``cfg.remat`` (the module docstring);
     its distortion term, and with it the ``pq_assign`` launches, is then
     computed again in the backward."""
-    _dense_only(cfg)
     B, S = tokens.shape
     L = cfg.num_layers
     x = params["embed"][tokens.long()].to(cfg.dtype)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    layer_p = _unstack(params["layers"], L)
+    plan = _layer_plan(cfg, params["layers"], _unstack)
     kvq_p = _unstack(params.get("kvq"), L)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     dist = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(L):
+    for i, (lp, moe_on) in enumerate(plan):
         if cfg.remat:
-            x, d = _ckpt.checkpoint(_layer_train, x, layer_p[i], cfg,
-                                    positions, kvq_p[i], use_reentrant=False,
-                                    preserve_rng_state=False)
+            x, a, d = _ckpt.checkpoint(_layer_train, x, lp, cfg, positions,
+                                       kvq_p[i], moe_on, use_reentrant=False,
+                                       preserve_rng_state=False)
         else:
-            x, d = _layer_train(x, layer_p[i], cfg, positions, kvq_p[i])
+            x, a, d = _layer_train(x, lp, cfg, positions, kvq_p[i], moe_on)
+        aux = aux + a
         dist = dist + d
     x = _final_norm(params, x, cfg)
     loss = layers.softmax_xent_chunked(
         x.reshape(B * S, cfg.d_model), params["head"], labels.reshape(-1),
         chunk=cfg.xent_chunk)
+    loss = loss + 0.01 * aux / L
     if cfg.train_kv_quant and "kvq" in params:
         loss = loss + 0.1 * dist / L
     return loss
@@ -340,7 +416,8 @@ def _mark(marks: Marks, name: str) -> None:
 
 
 def _decode_sublayer(x, lp, cfg: TransformerConfig, pos, kvq_l, kc, vc,
-                     quantized: bool, marks: Marks = None):
+                     quantized: bool, marks: Marks = None,
+                     moe_on: bool = False):
     """One layer of one decode step; writes this layer's cache (kc, vc) in
     place. x (B, d), pos (B,)."""
     B = x.shape[0]
@@ -367,7 +444,7 @@ def _decode_sublayer(x, lp, cfg: TransformerConfig, pos, kvq_l, kc, vc,
         _mark(marks, "attention")
     x = x + att.reshape(B, Hq * hd) @ lp["attn"]["wo"].to(x.dtype)
     h2 = _norm(lp, "ln2", x[:, None], cfg)
-    x = x + _ffn(lp, h2, cfg)[:, 0]
+    x = x + _ffn(lp, h2, cfg, moe_on)[0][:, 0]
     _mark(marks, "out_ffn")
     return x
 
@@ -381,16 +458,15 @@ def serve_decode(params, token: torch.Tensor, cache,
     "lut_build", "adc_batch", "softmax", "value_hist" on a PQ cache or
     "attention" on a dense one, then "out_ffn") and after the final norm
     and logits ("head"): a profiler records a CUDA event at each."""
-    _dense_only(cfg)
     quantized = isinstance(cache, PQDecodeCache)
     k_all, v_all = ((cache.k_codes, cache.v_codes) if quantized
                     else (cache.k, cache.v))
     pos = cache.length
     x = params["embed"][token.long()].to(cfg.dtype)   # (B, d)
-    for i in range(cfg.num_layers):
-        x = _decode_sublayer(x, _layer(params["layers"], i), cfg, pos,
-                             _layer(params.get("kvq"), i), k_all[i], v_all[i],
-                             quantized, marks)
+    plan = _layer_plan(cfg, params["layers"], _slices)
+    for i, (lp, moe_on) in enumerate(plan):
+        x = _decode_sublayer(x, lp, cfg, pos, _layer(params.get("kvq"), i),
+                             k_all[i], v_all[i], quantized, marks, moe_on)
     x = _final_norm(params, x[:, None], cfg)[:, 0]
     logits = _logits(params, x)
     _mark(marks, "head")
@@ -398,7 +474,7 @@ def serve_decode(params, token: torch.Tensor, cache,
 
 
 def _prefill_sublayer(x, lp, cfg: TransformerConfig, positions, kvq_l,
-                      quantized: bool):
+                      moe_on: bool, quantized: bool):
     """One layer over the prompt. Returns (x, keys, values) with the cache
     entries (B, Hkv, S, hd), or their codes (B, Hkv, S, D)."""
     B, S = x.shape[:2]
@@ -407,7 +483,7 @@ def _prefill_sublayer(x, lp, cfg: TransformerConfig, positions, kvq_l,
     att = layers.blockwise_attention(q, k, v, q_chunk=cfg.q_chunk)
     att = att.reshape(B, S, cfg.num_heads * cfg.head_dim)
     x = x + att @ lp["attn"]["wo"].to(x.dtype)
-    x = x + _ffn(lp, _norm(lp, "ln2", x, cfg), cfg)
+    x = x + _ffn(lp, _norm(lp, "ln2", x, cfg), cfg, moe_on)[0]
     kt = k.transpose(1, 2)                            # (B, Hkv, S, hd)
     vt = v.transpose(1, 2)
     if quantized:
@@ -420,7 +496,6 @@ def serve_prefill(params, tokens: torch.Tensor, cfg: TransformerConfig,
     """tokens (B, S) → (last-token logits (B, V) float32, a cache of
     ``max_len`` positions, S of them written). The cache is allocated once
     and each layer writes its prompt positions into it."""
-    _dense_only(cfg)
     B, S = tokens.shape
     max_len = max_len or S
     if max_len < S:
@@ -432,9 +507,10 @@ def serve_prefill(params, tokens: torch.Tensor, cfg: TransformerConfig,
                     else (cache.k, cache.v))
     x = params["embed"][tokens.long()].to(cfg.dtype)
     positions = torch.arange(S, device=dev)[None].expand(B, S)
-    for i in range(cfg.num_layers):
-        x, ks, vs = _prefill_sublayer(x, _layer(params["layers"], i), cfg,
-                                      positions, _layer(params.get("kvq"), i),
+    plan = _layer_plan(cfg, params["layers"], _slices)
+    for i, (lp, moe_on) in enumerate(plan):
+        x, ks, vs = _prefill_sublayer(x, lp, cfg, positions,
+                                      _layer(params.get("kvq"), i), moe_on,
                                       quantized)
         k_all[i, :, :, :S] = ks
         v_all[i, :, :, :S] = vs
@@ -445,13 +521,21 @@ def serve_prefill(params, tokens: torch.Tensor, cfg: TransformerConfig,
 
 
 def model_flops_per_token(cfg: TransformerConfig) -> float:
-    """6·N_active, the model-FLOPs numerator per token."""
-    _dense_only(cfg)
+    """6·N_active, the model-FLOPs numerator per token: a MoE layer counts
+    its top-k experts."""
     d, f, L = cfg.d_model, cfg.d_ff, cfg.num_layers
     Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     attn = d * (Hq + 2 * Hkv) * hd + Hq * hd * d
     n_mats = 3 if cfg.use_glu else 2
-    return 6.0 * (L * attn + L * n_mats * d * f + cfg.vocab_size * d)
+    dense_ffn = n_mats * d * f
+    moe_ffn = (cfg.moe.top_k * n_mats * d * f) if cfg.moe is not None else 0.0
+    if cfg.interleaved:
+        ffn_total = (L // 2) * dense_ffn + (L // 2) * moe_ffn
+    elif cfg.moe is not None:
+        ffn_total = L * moe_ffn
+    else:
+        ffn_total = L * dense_ffn
+    return 6.0 * (L * attn + ffn_total + cfg.vocab_size * d)
 
 
 def num_params(cfg: TransformerConfig) -> int:

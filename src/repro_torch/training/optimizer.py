@@ -1,4 +1,4 @@
-"""AdamW with rotation-learner manifold routing (port of
+"""AdamW or Adafactor with rotation-learner manifold routing (port of
 ``repro/training/optimizer.py``).
 
 Ordinary parameters get AdamW exactly as the JAX package's ``_update_impl``
@@ -46,11 +46,23 @@ takes float32) and the moved R is rounded back into the bf16 leaf; the
 learner state keeps float32 R where the JAX package keeps the leaf's
 dtype (ROADMAP.md, parity hazards). Gradient accumulation
 (``accum_steps``, ``accum_dtype``) lives in ``training.train_state``.
-Adafactor waits for a later slice: ``name="adafactor"`` raises
-(``ADAFACTOR_LATER``).
+
+``name="adafactor"`` (the JAX package's choice above 50B parameters,
+``launch.cells._opt_cfg_for``) is Shazeer and Stern's Adafactor with β1 =
+0 as the JAX package's ``_adafactor_leaf`` computes it: the second moment
+factored into float32 row and column statistics (``factored_shapes``: a
+stacked (L, E, d, f) leaf factors per layer and expert) held in the
+``mu`` and ``nu`` slots whatever ``moment_dtype`` says, the decay
+1 − t^−0.8, the squares taken in the gradient's own dtype and summed in
+float32, the update u = g·rsqrt(v̂) clipped to an RMS of 1 and then
+weight-decayed, all in ``compute_dtype``. A manifold leaf's slots pass
+through untouched. The update goes over a leaf in blocks of at most
+``ADAFACTOR_CHUNK`` elements, the gradient's storage holding u, so a
+6.4 GB expert leaf needs no full-size temporaries.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
@@ -60,8 +72,10 @@ from torch import nn
 from repro_torch import rotations as rot_lib
 
 MANIFOLD_LEAVES = ("R", "rot_k", "rot_v")
-ADAFACTOR_LATER = ("Adafactor is not ported yet (ROADMAP.md queue 1, "
-                   "item 14b)")
+#: elements of a leaf an Adafactor pass works on at a time
+ADAFACTOR_CHUNK = 1 << 27
+#: elements of a half-precision gradient widened at a time by global_norm
+NORM_CHUNK = 1 << 28
 
 
 class OptimizerConfig(NamedTuple):
@@ -77,14 +91,14 @@ class OptimizerConfig(NamedTuple):
     rotation: rot_lib.RotationConfig = rot_lib.RotationConfig()
     schedule: str = "cosine"         # cosine | constant
     accum_dtype: torch.dtype = torch.float32
-    name: str = "adamw"              # adamw (adafactor: a later slice)
+    name: str = "adamw"              # adamw | adafactor
     moment_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
 
 
 class OptState(NamedTuple):
-    mu: dict[str, torch.Tensor]   # first moments (zeros for manifold leaves)
-    nu: dict[str, torch.Tensor]   # second moments
+    mu: dict[str, torch.Tensor]   # first moments (Adafactor: row stats)
+    nu: dict[str, torch.Tensor]   # second moments (Adafactor: column stats)
     rot: dict[str, Any]           # path key -> learner state (manifold)
     step: int
 
@@ -118,10 +132,19 @@ def named_leaves(params) -> dict[str, torch.Tensor]:
 
 
 def _check_name(cfg: OptimizerConfig) -> None:
-    if cfg.name == "adafactor":
-        raise NotImplementedError(ADAFACTOR_LATER)
-    if cfg.name != "adamw":
+    if cfg.name not in ("adamw", "adafactor"):
         raise ValueError(f"unknown optimizer {cfg.name!r}")
+
+
+def factored_shapes(shape) -> tuple[tuple, tuple]:
+    """Adafactor's factored second-moment shapes (row stat, column stat):
+    for ndim ≥ 2 the row stat drops the last axis and the column stat the
+    second-to-last; a 1-D or 0-D leaf keeps a full-size stat in the row
+    slot and a scalar in the column slot."""
+    shape = tuple(shape)
+    if len(shape) >= 2:
+        return shape[:-1], shape[:-2] + shape[-1:]
+    return shape, ()
 
 
 def stack_states(states: list):
@@ -159,12 +182,15 @@ def init(params, cfg: OptimizerConfig) -> OptState:
     leaves = named_leaves(params)
     learner = rot_lib.from_config(cfg.rotation)
 
-    def zeros(p):
+    def zeros(p, slot: int):
+        if cfg.name == "adafactor":    # float32 factored stats
+            return torch.zeros(factored_shapes(p.shape)[slot],
+                               dtype=torch.float32, device=p.device)
         return torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
 
     return OptState(
-        mu={k: zeros(p) for k, p in leaves.items()},
-        nu={k: zeros(p) for k, p in leaves.items()},
+        mu={k: zeros(p, 0) for k, p in leaves.items()},
+        nu={k: zeros(p, 1) for k, p in leaves.items()},
         rot={k: _init_rot_leaf(learner, p)
              for k, p in leaves.items() if is_manifold(k)},
         step=0)
@@ -192,16 +218,18 @@ def schedule_lr(cfg: OptimizerConfig, step: int) -> float:
 def global_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:
     """√(Σ over leaves of ⟨g, g⟩), float32, on the gradients' device; one
     dot product per leaf, so no squared copy of the table is made. A
-    half-precision leaf is widened to float32 first, so its sum
-    accumulates in float32 (as the JAX package's
+    half-precision leaf is widened to float32 first, NORM_CHUNK elements
+    at a time, so its sum accumulates in float32 (as the JAX package's
     ``preferred_element_type``), not in the leaf's dtype."""
     total = None
     for g in grads.values():
         g = g.reshape(-1)
-        if g.dtype in (torch.bfloat16, torch.float16):
-            g = g.float()
-        sq = torch.dot(g, g)
-        total = sq if total is None else total + sq
+        half = g.dtype in (torch.bfloat16, torch.float16)
+        for c in g.split(NORM_CHUNK) if half else (g,):
+            if half:
+                c = c.float()              # one chunk's copy at a time
+            sq = torch.dot(c, c)
+            total = sq if total is None else total + sq
     if total is None:
         return torch.zeros(())
     return torch.sqrt(total)
@@ -236,6 +264,70 @@ def _adamw_leaf(cfg, p, g, mu, nu, lr: float, b1c: float, b2c: float):
         p.sub_(upd)
     else:
         p.copy_(p.to(cdt).sub_(upd))
+
+
+def _blocks(shape: tuple, chunk: int) -> list:
+    """Index tuples that cover an (N, rows, cols) view in blocks of at
+    most ``chunk`` elements (whole slices when they fit, else row
+    ranges of one slice)."""
+    N, rows, cols = shape
+    if rows * cols <= chunk:
+        per = max(1, chunk // (rows * cols))
+        return [(slice(n, min(n + per, N)),) for n in range(0, N, per)]
+    step = max(1, chunk // cols)
+    return [(n, slice(r, min(r + step, rows)))
+            for n in range(N) for r in range(0, rows, step)]
+
+
+def _adafactor_leaf(cfg, p, g, vr, vc, lr: float, t: np.float32):
+    """One Adafactor leaf (the JAX package's ``_adafactor_leaf``): ``g``,
+    the clipped gradient in the compute dtype, is consumed (it holds u);
+    p, vr and vc are written in place."""
+    cdt = cfg.compute_dtype
+    eps = 1e-30
+    b2 = _f32(1.0) - t ** _f32(-0.8)
+    keep, new = float(b2), float(_f32(1.0) - b2)
+    if p.dim() >= 2:
+        shape = (math.prod(p.shape[:-2]), p.shape[-2], p.shape[-1])
+        G, P = g.contiguous().view(shape), p.view(shape)
+        VR, VC = vr.view(shape[:2]), vc.view(shape[0], shape[2])
+        blocks = _blocks(shape, ADAFACTOR_CHUNK)
+        r = torch.empty(VR.shape, dtype=torch.float32, device=p.device)
+        c = torch.zeros(VC.shape, dtype=torch.float32, device=p.device)
+        for b in blocks:
+            g2 = G[b] * G[b]              # squared in the gradient's dtype
+            r[b] = torch.sum(g2, dim=-1, dtype=torch.float32) / shape[2]
+            c[b[0]] += torch.sum(g2, dim=-2, dtype=torch.float32)
+        VR.mul_(keep).add_(r.mul_(new))
+        VC.mul_(keep).add_(c.div_(shape[1]).mul_(new))
+        denom = torch.clamp(VR.mean(-1, keepdim=True), min=eps)
+        rfac = torch.rsqrt(VR / denom + eps)
+        cfac = torch.rsqrt(VC + eps)
+        for b in blocks:
+            fac = rfac[b][..., None] * cfac[b[0]][..., None, :]
+            G[b].mul_(fac.to(cdt))
+    else:
+        G, P = g, p
+        vr.mul_(keep).add_(g.float().square().mul_(new))
+        G.mul_(torch.rsqrt(vr + eps).to(cdt))
+        blocks = [()]
+    sq = None
+    for b in blocks:
+        u = G[b].float().reshape(-1)
+        d = torch.dot(u, u)
+        sq = d if sq is None else sq + d
+    rms = torch.sqrt(torch.clamp(sq * (1.0 / float(g.numel())), min=1e-30))
+    scale = (lr / torch.clamp(rms, min=1.0)).to(cdt)
+    wd = _cst(cfg.weight_decay, cdt)
+    for b in blocks:
+        u = G[b]
+        if cfg.weight_decay > 0:
+            u.add_(P[b].to(cdt) * wd)
+        u.mul_(scale)
+        if P.dtype == cdt:
+            P[b].sub_(u)
+        else:
+            P[b].copy_(P[b].to(cdt).sub_(u))
 
 
 def _rotation_leaf(learner, cfg, p, g, st, generator):
@@ -285,11 +377,16 @@ def _update_impl(grads, state: OptState, params, cfg: OptimizerConfig,
             return g.mul_(clip) if clip is not None else g
 
         for k in grads:
-            if not is_manifold(k):
+            if is_manifold(k):
+                continue
+            if cfg.name == "adafactor":
+                _adafactor_leaf(cfg, leaves[k], clipped(k), state.mu[k],
+                                state.nu[k], lr, t)
+            else:
                 _adamw_leaf(cfg, leaves[k], clipped(k), state.mu[k],
                             state.nu[k], lr, b1c, b2c)
         if marks is not None:
-            marks("adamw")
+            marks(cfg.name)
         for k in grads:
             if is_manifold(k):
                 rot_n[k], deltas[k] = _rotation_leaf(
@@ -304,10 +401,12 @@ def _update_impl(grads, state: OptState, params, cfg: OptimizerConfig,
 def update(grads: dict[str, torch.Tensor], state: OptState, params,
            cfg: OptimizerConfig, generator: torch.Generator | None = None,
            marks: Callable[[str], None] | None = None):
-    """(params, state) after one step: clip the global gradient norm, then
-    AdamW on every leaf but the SO(n) ones, which go through the configured
-    rotation learner. In place (see the module docstring). ``marks``, if
-    given, is called with "adamw" and "rotation" after each part."""
+    """(params, state) after one step: clip the global gradient norm (when
+    ``grad_clip`` > 0), then AdamW or Adafactor on every leaf but the SO(n)
+    ones, which go through the configured rotation learner. In place (see
+    the module docstring). ``marks``, if given, is called with the
+    optimizer's name ("adamw" or "adafactor") and "rotation" after each
+    part."""
     p_n, state_n, _deltas = _update_impl(grads, state, params, cfg,
                                          generator, marks)
     return p_n, state_n

@@ -4,9 +4,9 @@
 ``make_train_step(loss_fn, opt_cfg)`` turns ``loss_fn(params, *batch)`` into
 a ``(state, *batch) -> (state, metrics)`` step that differentiates the loss
 (the rotation ``R`` included: its gradient feeds the rotation learner) and
-applies ``training.optimizer`` (AdamW plus the manifold learner). PyTorch
-runs eagerly, so there is nothing to jit; the step updates the parameters
-in place (see ``training.optimizer``).
+applies ``training.optimizer`` (AdamW or Adafactor, plus the manifold
+learner). PyTorch runs eagerly, so there is nothing to jit; the step
+updates the parameters in place (see ``training.optimizer``).
 
 ``eq1_loss`` is the paper's Eq. (1) for any quantizer with ``encode_st``.
 """
@@ -50,9 +50,9 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor],
 
     ``emit_deltas=True`` adds ``metrics["rotation_deltas"]``, the
     ``{path key: RotationDelta}`` each manifold update applied. ``marks``,
-    if given, is called with "forward", "backward", "adamw" and "rotation"
-    as each part of the step has been enqueued (``chip_smoke.py`` records a
-    CUDA event there).
+    if given, is called with "forward", "backward", the optimizer's name
+    ("adamw" or "adafactor") and "rotation" as each part of the step has
+    been enqueued (``chip_smoke.py`` records a CUDA event there).
 
     ``opt_cfg.accum_steps = A > 1`` splits every batch tensor into A
     microbatches along axis 0 (which A must divide), folds 1/A into each

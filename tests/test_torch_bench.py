@@ -215,7 +215,13 @@ def test_run_writes_a_valid_torch_trajectory(monkeypatch, tmp_path):
     assert set(run["sections"]) == {"serve"}
     assert run["config"]["only"] == ["serve"]
     failed = [k for k, v in run["checks"].items() if not v]
-    assert set(failed) <= {f"serve/{TIMING}"}
+    res = run["sections"]["serve"]
+    adaptive = res["cells"]["adaptive"]
+    assert set(failed) <= {f"serve/{TIMING}"}, (
+        f"failed {failed}: the adaptive cell shed {adaptive['sheds']} and "
+        f"ticked {adaptive['maintenance_ticks']} maintenance slots; top_ms "
+        f"{res['top_ms']} (calibrations {res['top_ms_samples']}), rate "
+        f"{res['rate_qps']} qps")
     assert rc == (1 if failed else 0)
     assert brun.main(["--fast", "--only", "serve", "--device", "cpu"]) \
         in (0, 1)

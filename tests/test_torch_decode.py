@@ -31,7 +31,8 @@ from repro_torch.kernels import adc_common, ops, ref
 from repro_torch.models import layers
 from repro_torch.models import transformer as tfm
 
-LM_ARCHS = ["olmo-1b", "qwen1.5-4b", "nemotron-4-340b"]
+LM_ARCHS = ["olmo-1b", "qwen1.5-4b", "nemotron-4-340b", "grok-1-314b",
+            "llama4-maverick-400b-a17b"]
 PROMPT, EXTRA, STEPS = 16, 8, 3
 
 
@@ -283,21 +284,35 @@ def test_configs_match_jax(arch_id):
                                                       or tuple(a) == tuple(b))
             else:
                 assert a == b, field
-        if jcfg.moe is None:
-            assert tfm.num_params(cfg) == jtfm.num_params(jcfg)
-            assert tfm.model_flops_per_token(cfg) == pytest.approx(
-                jtfm.model_flops_per_token(jcfg))
+        assert tfm.num_params(cfg) == jtfm.num_params(jcfg)
+        assert tfm.model_flops_per_token(cfg) == pytest.approx(
+            jtfm.model_flops_per_token(jcfg))
 
 
 def test_config_registry():
     assert configs.get("paper-twotower").family == "recsys"
     with pytest.raises(KeyError, match="olmo-1b"):
-        configs.get("grok-1-314b")
+        configs.get("graphsage-reddit")
     long = configs.get("olmo-1b").config_for_shape("long_500k")
     assert long.kv_quant == kv.KVQuantConfig(128, 16, 256)
     assert configs.base.LM_SHAPES["long_500k"].params["seq_len"] == 524288
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tfm.param_specs(long._replace(moe=object()))
+    for arch in ("grok-1-314b", "llama4-maverick-400b-a17b"):
+        cfg = configs.get(arch).config_for_shape("long_500k")
+        jcfg = jconfigs.get(arch).config_for_shape("long_500k")
+        assert cfg.moe is not None
+        specs = {k: (tuple(v.shape), tuple(v.logical), v.init, v.scale)
+                 for k, v in _flat_specs(tfm.param_specs(cfg)).items()}
+        jspecs = {k: (tuple(v.shape), tuple(v.logical), v.init, v.scale)
+                  for k, v in _flat_specs(jtfm.param_specs(jcfg)).items()}
+        assert specs == jspecs
+
+
+def _flat_specs(tree, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        out.update(_flat_specs(v, key) if isinstance(v, dict) else {key: v})
+    return out
 
 
 # -- the serving slice --------------------------------------------------------
