@@ -90,8 +90,10 @@ Phases, one JSON line each:
            builds both from one key), and four more from BUILD_SEEDS:
            k-means alone moves one build's recall by more than 0.01
            here, so recall_within_rebuild is held against the five
-           builds' mean, the one build's comparison printed beside it
-           and the churned index's rank among the builds. How much of a
+           builds' mean (its margin printed), the one build's comparison
+           printed beside it and the churned index's rank among the
+           builds; the card's k-means sums in a fixed order, so a seed
+           builds one index and these recalls repeat run to run. How much of a
            background pass the serving loop hides: batches of 512 with no
            pass in flight, then while one runs (without and with the
            tracker's re-encode); hidden = the worker's time less what the
@@ -253,9 +255,10 @@ Phases, one JSON line each:
            adc_batch against its plain version on the decode's own operands
            (bit-equal for float32 tables, 1e-5 of the largest entry for
            int8/uint8 packs), on Nemotron's KV geometry (r = 12, Dp = 24,
-           tables staged in two chunks), on Dp = 16 with r = 3 and S not a
-           multiple of a block's rows, timed beside its plain version, its
-           bound and one F.embedding_bag over per-group offsets; pq_assign
+           tables staged in three chunks of four), on Dp = 16 with r = 3
+           and S not a multiple of a block's rows, timed (the decode's
+           operands and Nemotron's) beside its plain version, its bound and
+           one F.embedding_bag over per-group offsets; pq_assign
            on the last token's last encode (16 rows), timed;
   lm_train LM training on the port at olmo-1b's full width (16 layers,
            d_model 2048, bf16, 1.28B parameters), the card freed between
@@ -2147,6 +2150,8 @@ def phase_churn(ctx: dict, smi: str):
          queries=BATCHES[0], checks=checks, **recalls,
          recall_build_by_seed=build_seeds,
          recall_build_mean=recall_build_mean,
+         recall_within_rebuild_margin=(recalls["recall_churn"]
+                                       - (recall_build_mean - 0.01)),
          recall_within_one_rebuild=one_build,
          recall_churn_rank=dict(rank=rank, of=len(builds) + 1),
          stats={k: es["churn"][k] for k in (
@@ -4485,11 +4490,7 @@ def phase_decode_kernels(ctx: dict) -> dict:
         lv, sc = ops.quantize_luts(lut, dt)
         extra[f"{dt}_ms"] = graph_ms(lambda: ops.adc_batch(lv, codes, sc),
                                      launches=20)
-    lt, cd = cases["nemotron_r12_dp24"]
-    extra["nemotron_r12_dp24"] = dict(
-        shape=dict(g=lt.shape[0], r=lt.shape[1], Dp=lt.shape[2],
-                   S=cd.shape[1]),
-        ms=graph_ms(lambda: ops.adc_batch(lt, cd), launches=20))
+    extra["nemotron_r12_dp24"] = _adc_batch_row(*cases["nemotron_r12_dp24"])
     # pq_assign on the last decode token's last encode (the new values of
     # every KV head of the last layer)
     Xa, Ca = ctx["assign_X"], ctx["assign_C"]

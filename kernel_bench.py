@@ -26,8 +26,13 @@ operands at the smoke's shapes:
     check over that index, masked; the train eval's (256, 64, 256) tables
     over 1,541,673 random codes, unmasked), with the smoke's
     ``flat_library`` yardstick (one ``F.embedding_bag``, unmasked);
-  * ``adc_batch`` at the decode shape (g = 16, r = 1, Dp = 16,
-    S = 524,288), which shares the scans' source;
+  * ``adc_batch`` at ``BATCH_SHAPES``: olmo-1b's and qwen1.5-4b's decode
+    (g = 16 and 20, r = 1, Dp = 16, S = 524,288), grok-1's and
+    llama4-maverick's (g = 8, r = 6 and 5), and nemotron-4's geometry (g =
+    8, r = 12, Dp = 24) at the smoke's S = 65,537 and at 524,288, on
+    random codes, with the smoke's ``F.embedding_bag`` yardstick, its launch
+    plan, its lookups and the shared-gather floor of its planes and of r
+    4-byte lookups a code byte (the design before planes);
   * ``fused_lut`` at ``chip_smoke.ivf_cases()``' batches (serve_p99 and
     the Engine's buckets) at the serving width (n = 256, Dp = 32,
     K = 256, sub = 8), with the two library calls that compute the same
@@ -66,16 +71,28 @@ every row's codes read from one 4,096-row window that stays in cache (the
 lookups, with the table loads and id reads); ``fused_lut`` at its batches
 with the table entries neither formed nor written (the rotation alone) and
 with nothing staged or rotated and every entry stored as a constant (the
-table write alone). The ``fused_lut`` edits carry a second list for the
-source before its redesign, so ``--src`` splits the parent alike.
+table write alone); ``adc_batch`` at ``BATCH_SHAPES`` with only the
+planes staged (the tables alone) and with every lookup made but no score
+stored (the lookups and code reads without the output store). The
+``fused_lut`` edits carry a second list for the source before its
+redesign, so ``--src`` splits the parent alike.
 
-``--sweep`` times the scans, ``fused_lut`` and ``givens_rotate`` at their
-cases under each setting of the launch plans' constants in ``SWEEP`` (the
-other constants at their defaults), to show what the chosen values give.
+``--sweep`` times the scans, ``adc_batch``, ``fused_lut`` and
+``givens_rotate`` at their cases under each setting of the launch plans'
+constants in ``SWEEP`` (the other constants at their defaults), to show
+what the chosen values give.
 ``fused_lut``'s ``_LUT_RUN_LEN`` sets the inputs per run of its rotation's
 sums: it moves the order of every entry's sums (never with the batch), so
 its other settings time a kernel that rounds differently, not a faster
 plan of the same result.
+
+``--kmeans`` times the smoke's serving-index build (N sift_like rows, the
+identity rotation, ``chip_smoke.serve_config()``) with the k-means sums by
+``index_add_``, which adds in no fixed order on the card, and by
+``quant.kmeans.segment_sum``, in turns (index_add_, sorted, sorted,
+index_add_), each build from one seed; it prints each build's seconds,
+whether the builds of one variant have the same centroids and codebooks,
+and the sums alone at the build's two k-means shapes.
 
 One JSON line per case, then the card's ``nvidia-smi`` name and power
 limit. Exits 1 without a CUDA device.
@@ -87,6 +104,7 @@ import ctypes
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import chip_smoke as smoke
@@ -96,8 +114,17 @@ import chip_smoke as smoke
 GCD_NS = tuple(sorted({smoke.DIM, 512, *smoke.GCD_RAGGED}))
 KERNELS = ("gcd_score", "pq_assign", "ivf_adc", "adc_lookup", "adc_batch",
            "fused_lut", "givens_rotate")
-SPLIT_KERNELS = ("gcd_score", "ivf_adc", "adc_lookup", "fused_lut")
-BATCH_SHAPE = (16, 1, 16, 524_288)  # adc_batch (g, r, Dp, S) at decode
+SPLIT_KERNELS = ("gcd_score", "ivf_adc", "adc_lookup", "adc_batch",
+                 "fused_lut")
+#: adc_batch (g, r, Dp, S): each LM's decode at 524,288 positions (g =
+#: batch 1 × kv heads, r = heads ÷ kv heads) and chip_smoke.py's nemotron-4
+#: geometry
+BATCH_SHAPES = {"olmo-1b": (16, 1, 16, 524_288),
+                "qwen1.5-4b": (20, 1, 16, 524_288),
+                "grok-1": (8, 6, 16, 524_288),
+                "llama4-maverick": (8, 5, 16, 524_288),
+                "nemotron-4": (8, 12, 24, 65_537),
+                "nemotron-4_524k": (8, 12, 24, 524_288)}
 WINDOW = 4096                        # --split: rows of the cached window
 
 # --split: (source, {part: edit list}); an edit (old, new) is applied to
@@ -171,14 +198,29 @@ _LUT_PARTS = {
          ("      out[static_cast<long long>(i) * Dp * K] = acc;",
           "      out[static_cast<long long>(i) * Dp * K] = 1.f;")]),
 }
+_BATCH_PARTS = {
+    # the planes staged, no row read or scored: one staged entry written
+    "tables_only": [
+        ("  for (long long s = s0 + threadIdx.x; s < s1; s += blockDim.x) {",
+         "  if (threadIdx.x == 0) o[s0] = lut_s[s0 % DK];\n"
+         "  for (long long s = s1; s < s1; s += blockDim.x) {")],
+    # every row read and looked up, no score stored (a store no sum meets)
+    "no_store": [("      if (t < tables) o[t * S + s] = acc[t];",
+                  "      if (t < tables && acc[t] == 1.5e38f) "
+                  "o[t * S + s] = acc[t];")],
+}
 SPLITS = {"gcd_score": ("gcd_score.cu", _GCD_PARTS),
           "scans": ("adc_scan.cu", _SCAN_PARTS),
+          "adc_batch": ("adc_scan.cu", _BATCH_PARTS),
           "fused_lut": ("fused_lut.cu", _LUT_PARTS)}
 #: --sweep: each launch-plan constant of kernels/ops.py and its settings
 SWEEP = {"ivf_adc": {"_IVF_WAVES": (1, 2, 4, 8),
                      "_IVF_MIN_PASSES": (1, 2, 4, 8)},
          "adc_lookup": {"_FLAT_WAVES": (2, 4, 8, 16),
                         "_FLAT_MIN_ROWS": (1, 4, 16)},
+         "adc_batch": {"_BATCH_WAVES": (1, 2, 3, 4),
+                       "_BATCH_THREADS": (512, 1024),
+                       "_BATCH_MAX_TABLES": (4, 12)},
          "fused_lut": {"_LUT_FILL": (0.45, 0.9, 1.8),
                        "_LUT_RUN_LEN": (8, 16, 32)},
          "givens_rotate": {"_ROTATE_WAVES": (1, 2, 4),
@@ -417,22 +459,69 @@ def time_flat(index, Q, g, clock_hz: float) -> None:
         del codes, lib
 
 
-def time_batch(g) -> None:
+def batch_operands(g, names=None):
+    """(name, random (g, r, Dp, K) tables, random (g, S, Dp) uint8 codes) at
+    each of BATCH_SHAPES."""
     import torch
 
-    from repro_torch.kernels import ops, ref
+    for name, (G, r, Dp, S) in BATCH_SHAPES.items():
+        if names is None or name in names:
+            yield (name,
+                   torch.randn((G, r, Dp, smoke.K), generator=g,
+                               device=g.device),
+                   torch.randint(0, smoke.K, (G, S, Dp), generator=g,
+                                 device=g.device, dtype=torch.uint8))
 
-    G, r, Dp, S = BATCH_SHAPE
-    lut = torch.randn((G, r, Dp, smoke.K), generator=g, device=g.device)
-    codes = torch.randint(0, smoke.K, (G, S, Dp), generator=g,
-                          device=g.device, dtype=torch.uint8)
-    nbytes = codes.numel() + G * r * S * 4 + lut.numel() * 4
-    flops = G * r * S * Dp
-    _emit(kernel="adc_batch", g=G, r=r, Dp=Dp, S=S,
-          ms=smoke.graph_ms(lambda: ops.adc_batch(lut, codes), launches=20),
-          plain_ms=smoke.graph_ms(lambda: ref.adc_batch_ref(lut, codes),
-                                  launches=2),
-          bytes=nbytes, flops=flops, **smoke._bound(nbytes, flops))
+
+def batch_floors(codes, planes, chunks: int, r: int,
+                 clock_hz: float) -> dict:
+    """Shared-memory wavefronts of one adc_batch launch on these codes (g,
+    S, Dp), a warp of 32 rows a column at a time: the plan's planes (a
+    float4 plane: phases of 8 lanes over 8 bank groups; float2: 16 over 16;
+    one table: 32 over 32) for each chunk, and r 4-byte lookups (the
+    design before planes); each over the SMs at their highest clock."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    G, S, Dp = codes.shape
+    whole = S // 32 * 32
+    warps = codes[:, :whole].reshape(-1, 32, Dp)
+    act = torch.ones(warps.shape[:2], dtype=torch.bool, device=codes.device)
+    if whole < S:                     # the ragged last warp of each group
+        tail = torch.zeros((G, 32, Dp), dtype=torch.uint8,
+                           device=codes.device)
+        tail[:, :S - whole] = codes[:, whole:]
+        tact = torch.zeros((G, 32), dtype=torch.bool, device=codes.device)
+        tact[:, :S - whole] = True
+        warps, act = torch.cat([warps, tail]), torch.cat([act, tact])
+    wf = {w: int(gather_wavefronts(warps, act, 32 // w, 32 // w).sum())
+          for w in set(planes) | {1}}
+    sms = ops._sms(codes.device)
+    planes_wf = chunks * sum(wf[w] for w in planes)
+    return dict(wavefronts=planes_wf,
+                gather_floor_ms=planes_wf / (sms * clock_hz) * 1e3,
+                gather_floor_scalar_ms=r * wf[1] / (sms * clock_hz) * 1e3)
+
+
+def time_batch(g, clock_hz: float, plan_stats: bool) -> None:
+    """adc_batch at BATCH_SHAPES beside its plain version, its bound, the
+    smoke's F.embedding_bag yardstick and its shared-gather floors."""
+    from repro_torch.kernels import ops
+
+    for name, lut, codes in batch_operands(g):
+        G, r, Dp, K = lut.shape
+        S = codes.shape[1]
+        row = dict(kernel="adc_batch", case=name, g=G, r=r, Dp=Dp, S=S,
+                   lookups=G * r * S * Dp)
+        if plan_stats:
+            plan = ops.adc_batch_plan(G, r, S, Dp, K, ops._sms(codes.device))
+            row["plan"] = plan
+            row.update(batch_floors(codes, plan["planes"], plan["chunks"], r,
+                                    clock_hz))
+        row.update(smoke._adc_batch_row(lut, codes))
+        _emit(**row)
+        del lut, codes
 
 
 # -- fused_lut and givens_rotate --------------------------------------------
@@ -642,6 +731,30 @@ def scan_split(index, Q, g) -> None:
         _build._lib = base
 
 
+def batch_split(g) -> None:
+    """Time adc_batch beside its tables alone and its lookups without the
+    output store (see the module docstring) at BATCH_SHAPES."""
+    from repro_torch.kernels import _build, ops
+
+    source, parts = SPLITS["adc_batch"]
+    base = _build.library()
+    libs = {"full": base}
+    for part, edits in parts.items():
+        libs[part] = _Swapped(base, _variant(source, f"batch_{part}", edits),
+                              ("repro_adc_batch",))
+        _build._declare(libs[part])
+    try:
+        for name, lut, codes in batch_operands(g):
+            row = dict(kernel="adc_batch", case=name)
+            for part, lib in libs.items():
+                _build._lib = lib
+                row[f"{part}_ms"] = smoke.graph_ms(
+                    lambda: ops.adc_batch(lut, codes), launches=20)
+            _emit(**row)
+    finally:
+        _build._lib = base
+
+
 def lut_split(g) -> None:
     """Time fused_lut beside its rotation alone and its table write alone
     (see the module docstring) at chip_smoke.ivf_cases()' batches."""
@@ -683,6 +796,7 @@ def sweep(index, Q, g, only) -> None:
     rots = ([(name, rotate_operands(g, m, n)) for name, (m, n) in
              smoke.rotate_cases().items()] if "givens_rotate" in only
             else [])
+    batches = list(batch_operands(g)) if "adc_batch" in only else []
     for kernel, consts in SWEEP.items():
         if kernel not in only:
             continue
@@ -711,6 +825,15 @@ def sweep(index, Q, g, only) -> None:
                             Qb.shape[0], Qb.shape[1], *cb.shape, sms)
                         row[f"{name}_blocks"] = plan["blocks"]
                         row[f"{name}_runs"] = plan["runs"]
+                elif kernel == "adc_batch":
+                    for name, lut, cd in batches:
+                        row[f"{name}_ms"] = smoke.graph_ms(
+                            lambda: ops.adc_batch(lut, cd), launches=20)
+                        G, r, Dp, K = lut.shape
+                        plan = ops.adc_batch_plan(G, r, cd.shape[1], Dp, K,
+                                                  sms)
+                        row[f"{name}_chunk"] = plan["chunk"]
+                        row[f"{name}_blocks"] = G * plan["blocks"]
                 elif kernel == "givens_rotate":
                     for name, (X, pi, pj, c, s) in rots:
                         m, n = X.shape
@@ -734,6 +857,67 @@ def sweep(index, Q, g, only) -> None:
                 setattr(ops, c, v)
 
 
+def _index_add_sums(rows, seg, num_segments: int):
+    """The k-means sums by ``index_add_``, in no fixed order on the card."""
+    import torch
+
+    out = torch.zeros((num_segments, rows.shape[1]), dtype=rows.dtype,
+                      device=rows.device)
+    return out.index_add_(0, seg, rows)
+
+
+def kmeans_build(g) -> None:
+    """The serving-index build with either k-means sum (see the module
+    docstring)."""
+    import torch
+
+    from repro_torch import device, search
+    from repro_torch.data import synthetic
+    from repro_torch.quant import kmeans
+
+    X = synthetic.sift_like(g, smoke.N, smoke.DIM)
+    R = torch.eye(smoke.DIM, device=X.device)
+    sums = {"index_add": _index_add_sums,
+            "sorted": kmeans.segment_sum}
+    keep = kmeans.segment_sum
+    built = {}
+    try:
+        for name in ("index_add", "sorted", "sorted", "index_add"):
+            kmeans.segment_sum = sums[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            index = search.make("ivf").build(device.generator(smoke.SEED), X,
+                                             R, smoke.serve_config()).index
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            pair = (index.centroids, index.quantizer.codebooks)
+            first = built.setdefault(name, pair)
+            _emit(kernel="kmeans_build", sums=name, n=smoke.N,
+                  train=smoke.TRAIN, seconds=seconds,
+                  same_as_first=all(torch.equal(a, b)
+                                    for a, b in zip(first, pair)))
+            del index
+    finally:
+        kmeans.segment_sum = keep
+    # the sums alone: the coarse fit's (TRAIN, DIM) rows in L lists and the
+    # PQ fit's TRAIN · D subvectors in D · K codewords
+    for what, rows, n_seg in (
+            ("coarse", X[:smoke.TRAIN], smoke.L),
+            ("pq", X[:smoke.TRAIN].reshape(-1, smoke.DIM // smoke.D),
+             smoke.D * smoke.K)):
+        seg = torch.randint(0, n_seg, (rows.shape[0],), generator=g,
+                            device=X.device)
+        row = dict(kernel="kmeans_sums", case=what, rows=rows.shape[0],
+                   width=rows.shape[1], segments=n_seg)
+        for name, fn in sums.items():
+            row[f"{name}_ms"] = smoke.time_ms(
+                lambda fn=fn: fn(rows, seg, n_seg), reps=10, flush=False)
+        row["equal_runs"] = torch.equal(
+            kmeans.segment_sum(rows, seg, n_seg),
+            kmeans.segment_sum(rows, seg, n_seg))
+        _emit(**row)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", type=Path, default=None,
@@ -742,6 +926,8 @@ def main() -> int:
                     help="time the kernels' parts apart")
     ap.add_argument("--sweep", action="store_true",
                     help="time the scans under other launch-plan constants")
+    ap.add_argument("--kmeans", action="store_true",
+                    help="time the index build with either k-means sum")
     ap.add_argument("--only", nargs="+", choices=KERNELS, default=None,
                     help="time only these kernels")
     args = ap.parse_args()
@@ -762,17 +948,21 @@ def main() -> int:
                              tuple(SWEEP) if args.sweep else KERNELS))
     g = torch.Generator(device="cuda")
     g.manual_seed(smoke.SEED + 5)
-    scans = only & {"ivf_adc", "adc_lookup"}
+    scans = set() if args.kmeans else only & {"ivf_adc", "adc_lookup"}
+    clock_hz = _sm_clock_hz()
     if scans:
         index, Q = _serving(g)
-        clock_hz = _sm_clock_hz()
-    if args.sweep:
+    if args.kmeans:
+        kmeans_build(g)
+    elif args.sweep:
         sweep(index if scans else None, Q if scans else None, g, only)
     elif args.split:
         if "gcd_score" in only:
             gcd_split(g)
         if scans:
             scan_split(index, Q, g)
+        if "adc_batch" in only:
+            batch_split(g)
         if "fused_lut" in only:
             lut_split(g)
     else:
@@ -787,7 +977,7 @@ def main() -> int:
         if "adc_lookup" in only:
             time_flat(index, Q, g, clock_hz)
         if "adc_batch" in only:
-            time_batch(g)
+            time_batch(g, clock_hz, plan_stats=args.src is None)
         if "fused_lut" in only:
             time_lut(g, plan_stats=args.src is None)
         if "givens_rotate" in only:

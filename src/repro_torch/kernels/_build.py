@@ -115,7 +115,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                                     i, i, ll, p]
     lib.repro_fused_lut.restype = i
     lib.repro_adc_batch.argtypes = [p, i, p, p, p, i, i, ll, i, i, i, i, i,
-                                    p]
+                                    ll, i, ll, p]
     lib.repro_adc_batch.restype = i
 
 

@@ -53,16 +53,31 @@
 //     row runs; the chunks of a row run sit side by side in the grid, so
 //     they share its codes in L2.
 //
-// The grouped scan (KV-cache decode attention) has g groups, one per
-// (batch, kv-head) pair, each with its own S code rows and r tables (the
-// GQA repetition). A block takes one group, up to kMaxTables of its tables
-// (fewer when they would not fit in shared memory: r = 12, Dp = 24 is
-// 288 KiB) and a run of rows; each thread reads a code row once and scores
-// it against every staged table, so the codes cross the bus once per chunk
-// of tables, not once per table. Neighbouring threads write neighbouring s
-// of out[g, r, S]. At the long-context decode shape (g = 16, r = 1,
-// S = 524,288, Dp = 16) the codes are 134 MB a launch against a 16 KiB
-// table, so the floor is the code read.
+// The grouped scan (adc_batch, KV-cache decode attention) has g groups, one
+// per (batch, kv-head) pair, each with its own S code rows and r tables (the
+// GQA repetition: r = 1 for olmo-1b and qwen1.5-4b, 5 for llama4-maverick, 6
+// for grok-1, 12 for nemotron-4). It replaces repro/kernels/adc_batch.py
+// adc_batch, whose TPU body expands each code tile into a one-hot matrix
+// for the MXU (adc_common.adc_tile_scores). At r = 1 (g = 16, S = 524,288,
+// Dp = 16) the floor is the 134 MB code read against a 16 KiB table. At
+// r > 1 the r tables share every code byte, so the codes are read once per
+// chunk of tables and the shared-gather floor bounds the kernel, not the
+// bytes: r separate 4-byte lookups a code byte cost r times 3.2 wavefronts
+// a warp. So a block stages its chunk of a group's tables as planes of
+// four, entry (d, k) of the four one float4 (the flat scan's stage_tables
+// and add_entry), then a plane of two (float2) and one of one for the rest
+// of the chunk: a code byte costs ceil(r / 4) wide loads (2 at r = 5 or 6,
+// 3 at r = 12), not r narrow ones, and a float4 lookup spreads a phase's
+// eight lanes over the eight 16-byte bank groups (10.2 wavefronts a warp
+// for four tables on uniform codes, against 12.6 for four 4-byte ones).
+// kernels/ops.py adc_batch_plan picks the chunk (the tables that fit in
+// shared memory, in the layout of fewest wavefronts: 12 tables of Dp = 24 do
+// not fit, and three chunks of four beat two of six), the threads, the row
+// runs and the grid; the chunks of a row run sit side by side in the grid,
+// so they share its codes in L2. Each table's sum is float32 from 0 in
+// ascending column order, as the plain version adds, so the result is
+// bit-equal to it. Rows of a multiple of 16 (8) bytes are read by 16-byte
+// (8-byte) loads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,65 +92,14 @@ constexpr int kIvfThreads = 512;      // threads per block of the IVF scan
 constexpr int kIvfMinBlocks = 3;      // of them resident on an SM, at least
 constexpr int kIvfWindow = 256;       // schedule steps a block holds at once
 constexpr int kFlatMaxThreads = 1024;  // block size bound of the flat scan
-constexpr int kMaxTables = 8;  // tables of a group one block stages
+constexpr int kBatchMaxTables = 12;  // tables of a group one block stages
 constexpr int kMaxBatchThreads = 1024;  // block size bound of the grouped scan
-
-// Stage `tables` consecutive (Dp, K) tables, from table q on, into shared
-// memory as float32.
-template <typename LutT>
-__device__ __forceinline__ void load_lut(float* lut_s, const LutT* lut,
-                                         const float* scales, long long q,
-                                         int Dp, int K, int tables = 1) {
-  const LutT* src = lut + q * Dp * K;
-  const int total = tables * Dp * K;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    float v = static_cast<float>(src[i]);
-    if constexpr (!std::is_same<LutT, float>::value) {
-      const float* sc = scales + (q * Dp + i / K) * 2;
-      v = __fadd_rn(__fmul_rn(v, sc[0]), sc[1]);
-    }
-    lut_s[i] = v;
-  }
-}
-
-// Score one code row against `tables` staged tables (table t at
-// lut_s + t * Dp * K, t < RC), columns in ascending order, into acc[t].
-template <int RC>
-__device__ __forceinline__ void score_tables(float (&acc)[RC],
-                                             const float* lut_s,
-                                             const uint8_t* row, int Dp,
-                                             int K, bool vec16, int tables) {
-  const int stride = Dp * K;
-#pragma unroll
-  for (int t = 0; t < RC; ++t) acc[t] = 0.f;
-  if (vec16) {
-    const uint4* p = reinterpret_cast<const uint4*>(row);
-    for (int c = 0; c < Dp / 16; ++c) {
-      const uint4 w = __ldg(p + c);
-      const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int at = (c * 16 + j * 4 + b) * K +
-                         ((words[j] >> (8 * b)) & 0xffu);
-#pragma unroll
-          for (int t = 0; t < RC; ++t) {
-            if (t < tables) acc[t] = __fadd_rn(acc[t], lut_s[t * stride + at]);
-          }
-        }
-      }
-    }
-  } else {
-    for (int d = 0; d < Dp; ++d) {
-      const int at = d * K + __ldg(row + d);
-#pragma unroll
-      for (int t = 0; t < RC; ++t) {
-        if (t < tables) acc[t] = __fadd_rn(acc[t], lut_s[t * stride + at]);
-      }
-    }
-  }
-}
+// Chunks of up to this many float32 tables are compiled for two resident
+// blocks of kMaxBatchThreads (32 registers a thread), so two 1024-thread
+// blocks of four or five tables (64 or 80 KiB) fill an SM with 64 warps.
+// An int8/uint8 pack's dequantizing stage would spill at 32 registers; its
+// blocks keep the registers they need (one 1024-thread block an SM).
+constexpr int kBatchWideTables = 5;
 
 // -- the two index scans ----------------------------------------------------
 
@@ -231,8 +195,8 @@ __device__ __forceinline__ void stage_tables(float* lut_s, const LutT* lut,
 
 // acc[t] += entry `at` of staged table t, for the RC interleaved tables.
 template <int RC>
-__device__ __forceinline__ void add_entry(float (&acc)[RC],
-                                          const float* lut_s, int at) {
+__device__ __forceinline__ void add_entry(float* acc, const float* lut_s,
+                                          int at) {
   if constexpr (RC == 4) {
     const float4 v = reinterpret_cast<const float4*>(lut_s)[at];
     acc[0] = __fadd_rn(acc[0], v.x);
@@ -462,32 +426,136 @@ adc_lookup_kernel(const LutT* __restrict__ lut,
   }
 }
 
-// out[gi, j, s] for group gi = blockIdx.y / chunks, its tables
-// j in [j0, j0 + chunk) with j0 = (blockIdx.y % chunks) * chunk, and rows
-// s in [blockIdx.x * rows_per_block, +rows_per_block).
-template <typename LutT, int RC>
-__global__ void __launch_bounds__(kMaxBatchThreads)
+// -- the grouped scan --------------------------------------------------------
+
+// A chunk of T tables as planes: T / 4 of four tables (float4), then one of
+// two (float2) and one of one where T leaves them. Plane p of width w holds
+// the chunk's tables from first(p) on, at lut_s + first(p) * DK.
+template <int T>
+struct Planes {
+  static constexpr int p4 = T / 4, p2 = (T % 4) / 2, p1 = T % 2;
+};
+
+// Stage the chunk's first `tables` (<= T) tables, from table q0 on, as its
+// planes; a slot past `tables` in a plane holds zeros, a plane with no
+// table is not staged (its sums are never stored).
+template <typename LutT, int T>
+__device__ __forceinline__ void stage_planes(float* lut_s, const LutT* lut,
+                                             const float* scales,
+                                             long long q0, int tables,
+                                             int DK, int K) {
+  using P = Planes<T>;
+#pragma unroll
+  for (int p = 0; p < P::p4; ++p) {
+    if (4 * p < tables)
+      stage_tables<LutT, 4>(lut_s + 4 * p * DK, lut, scales, q0 + 4 * p,
+                            tables - 4 * p, DK, K);
+  }
+  constexpr int t2 = 4 * P::p4, t1 = 4 * P::p4 + 2 * P::p2;
+  if constexpr (P::p2 > 0) {
+    if (t2 < tables)
+      stage_tables<LutT, 2>(lut_s + t2 * DK, lut, scales, q0 + t2,
+                            tables - t2, DK, K);
+  }
+  if constexpr (P::p1 > 0) {
+    if (t1 < tables)
+      stage_tables<LutT, 1>(lut_s + t1 * DK, lut, scales, q0 + t1, 1, DK, K);
+  }
+}
+
+// acc[t] += entry `at` of each of the chunk's T staged tables: one wide
+// shared load a plane.
+template <int T>
+__device__ __forceinline__ void add_planes(float (&acc)[T],
+                                           const float* lut_s, int at,
+                                           int DK) {
+  using P = Planes<T>;
+#pragma unroll
+  for (int p = 0; p < P::p4; ++p)
+    add_entry<4>(acc + 4 * p, lut_s + 4 * p * DK, at);
+  constexpr int t2 = 4 * P::p4, t1 = 4 * P::p4 + 2 * P::p2;
+  if constexpr (P::p2 > 0) add_entry<2>(acc + t2, lut_s + t2 * DK, at);
+  if constexpr (P::p1 > 0) add_entry<1>(acc + t1, lut_s + t1 * DK, at);
+}
+
+// The lookups of one code word of 4 * N bytes (columns d0 ..), in order.
+template <int T, int N>
+__device__ __forceinline__ void add_words(float (&acc)[T],
+                                          const float* lut_s,
+                                          const uint32_t (&words)[N], int d0,
+                                          int K, int DK) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      add_planes<T>(acc, lut_s,
+                    (d0 + 4 * j + b) * K + ((words[j] >> (8 * b)) & 0xffu),
+                    DK);
+  }
+}
+
+// Score one code row against the chunk's T tables: acc[t] is table t's sum
+// of the row's Dp lookups, float32 from 0, columns in ascending order. The
+// row is read by 16-byte loads (vec 16), 8-byte loads (vec 8) or bytes.
+template <int T>
+__device__ __forceinline__ void score_planes(float (&acc)[T],
+                                             const float* lut_s,
+                                             const uint8_t* row, int Dp,
+                                             int K, int DK, int vec) {
+#pragma unroll
+  for (int t = 0; t < T; ++t) acc[t] = 0.f;
+  if (vec == 16) {
+    const uint4* p = reinterpret_cast<const uint4*>(row);
+    for (int c = 0; c < Dp / 16; ++c) {
+      const uint4 w = __ldg(p + c);
+      const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+      add_words<T, 4>(acc, lut_s, words, 16 * c, K, DK);
+    }
+  } else if (vec == 8) {
+    const uint2* p = reinterpret_cast<const uint2*>(row);
+    for (int c = 0; c < Dp / 8; ++c) {
+      const uint2 w = __ldg(p + c);
+      const uint32_t words[2] = {w.x, w.y};
+      add_words<T, 2>(acc, lut_s, words, 8 * c, K, DK);
+    }
+  } else {
+    for (int d = 0; d < Dp; ++d)
+      add_planes<T>(acc, lut_s, d * K + __ldg(row + d), DK);
+  }
+}
+
+// out[gi, j, s] for group gi = blockIdx.y, the chunk of T tables
+// j in [j0, j0 + T) with j0 = (blockIdx.x % chunks) * T (the last chunk
+// may hold fewer), and the rows s in [run * rows_per_block,
+// +rows_per_block) with run = blockIdx.x / chunks. Each thread reads a code
+// row once and scores it against every table of the chunk.
+template <typename LutT, int T>
+__global__ void __launch_bounds__(
+    kMaxBatchThreads,
+    std::is_same<LutT, float>::value && T <= kBatchWideTables ? 2 : 1)
 adc_batch_kernel(const LutT* __restrict__ lut,
                  const float* __restrict__ scales,
                  const uint8_t* __restrict__ codes, float* __restrict__ out,
-                 int r, long long S, int Dp, int K, int chunk,
-                 int rows_per_block, bool vec16) {
-  extern __shared__ float lut_s[];
-  const int chunks = (r + chunk - 1) / chunk;
-  const long long gi = blockIdx.y / chunks;
-  const int j0 = (blockIdx.y % chunks) * chunk;
-  const int tables = min(chunk, r - j0);
-  load_lut<LutT>(lut_s, lut, scales, gi * r + j0, Dp, K, tables);
+                 int r, long long S, int Dp, int K, int chunks,
+                 int rows_per_block, int vec) {
+  extern __shared__ float4 smem4[];
+  float* lut_s = reinterpret_cast<float*>(smem4);
+  const int DK = Dp * K;
+  const long long gi = blockIdx.y;
+  const int j0 = static_cast<int>(blockIdx.x % chunks) * T;
+  const int tables = min(T, r - j0);
+  stage_planes<LutT, T>(lut_s, lut, scales, gi * r + j0, tables, DK, K);
   __syncthreads();
-  const long long s0 = static_cast<long long>(blockIdx.x) * rows_per_block;
+  const long long s0 =
+      static_cast<long long>(blockIdx.x / chunks) * rows_per_block;
   const long long s1 = min(S, s0 + rows_per_block);
+  const uint8_t* rows = codes + gi * S * Dp;
   float* o = out + (gi * r + j0) * S;
   for (long long s = s0 + threadIdx.x; s < s1; s += blockDim.x) {
-    float acc[RC];
-    score_tables<RC>(acc, lut_s, codes + (gi * S + s) * Dp, Dp, K, vec16,
-                     tables);
+    float acc[T];
+    score_planes<T>(acc, lut_s, rows + s * Dp, Dp, K, DK, vec);
 #pragma unroll
-    for (int t = 0; t < RC; ++t) {
+    for (int t = 0; t < T; ++t) {
       if (t < tables) o[t * S + s] = acc[t];
     }
   }
@@ -501,8 +569,13 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-bool rows_vec16(const void* codes, int Dp) {
-  return Dp % 16 == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0;
+// 16 where a code row is whole 16-byte words and the codes are 16-byte
+// aligned, 8 for 8-byte words, else 1 (byte loads).
+int row_vec(const void* codes, int Dp) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(codes);
+  if (Dp % 16 == 0 && at % 16 == 0) return 16;
+  if (Dp % 8 == 0 && at % 8 == 0) return 8;
+  return 1;
 }
 
 // The launch plans are kernels/ops.py's (ivf_adc_plan, adc_lookup_plan);
@@ -535,7 +608,7 @@ cudaError_t launch_ivf(const void* lut, const void* scales, const void* codes,
       static_cast<const int32_t*>(block_idx),
       static_cast<const int32_t*>(block_query),
       static_cast<const int32_t*>(ids), static_cast<float*>(out), S, Dp, K,
-      bs, run, runs_per_query, spq, rows_vec16(codes, Dp));
+      bs, run, runs_per_query, spq, row_vec(codes, Dp) == 16);
   return cudaGetLastError();
 }
 
@@ -557,7 +630,7 @@ cudaError_t launch_flat(const void* lut, const void* scales, const void* codes,
       static_cast<const LutT*>(lut), static_cast<const float*>(scales),
       static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(ids),
       static_cast<float*>(out), b, N, Dp, K, rows_per_block,
-      rows_vec16(codes, Dp));
+      row_vec(codes, Dp) == 16);
   return cudaGetLastError();
 }
 
@@ -580,42 +653,53 @@ cudaError_t launch_flat_tables(const void* lut, const void* scales,
 #undef REPRO_FLAT_RC
 }
 
-template <typename LutT, int RC>
+template <typename LutT, int T>
 cudaError_t launch_batch(const void* lut, const void* scales,
                          const void* codes, void* out, int g, int r,
-                         long long S, int Dp, int K, int chunk,
-                         int rows_per_block, int threads,
-                         cudaStream_t stream) {
-  const size_t smem = sizeof(float) * static_cast<size_t>(chunk) * Dp * K;
-  auto kernel = adc_batch_kernel<LutT, RC>;
+                         long long S, int Dp, int K, int chunks,
+                         int rows_per_block, long long blocks, int threads,
+                         size_t smem, cudaStream_t stream) {
+  auto kernel = adc_batch_kernel<LutT, T>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const int chunks = (r + chunk - 1) / chunk;
-  const dim3 grid(static_cast<unsigned>((S + rows_per_block - 1) /
-                                        rows_per_block),
-                  static_cast<unsigned>(g * chunks));
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(g));
   kernel<<<grid, threads, smem, stream>>>(
       static_cast<const LutT*>(lut), static_cast<const float*>(scales),
       static_cast<const uint8_t*>(codes), static_cast<float*>(out), r, S, Dp,
-      K, chunk, rows_per_block, rows_vec16(codes, Dp));
+      K, chunks, rows_per_block, row_vec(codes, Dp));
   return cudaGetLastError();
 }
 
+// The plan is kernels/ops.py adc_batch_plan's; it is checked whole here:
+// the chunks cover the r tables once, the row runs the S rows, the staged
+// tables are the shared memory asked for, and the grid is within limits.
 template <typename LutT>
 cudaError_t launch_batch_tables(const void* lut, const void* scales,
                                 const void* codes, void* out, int g, int r,
                                 long long S, int Dp, int K, int chunk,
-                                int rows_per_block, int threads,
-                                cudaStream_t stream) {
-  if (threads < 1 || threads > kMaxBatchThreads) return cudaErrorInvalidValue;
-#define REPRO_BATCH(RC)                                                   \
-  launch_batch<LutT, RC>(lut, scales, codes, out, g, r, S, Dp, K, chunk, \
-                         rows_per_block, threads, stream)
-  if (chunk <= 1) return REPRO_BATCH(1);
-  if (chunk <= 2) return REPRO_BATCH(2);
-  if (chunk <= 4) return REPRO_BATCH(4);
-  if (chunk <= kMaxTables) return REPRO_BATCH(kMaxTables);
-  return cudaErrorInvalidValue;
+                                int chunks, int rows_per_block,
+                                long long blocks, int threads,
+                                size_t smem, cudaStream_t stream) {
+  if (chunk < 1 || chunk > kBatchMaxTables || chunks < 1 ||
+      static_cast<long long>(chunk) * chunks < r ||
+      static_cast<long long>(chunk) * (chunks - 1) >= r ||
+      threads < 32 || threads > kMaxBatchThreads || threads % 32 != 0 ||
+      rows_per_block < 1 ||
+      blocks != chunks * ((S + rows_per_block - 1) / rows_per_block) ||
+      blocks > 0x7fffffffLL || g < 1 || g > 65535 ||
+      smem != sizeof(float) * static_cast<size_t>(chunk) * Dp * K)
+    return cudaErrorInvalidValue;
+#define REPRO_BATCH(T)                                                      \
+  case T:                                                                   \
+    return launch_batch<LutT, T>(lut, scales, codes, out, g, r, S, Dp, K,  \
+                                 chunks, rows_per_block, blocks, threads,  \
+                                 smem, stream);
+  switch (chunk) {
+    REPRO_BATCH(1) REPRO_BATCH(2) REPRO_BATCH(3) REPRO_BATCH(4)
+    REPRO_BATCH(5) REPRO_BATCH(6) REPRO_BATCH(7) REPRO_BATCH(8)
+    REPRO_BATCH(9) REPRO_BATCH(10) REPRO_BATCH(11) REPRO_BATCH(12)
+    default: return cudaErrorInvalidValue;
+  }
 #undef REPRO_BATCH
 }
 
@@ -669,20 +753,22 @@ extern "C" int repro_adc_lookup(const void* lut, int lut_kind,
 #undef REPRO_FLAT
 }
 
-// out (g, r, S) float32; `chunk` tables of a group per block (at most
-// kMaxTables, and chunk * Dp * K floats must fit in shared memory), blocks
-// of `threads` threads (at most kMaxBatchThreads) over `rows_per_block`
-// rows (kernels/ops.py sizes both: more threads where one block fills an
-// SM's shared memory, shorter runs where the grid would be thin).
+// out (g, r, S) float32: kernels/ops.py adc_batch_plan's chunk tables of
+// a group a block (at most kBatchMaxTables, staged as planes), `chunks` of
+// them, blocks of `threads` threads over `rows_per_block` rows, `blocks`
+// blocks of chunks × row runs for each of the g groups, `smem` bytes of
+// tables. Returns a cudaError_t.
 extern "C" int repro_adc_batch(const void* lut, int lut_kind,
                                const void* scales, const void* codes,
                                void* out, int g, int r, long long S, int Dp,
-                               int K, int chunk, int rows_per_block,
-                               int threads, void* stream) {
+                               int K, int chunk, int chunks,
+                               int rows_per_block, long long blocks,
+                               int threads, long long smem, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_TABLES(T)                                                   \
-  launch_batch_tables<T>(lut, scales, codes, out, g, r, S, Dp, K, chunk, \
-                         rows_per_block, threads, st)
+#define REPRO_TABLES(T)                                                     \
+  launch_batch_tables<T>(lut, scales, codes, out, g, r, S, Dp, K, chunk,   \
+                         chunks, rows_per_block, blocks, threads,          \
+                         static_cast<size_t>(smem), st)
   switch (lut_kind) {
     case 0: return REPRO_TABLES(float);
     case 1: return REPRO_TABLES(int8_t);

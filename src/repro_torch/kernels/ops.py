@@ -37,7 +37,8 @@ from repro_torch.kernels.adc_common import (  # noqa: F401
 __all__ = ["gcd_score", "gcd_score_tile", "givens_rotate",
            "givens_rotate_plan", "apply_pair_rotations", "pq_assign",
            "pq_assign_plan", "embedding_bag", "adc_lookup",
-           "adc_lookup_plan", "adc_batch", "ivf_adc", "ivf_adc_plan",
+           "adc_lookup_plan", "adc_batch", "adc_batch_plan", "ivf_adc",
+           "ivf_adc_plan",
            "ivf_adc_run_starts", "fused_lut", "fused_lut_plan",
            "lut_column_map", "topk_merge", "quantize_luts",
            "dequantize_luts", "LUT_DTYPES", "LAUNCHES", "reset_launches"]
@@ -66,9 +67,18 @@ _LUT_TILES = (32, 16, 8, 4, 2, 1)  # query tiles of the fused LUT build
 _LUT_THREADS = 256       # threads per block of it (kThreads in the source)
 _LUT_RUN_LEN = 16        # inputs per run of its rotation's sums
 _LUT_FILL = 0.9          # blocks per SM its grid has, at least
-_BATCH_ROWS = (8192, 1024)  # longest and shortest row run of a block of
-#                             the grouped scan
-_BATCH_TABLES = 8        # tables of a group per block (kMaxTables)
+_BATCH_WAVES = 2         # resident waves of blocks of the grouped scan's
+#                          grid
+_BATCH_MIN_ROWS = 2      # code rows per thread of a grouped-scan block, least
+_BATCH_THREADS = 512     # threads per block of it, unless below
+_BATCH_WIDE_TABLES = 5   # chunks of up to this many float32 tables run
+#                          in 32 registers a thread (kBatchWideTables)
+_BATCH_MAX_TABLES = 12   # tables of a group one block stages, most
+#                          (kBatchMaxTables)
+#: expected shared-memory wavefronts of one warp's lookup into a plane of
+#: w interleaved tables on uniform codes (K = 256): per phase of 32 / w
+#: lanes, the most distinct entries one of its 32 / w bank units serves
+_PLANE_WAVEFRONTS = {4: 10.17, 2: 5.84, 1: 3.16}
 _GCD_TILES = (16, 32)    # gcd_score tile widths, narrow and wide
 _GCD_WIDE = 256          # the widest n that takes the narrow tiles
 _ASSIGN_RESIDENT_SUB = 16   # widest subvector of the resident pq_assign body
@@ -494,19 +504,61 @@ def adc_lookup(lut: torch.Tensor, codes: torch.Tensor,
     return out
 
 
-def _batch_blocks(groups: int, S: int, smem: int,
-                  device: torch.device) -> tuple[int, int]:
-    """Rows and threads per block of the grouped scan: 512 threads, or
-    1024 when a block's tables take more than half of an SM's shared
-    memory (one block is all the SM then holds); runs of 8192 rows,
-    halved down to 1024 while the grid would give an SM fewer than four
-    blocks. Found by timing 128–1024 threads and 1024–8192 rows on an H100
-    at the decode shape and Nemotron's KV geometry."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    rows, shortest = _BATCH_ROWS
-    while rows > shortest and groups * -(-S // rows) < 4 * sms:
-        rows //= 2
-    return rows, 1024 if 2 * smem > _SMEM_LIMIT else 512
+def batch_planes(tables: int) -> tuple[int, ...]:
+    """The plane widths of a chunk of the grouped scan: fours, then a two
+    and a one where the chunk leaves them (6 -> (4, 2), 12 -> (4, 4, 4))."""
+    return ((4,) * (tables // 4) + (2,) * (tables % 4 // 2)
+            + (1,) * (tables % 2))
+
+
+def adc_batch_plan(g: int, r: int, S: int, Dp: int, K: int,
+                   sms: int) -> dict:
+    """Launch plan of the grouped scan of g groups of r (Dp, K) tables over
+    S code rows each, on a card with ``sms`` SMs.
+
+    A block stages a chunk of ``chunk`` of a group's tables as float32
+    planes (``batch_planes``: entry (d, k) of four tables in one float4)
+    and scores each code row it reads against all of them. The chunk is
+    the one of at most ``_BATCH_MAX_TABLES`` tables that fit in a block's
+    shared memory whose ``chunks`` = ⌈r / chunk⌉ chunks need the fewest
+    expected shared-memory wavefronts a code byte (``_PLANE_WAVEFRONTS``;
+    the last chunk may be partial and costs as a whole one), the larger on
+    a tie: all r tables in one chunk where they fit (6 at Dp = 16), three
+    chunks of four where twelve do not (Dp = 24). Blocks of 1024 threads
+    where one block fills an SM's shared memory, or where two do and their
+    chunk is at most ``_BATCH_WIDE_TABLES`` tables, which the kernel runs
+    in 32 registers a thread for float32 tables (two such blocks hold an
+    SM's 64 warps; six tables take more, so two blocks of 512); else
+    ``_BATCH_THREADS``. Each takes a run of ``rows`` code rows (a multiple
+    of its threads, at least ``_BATCH_MIN_ROWS`` a thread), cut so that
+    the grid of g × chunks × row runs is about ``_BATCH_WAVES`` resident
+    waves: a block restages its tables from L2 (96 KiB at grok-1's six),
+    so fewer, longer runs stage less, and whole waves leave no SM idle at
+    the end (``kernel_bench.py --sweep`` times other constants). The grid
+    is (``blocks``, g): the chunks of a row run sit side by side and share
+    its codes in L2."""
+    fit = min(_BATCH_MAX_TABLES, _SMEM_LIMIT // max(1, 4 * Dp * K))
+    if fit < 1:
+        raise ValueError(f"a (Dp={Dp}, K={K}) float32 table does not fit in "
+                         "one block's shared memory")
+
+    def wavefronts(c: int) -> float:
+        return -(-r // c) * sum(_PLANE_WAVEFRONTS[w] for w in batch_planes(c))
+
+    chunk = min(range(min(fit, max(r, 1)), 0, -1), key=wavefronts)
+    chunks = -(-r // chunk) if r else 0
+    smem = 4 * chunk * Dp * K
+    fit_blocks = _SM_SMEM // (smem + _BLOCK_SMEM)
+    threads = (1024 if fit_blocks == 1 or (
+        fit_blocks == 2 and chunk <= _BATCH_WIDE_TABLES) else _BATCH_THREADS)
+    target = _BATCH_WAVES * sms * _resident(threads, smem)
+    runs = max(1, -(-target // max(1, g * chunks)))
+    rows = -(-max(1, -(-S // runs)) // threads) * threads
+    rows = max(rows, _BATCH_MIN_ROWS * threads)
+    blocks = chunks * -(-S // rows)
+    return dict(chunk=chunk, chunks=chunks, planes=batch_planes(chunk),
+                threads=threads, smem=smem, rows=rows, blocks=blocks,
+                grid=(blocks, g))
 
 
 def adc_batch(lut: torch.Tensor, codes: torch.Tensor,
@@ -515,7 +567,8 @@ def adc_batch(lut: torch.Tensor, codes: torch.Tensor,
     the KV-cache decode scorer (group = one (batch, kv-head) pair, r = the
     GQA repetition). ``scales`` (g, r, Dp, 2): int8/uint8 LUT pack. The
     uint8 codes go to the kernel as they are stored; no widened copy of the
-    cache is made."""
+    cache is made. On the card each code row is read once for a chunk of
+    the group's tables (``adc_batch_plan``)."""
     if not _on_card(lut, codes, scales):
         return ref.adc_batch_ref(lut, codes, scales)
     if lut.dtype not in _LUT_KIND:
@@ -532,25 +585,20 @@ def adc_batch(lut: torch.Tensor, codes: torch.Tensor,
     _require(codes, "codes", torch.uint8, (g, S, Dp))
     if K > 256:
         raise ValueError(f"K={K}: uint8 codes address at most 256 codewords")
-    fit = min(_BATCH_TABLES, _SMEM_LIMIT // max(1, 4 * Dp * K))
-    if fit < 1:
-        raise ValueError(f"a (Dp={Dp}, K={K}) float32 table does not fit in "
-                         "one block's shared memory")
-    chunks = -(-r // fit) if r else 0
-    chunk = -(-r // chunks) if r else 1
-    if g * chunks > 65535:
-        raise ValueError(f"adc_batch: {g} groups × {chunks} table chunks "
-                         "exceed the grid's y limit")
-    if -(-S // _BATCH_ROWS[1]) > 2**31 - 1:
-        raise ValueError(f"adc_batch: S={S} exceeds the grid's x limit")
+    plan = adc_batch_plan(g, r, S, Dp, K, _sms(lut.device))
+    if g > 65535:
+        raise ValueError(f"adc_batch: {g} groups exceed the grid's y limit")
+    if plan["blocks"] > 2**31 - 1:
+        raise ValueError(f"adc_batch: S={S} in {plan['chunks']} table chunks "
+                         "exceeds the grid's x limit")
     out = torch.empty((g, r, S), dtype=torch.float32, device=lut.device)
     if g and r and S:
-        rows, threads = _batch_blocks(g * chunks, S, 4 * chunk * Dp * K,
-                                      lut.device)
         with torch.cuda.device(lut.device):
             err = _build.library().repro_adc_batch(
                 _ptr(lut), kind, _ptr(scales), _ptr(codes), _ptr(out), g, r,
-                S, Dp, K, chunk, rows, threads, _stream(lut.device))
+                S, Dp, K, plan["chunk"], plan["chunks"], plan["rows"],
+                plan["blocks"], plan["threads"], plan["smem"],
+                _stream(lut.device))
         _build.check(err, "adc_batch")
         LAUNCHES["adc_batch"] += 1
     return out

@@ -5,6 +5,11 @@ EMA codebook update (port of ``repro/quant/kmeans.py:29-108`` and
 One implementation serves per-subspace PQ codebooks and, through
 ``vq_kmeans`` (one subspace), the IVF coarse centroids. Random state is an
 explicit ``torch.Generator`` on the data's device.
+
+The per-codeword sums go through ``segment_sum``, which gives one answer
+a seed on the card too, as the JAX package's ``segment_sum`` does: there
+``index_add_`` adds in no fixed order, so two builds of one seed would
+differ.
 """
 from __future__ import annotations
 
@@ -26,6 +31,31 @@ def kmeans_init(generator: torch.Generator, X: torch.Tensor,
     return split(X[idx], cfg.num_subspaces).transpose(0, 1).contiguous()
 
 
+def segment_sum(rows: torch.Tensor, seg: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Σ of the rows (M, w) of each segment -> (num_segments, w), the same
+    bits in every run on either device: a stable sort of the rows by
+    segment, then each segment's rows summed one after another in row
+    order from 0, the order ``index_add_`` takes on the CPU, where the two
+    agree bit for bit. On the card ``index_add_`` adds in no fixed order;
+    here the sort is a radix sort and each output element one thread's
+    loop. No process-wide deterministic mode is switched on: a compactor
+    thread runs beside the serving thread. A segment no row chose sums
+    to 0."""
+    order = torch.sort(seg, stable=True)[1]
+    lengths = torch.bincount(seg, minlength=num_segments)
+    return torch.segment_reduce(rows[order], "sum", lengths=lengths,
+                                unsafe=True)
+
+
+def _counts(seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Rows per segment as float32. Sums of 1.0 are exact in any order
+    below 2²⁴ rows a segment, so ``index_add_`` gives one answer here on
+    either device."""
+    cnt = torch.zeros((num_segments,), dtype=torch.float32, device=seg.device)
+    return cnt.index_add_(0, seg, torch.ones_like(seg, dtype=torch.float32))
+
+
 def kmeans_update(X: torch.Tensor, codebooks: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """One Lloyd iteration over all D subspaces -> (codebooks, codes).
@@ -35,12 +65,8 @@ def kmeans_update(X: torch.Tensor, codebooks: torch.Tensor
     seg = (codes.long()
            + torch.arange(D, device=X.device) * K).reshape(-1)     # (m·D,)
     rows = split(X, D).reshape(-1, sub)                            # (m·D, sub)
-    sums = torch.zeros((D * K, sub), dtype=X.dtype, device=X.device)
-    sums.index_add_(0, seg, rows)
-    cnt = torch.zeros((D * K,), dtype=torch.float32, device=X.device)
-    cnt.index_add_(0, seg, torch.ones_like(seg, dtype=torch.float32))
-    sums = sums.view(D, K, sub)
-    cnt = cnt.view(D, K, 1)
+    sums = segment_sum(rows, seg, D * K).view(D, K, sub)
+    cnt = _counts(seg, D * K).view(D, K, 1)
     new = torch.where(cnt > 0, sums / torch.clamp(cnt, min=1.0), codebooks)
     return new, codes
 
@@ -69,16 +95,13 @@ def codebook_ema_update(codebooks: torch.Tensor, X: torch.Tensor,
     """Streaming EMA codebook update (VQ-VAE style): each codeword moves
     towards the mean of the rows assigned to it, ``decay·C + (1 − decay)·
     mean``; a codeword no row chose keeps its value. The per-codeword sums
-    go through ``index_add_``, which on the card adds in no fixed order."""
+    go through ``segment_sum``: one answer a seed on either device."""
     D, K, sub = codebooks.shape
     seg = (codes.long()
            + torch.arange(D, device=X.device) * K).reshape(-1)     # (m·D,)
     rows = split(X, D).reshape(-1, sub)
-    sums = torch.zeros((D * K, sub), dtype=X.dtype, device=X.device)
-    sums.index_add_(0, seg, rows)
-    cnt = torch.zeros((D * K,), dtype=torch.float32, device=X.device)
-    cnt.index_add_(0, seg, torch.ones_like(seg, dtype=torch.float32))
-    cnt = cnt.view(D, K, 1)
-    batch_mean = sums.view(D, K, sub) / torch.clamp(cnt, min=1.0)
+    sums = segment_sum(rows, seg, D * K).view(D, K, sub)
+    cnt = _counts(seg, D * K).view(D, K, 1)
+    batch_mean = sums / torch.clamp(cnt, min=1.0)
     upd = decay * codebooks + (1.0 - decay) * batch_mean
     return torch.where(cnt > 0, upd, codebooks)

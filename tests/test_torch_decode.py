@@ -53,7 +53,7 @@ def _close(got, want, rel: float) -> None:
 # -- adc_batch ----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("r", [1, 3])
+@pytest.mark.parametrize("r", [1, 3, 5, 6, 12])
 @pytest.mark.parametrize("lut_dtype", ["float32", "int8", "uint8"])
 def test_adc_batch_ref_matches_jax(lut_dtype, r):
     """The plain grouped scan against the JAX Pallas kernel (interpret

@@ -254,6 +254,53 @@ def test_kmeans_update_matches_jax():
                                   np.asarray(jcodes)[clear])
 
 
+@pytest.mark.parametrize("M, S, w", [(600, 8, 4), (5000, 1024, 3),
+                                     (40_000, 256, 8)])
+def test_segment_sum_matches_index_add(M, S, w):
+    """The k-means sums (a stable sort, then each segment's rows in row
+    order, the path the card takes too) equal index_add_'s bit for bit on
+    the CPU, on dyadic rows (every sum exact in any order) and on random
+    float32 rows (the same order of adds); a segment no row chose sums to
+    0; a second call gives the same bits."""
+    rng = np.random.RandomState(M)
+    seg = rng.randint(0, S, M)
+    seg[seg == S // 2] = 0                    # one empty segment
+    seg = _t(seg.astype(np.int64))
+    for rows in (_t((rng.randint(-64, 65, (M, w)) / 8).astype(np.float32)),
+                 _t(rng.randn(M, w).astype(np.float32))):
+        want = torch.zeros((S, w)).index_add_(0, seg, rows)
+        got = tkmeans.segment_sum(rows, seg, S)
+        assert got.shape == (S, w) and got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+        np.testing.assert_array_equal(
+            tkmeans.segment_sum(rows, seg, S).numpy(), got.numpy())
+        assert float(got[S // 2].abs().max()) == 0.0
+
+
+def test_kmeans_update_is_the_index_add_lloyd_step():
+    """One Lloyd step through segment_sum gives the bits of the same step
+    summed by index_add_ on random float32 rows, empty clusters kept,
+    twice alike."""
+    rng = np.random.RandomState(4)
+    X = rng.randn(700, 16).astype(np.float32)
+    cb0 = np.transpose(X[rng.choice(700, 8, replace=False)].reshape(8, 4, 4),
+                       (1, 0, 2)).copy()
+    cb0[:, 7] = 100.0                         # a codeword no row chooses
+    Xt, cbt = _t(X), _t(cb0)
+    codes = quant.codebook.assign(Xt, cbt)
+    seg = (codes.long() + torch.arange(4) * 8).reshape(-1)
+    sums = torch.zeros((32, 4)).index_add_(0, seg, Xt.reshape(-1, 4))
+    cnt = torch.zeros(32).index_add_(0, seg, torch.ones(seg.shape[0]))
+    want = torch.where(cnt.view(4, 8, 1) > 0,
+                       sums.view(4, 8, 4) / torch.clamp(cnt.view(4, 8, 1),
+                                                        min=1.0), cbt)
+    for _ in range(2):
+        cb, got_codes = tkmeans.kmeans_update(Xt, cbt)
+        np.testing.assert_array_equal(got_codes.numpy(), codes.numpy())
+        np.testing.assert_array_equal(cb.numpy(), want.numpy())
+    np.testing.assert_array_equal(cb[:, 7].numpy(), cb0[:, 7])
+
+
 def test_build_is_a_valid_csr():
     """The end-to-end build on a torch generator draws other random numbers
     than the JAX build, so it is checked by its invariants."""

@@ -243,6 +243,69 @@ def test_adc_lookup_plan_chunks(case):
         assert plan["blocks"] >= 132
 
 
+# adc_batch at each LM config's decode geometry, S = 524,288 (long_500k):
+# g = batch 1 × kv heads, r = heads ÷ kv heads, Dp = the KV quantizer's
+# subspaces; and two ragged cases
+ADC_BATCH_PLAN_CASES = {"olmo-1b": (16, 1, 524_288, 16),
+                        "qwen1.5-4b": (20, 1, 524_288, 16),
+                        "grok-1": (8, 6, 524_288, 16),
+                        "llama4-maverick": (8, 5, 524_288, 16),
+                        "nemotron-4": (8, 12, 524_288, 24),
+                        "nemotron-4_short": (8, 12, 65_537, 24),
+                        "ragged_r3": (5, 3, 100_003, 16),
+                        "ragged_r7_dp24": (3, 7, 1_001, 24)}
+
+
+@pytest.mark.parametrize("case", sorted(ADC_BATCH_PLAN_CASES))
+def test_adc_batch_plan_covers_tables_and_rows_once(case):
+    """The planes of a chunk and the chunks cover r tables exactly once,
+    the staged planes fit one block's shared memory, the row runs cover S
+    once, the grid is within its limits, and S = 524,288 fills the card."""
+    g, r, S, Dp = ADC_BATCH_PLAN_CASES[case]
+    plan = tops.adc_batch_plan(g, r, S, Dp, 256, sms=132)
+    chunk, chunks, planes = plan["chunk"], plan["chunks"], plan["planes"]
+    assert sum(planes) == chunk and planes == tops.batch_planes(chunk)
+    assert list(planes) == sorted(planes, reverse=True)
+    assert set(planes) <= {4, 2, 1} and planes.count(2) <= 1 \
+        and planes.count(1) <= 1
+    assert chunks * chunk >= r > (chunks - 1) * chunk
+    assert chunk <= tops._BATCH_MAX_TABLES
+    assert plan["smem"] == 4 * chunk * Dp * 256 <= tops._SMEM_LIMIT
+    assert plan["threads"] in (512, 1024)
+    assert plan["rows"] % plan["threads"] == 0
+    runs = -(-S // plan["rows"])
+    assert runs * plan["rows"] >= S > (runs - 1) * plan["rows"]
+    assert plan["blocks"] == chunks * runs <= 2**31 - 1
+    assert plan["grid"] == (plan["blocks"], g) and g <= 65535
+    assert plan["rows"] >= tops._BATCH_MIN_ROWS * plan["threads"]
+    if S == 524_288:
+        # at least a resident wave: two blocks an SM of a chunk's tables
+        assert g * plan["blocks"] >= 132 * (
+            2 if plan["smem"] <= tops._SMEM_LIMIT // 2 else 1)
+
+
+@pytest.mark.parametrize("case, chunk, chunks, planes", [
+    ("olmo-1b", 1, 1, (1,)), ("grok-1", 6, 1, (4, 2)),
+    ("llama4-maverick", 5, 1, (4, 1)), ("nemotron-4", 4, 3, (4,)),
+    ("ragged_r3", 3, 1, (2, 1)), ("ragged_r7_dp24", 7, 1, (4, 2, 1))])
+def test_adc_batch_plan_layout(case, chunk, chunks, planes):
+    """All r tables in one chunk where they fit, as planes of four, then
+    two, then one; three chunks of four where twelve Dp = 24 tables
+    (294,912 bytes) do not fit; r = 1 keeps its 8,192-row runs of 512
+    threads at olmo-1b's 16 groups."""
+    g, r, S, Dp = ADC_BATCH_PLAN_CASES[case]
+    plan = tops.adc_batch_plan(g, r, S, Dp, 256, sms=132)
+    assert (plan["chunk"], plan["chunks"], plan["planes"]) == (chunk, chunks,
+                                                               planes)
+    if r == 1:
+        assert (plan["rows"], plan["threads"]) == (8192, 512)
+
+
+def test_adc_batch_plan_rejects_a_table_too_wide():
+    with pytest.raises(ValueError, match="does not fit"):
+        tops.adc_batch_plan(1, 2, 100, 256, 256, sms=132)
+
+
 @pytest.mark.parametrize("dtype", ["int8", "uint8"])
 def test_quantize_luts_matches_jax(dtype):
     rng = np.random.RandomState(5)
@@ -738,3 +801,42 @@ def test_givens_rotate_plan_covers_x_once(case):
         assert plan["blocks"] >= 132
     if case == "codebook_rows":
         assert rows >= 8
+
+
+# -- kernel_bench.py's edits ---------------------------------------------------
+
+
+def _kernel_bench(monkeypatch):
+    import importlib
+    from pathlib import Path
+
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1]))
+    return importlib.import_module("kernel_bench")
+
+
+@pytest.mark.parametrize("split", ["gcd_score", "scans", "adc_batch",
+                                   "fused_lut"])
+def test_kernel_bench_split_edits_find_their_text(split, monkeypatch):
+    """Every part of ``kernel_bench.py --split`` edits text that is in this
+    checkout's source (the card's build of a part fails on a missing text,
+    so a change to a kernel's loops must update its edits)."""
+    from repro_torch.kernels import _build
+
+    kb = _kernel_bench(monkeypatch)
+    source, parts = kb.SPLITS[split]
+    text = (_build.CSRC / source).read_text()
+    for part, edits in parts.items():
+        first = edits[0] if isinstance(edits, tuple) else edits
+        missing = [old for old, _ in first if old not in text]
+        assert not missing, (part, missing)
+
+
+def test_kernel_bench_sweeps_plan_constants(monkeypatch):
+    """``--sweep`` sets constants the launch plans read."""
+    kb = _kernel_bench(monkeypatch)
+    for kernel, consts in kb.SWEEP.items():
+        for name, values in consts.items():
+            assert hasattr(tops, name), (kernel, name)
+            assert getattr(tops, name) in values, (kernel, name)
+    assert set(kb.BATCH_SHAPES) >= {"olmo-1b", "grok-1", "llama4-maverick",
+                                    "nemotron-4"}
