@@ -319,7 +319,32 @@ Phases, one JSON line each:
            dispatch / experts / combine split (CUDA events), its entries
            over capacity and aux; pq_assign, gcd_score, givens_rotate and
            adc_batch held against their plain versions at every shape the
-           phase launched them at, and timed.
+           phase launched them at, and timed;
+  zoo      the model zoo at the configs' full widths: GraphSAGE
+           (graphsage-reddit adjusted to minibatch_lg: d_in 602, d_hidden
+           128, 2 layers, 41 classes, fanout (15, 10)) trained ZOO_GNN_STEPS
+           minibatch steps of 1,024 seeds on a synthetic graph of 232,965
+           nodes at average degree 492 (114.5M edges; the blocks sampled
+           on the host, gathered on the card), twice from one seed under
+           deterministic algorithms (losses finite and falling, the runs
+           bit-equal); gnn_index on its full-graph embeddings
+           (bench/gnn_index.py: OPQ with PQConfig(8, 32) frozen and GCD-G,
+           flat_adc, neighbour recall@10 of 1,000 nodes against exact; R
+           orthogonal to 1e-5, launches exact, pq_assign, gcd_score,
+           givens_rotate and adc_lookup held against their plain versions
+           at its shapes and timed); full-batch training at full_graph_sm's
+           sizes (2,708 nodes, d_in 1,433) and graph-batch training at
+           molecule's (128 graphs of 30 nodes and 64 edges, d_in 64), each
+           under mean and max, twice from one seed; then launch.train at
+           the full config of graphsage-reddit (1,024 seeds), wide-deep
+           (40 × 1M × 32, batch 65,536), mind (2M × 64, batch 16,384: the
+           (B, I, B) scores are 68.7 GB at 65,536) and din (1M × 18,
+           batch 65,536), straight and stopped-and-resumed under
+           deterministic algorithms (the final losses within 1e-4, no
+           kernel launched), with Wide&Deep's serve_p99 forward, MIND's
+           retrieval over 1M candidates against float64 and DIN's bulk
+           scoring of 1M candidates. A memory reckoning is printed before
+           each arm and the peak beside it.
 Every check raises on failure, so the script exits non-zero with the error;
 it also exits non-zero without a CUDA device. The last three lines are the
 nvidia-smi line, the per-kernel JSON summary and the device JSON. A
@@ -332,7 +357,7 @@ arms; serve's build of beta and its seven frontends;
 train's parts; table1's run; fig4's and fig2's runs;
 decode's prefill and greedy tokens; lm_train's kvq steps, and its decode
 of the trained and initial leaves; moe's PQ prefills, greedy tokens and
-train steps. The checks that run beside them in a phase's window are left out.
+train steps; zoo's gnn_index. The checks that run beside them in a phase's window are left out.
 """
 from __future__ import annotations
 
@@ -595,6 +620,27 @@ MOE_RTOL = 1e-4                    # moe_block vs float64: of the largest
 MOE_DROP_FACTOR, MOE_DROP_TOKENS, MOE_CHECK_FF = 0.5, 4096, 1024
 MOE_PARTS = ("route", "dispatch", "experts", "combine")
 MOE_KERNELS = ("pq_assign", "adc_batch", "gcd_score", "givens_rotate")
+#: the zoo: GraphSAGE's minibatch_lg graph (114,615,892 edges over 232,965
+#: nodes: average degree 492), its minibatch steps and the small arms'
+ZOO_SEED = SEED + 90
+ZOO_AVG_DEGREE = 492
+ZOO_GNN_STEPS, ZOO_GNN_LR = 8, 1e-2
+ZOO_SMALL_STEPS, ZOO_SMALL_LR = 4, 1e-2
+#: gnn_index: examples/gnn_index.py's PQConfig(8, 32) and OPQ settings
+ZOO_PQ = (8, 32)
+ZOO_OPQ = dict(iters=15, inner_steps=5, lr=2e-3)
+ZOO_PROBES = 1000
+ZOO_ORTH = 1e-5
+#: the launcher arms: RECSYS_SHAPES train_batch 65,536 (MIND 16,384: its
+#: (B, I, B) float32 scores are 68.7 GB at 65,536), GraphSAGE 1,024 seeds
+ZOO_LAUNCH = {"graphsage-reddit": 1024, "wide-deep": 65536, "mind": 16384,
+              "din": 65536}
+ZOO_LAUNCH_STEPS, ZOO_STOP_AFTER = 4, 2
+ZOO_BATCH_CALLS = 3
+ZOO_RESUME_RTOL = 1e-4
+ZOO_SERVE_BATCH = 512              # RECSYS_SHAPES serve_p99
+ZOO_CANDIDATES = 1_000_000         # RECSYS_SHAPES retrieval_cand
+ZOO_KERNELS = ("pq_assign", "gcd_score", "givens_rotate", "adc_lookup")
 
 
 def lm_orth_bound(steps: int) -> float:
@@ -5454,6 +5500,613 @@ def phase_moe(smi: str) -> tuple[dict, dict, dict]:
     return rows, errs, main
 
 
+# -- zoo ---------------------------------------------------------------------
+
+
+def _zoo_plan(arm: str, terms: dict) -> dict:
+    """Print an arm's memory reckoning (bytes by term, from the shapes) and
+    reset the peak; returns the plan."""
+    import torch
+
+    torch.cuda.synchronize()
+    plan = dict(gb={k: v / 1e9 for k, v in terms.items()},
+                total_gb=sum(terms.values()) / 1e9,
+                allocated_before_gb=torch.cuda.memory_allocated() / 1e9)
+    emit("zoo_plan", arm=arm, **plan)
+    torch.cuda.reset_peak_memory_stats()
+    return plan
+
+
+def _zoo_peak(plan: dict) -> dict:
+    """The peak since ``_zoo_plan``, beside the reckoning."""
+    import torch
+
+    torch.cuda.synchronize()
+    return dict(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                reckoned_gb=plan["total_gb"],
+                allocated_before_gb=plan["allocated_before_gb"])
+
+
+def _zoo_equal(a, b) -> bool:
+    """Two models' parameters bit-equal, leaf by leaf."""
+    import torch
+
+    from repro_torch.training import optimizer as opt_lib
+
+    la, lb = opt_lib.named_leaves(a), opt_lib.named_leaves(b)
+    return la.keys() == lb.keys() and all(torch.equal(la[k], lb[k])
+                                          for k in la)
+
+
+def _zoo_train_twice(make, steps: int) -> tuple:
+    """Run ``make()`` -> (model, step, state, batches) twice under
+    deterministic algorithms, ``steps`` steps each (host clock,
+    synchronised). Held: every loss finite, the last below the first, and
+    the second run's losses and parameters equal to the first's. Returns
+    (the first run's model, losses, step ms)."""
+    import torch
+
+    from repro_torch.bench import common
+
+    runs = []
+    with common.deterministic():
+        for _ in range(2):
+            model, step, state, batches = make()
+            losses, ms = [], []
+            for i in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, *batches(i))
+                losses.append(float(m["loss"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            runs.append((model, losses, ms))
+    (model, losses, ms), (again, losses2, _) = runs
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    check(losses2 == losses and _zoo_equal(model, again),
+          f"two runs of one seed differ: {losses} / {losses2}")
+    return model, losses, ms
+
+
+def _zoo_sage_step(cfg, loss_fn, steps: int, lr: float, seed: int):
+    """A fresh GraphSAGE on the card, its AdamW state and train step."""
+    from repro_torch import device
+    from repro_torch.models import gnn
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import train_state as ts
+
+    model = gnn.GraphSAGE.init(device.generator(seed), cfg)
+    ocfg = opt_lib.OptimizerConfig(lr=lr, total_steps=steps, warmup_steps=1)
+    state = ts.init_state(device.generator(seed + 1), model, ocfg)
+    return model, ts.make_train_step(loss_fn, ocfg), state
+
+
+def _zoo_minibatch(graph, feats, cfg) -> tuple:
+    """gnn_minibatch: ZOO_GNN_STEPS steps of minibatch_lg's 1,024 seeds,
+    step i's seeds and blocks from RandomState(ZOO_SEED + i), sampled on
+    the host and gathered from ``feats`` on the card, twice from one seed.
+    Returns (model, report)."""
+    import numpy as np
+
+    from repro_torch.configs import base
+    from repro_torch.data import graph as graph_lib
+    from repro_torch.models import gnn, param
+
+    batch = base.GNN_SHAPES["minibatch_lg"].params["batch_nodes"]
+    f1, f2 = cfg.sample_sizes
+    rows = batch * (1 + f1 + f1 * f2)
+    plan = _zoo_plan("gnn_minibatch", dict(
+        features=feats.numel() * 4, blocks=rows * cfg.d_in * 4,
+        layer_inputs=2 * batch * (1 + f1) * cfg.d_in * 4,
+        params_grads_moments=4 * 4 * param.count_params(gnn.param_specs(cfg))))
+    blocks_ms = []
+
+    def batches(i):
+        t0 = time.perf_counter()
+        seeds = np.random.RandomState(ZOO_SEED + i).randint(
+            0, graph.num_nodes, size=batch)
+        blocks, labels = graph_lib.sample_blocks(
+            graph, seeds, cfg.sample_sizes, ZOO_SEED + i, feats)
+        blocks_ms.append((time.perf_counter() - t0) * 1e3)
+        return (*blocks, labels)
+
+    def make():
+        model, step, state = _zoo_sage_step(
+            cfg, lambda p, *b: gnn.loss_minibatch(p, list(b[:-1]), b[-1],
+                                                  cfg),
+            ZOO_GNN_STEPS, ZOO_GNN_LR, ZOO_SEED)
+        return model, step, state, batches
+
+    model, losses, ms = _zoo_train_twice(make, ZOO_GNN_STEPS)
+    return model, dict(
+        batch=batch, fanout=[f1, f2], steps=ZOO_GNN_STEPS, lr=ZOO_GNN_LR,
+        losses=losses, one_answer_a_seed=True, step_ms=ms,
+        step_ms_p50=statistics.median(ms),
+        blocks_ms_p50=statistics.median(blocks_ms[:ZOO_GNN_STEPS]),
+        **_zoo_peak(plan))
+
+
+def _zoo_small(spec) -> dict:
+    """gnn_full on full_graph_sm's sizes (a synthetic graph of 2,708 nodes
+    at the shape's average degree) and gnn_graph on molecule's (128 graphs
+    of 30 nodes and 64 edges: a ring, so every node has an in-edge, and 34
+    random edges; features around a centre per graph label), each under
+    mean and max, ZOO_SMALL_STEPS full-batch steps twice from one seed."""
+    import numpy as np
+    import torch
+
+    from repro_torch import device
+    from repro_torch.configs import base
+    from repro_torch.data import graph as graph_lib
+    from repro_torch.models import gnn, param
+
+    dev = device.resolve()
+    out = {}
+    p = base.GNN_SHAPES["full_graph_sm"].params
+    cfg_f = spec.config_for_shape("full_graph_sm")
+    g = graph_lib.synthetic_graph(ZOO_SEED + 1, p["n_nodes"],
+                                  round(p["n_edges"] / p["n_nodes"]),
+                                  p["d_feat"], num_classes=cfg_f.num_classes)
+    src, dst = (torch.from_numpy(a).to(dev) for a in g.edge_list())
+    feats = torch.from_numpy(g.feats).to(dev)
+    labels = torch.from_numpy(g.labels.astype(np.int64)).to(dev)
+    mask = torch.from_numpy(
+        np.random.RandomState(ZOO_SEED + 2).rand(g.num_nodes) < 0.5).to(dev)
+    q = base.GNN_SHAPES["molecule"].params
+    G, n, e = q["batch"], q["n_nodes"], q["n_edges"]
+    cfg_m = spec.config_for_shape("molecule")
+    rng = np.random.RandomState(ZOO_SEED + 3)
+    ring = np.arange(n)
+    local_src = np.concatenate([np.tile(ring, (G, 1)),
+                                rng.randint(0, n, (G, e - n))], axis=1)
+    local_dst = np.concatenate([np.tile(np.roll(ring, 1), (G, 1)),
+                                rng.randint(0, n, (G, e - n))], axis=1)
+    base_id = (np.arange(G) * n)[:, None]
+    m_src = torch.from_numpy((local_src + base_id).reshape(-1)).to(dev)
+    m_dst = torch.from_numpy((local_dst + base_id).reshape(-1)).to(dev)
+    glab = rng.randint(0, cfg_m.num_classes, G)
+    centres = rng.randn(cfg_m.num_classes, q["d_feat"]).astype(np.float32)
+    m_feats = torch.from_numpy(np.repeat(centres[glab], n, axis=0) + 0.5 *
+                               rng.randn(G * n, q["d_feat"]).astype(
+                                   np.float32)).to(dev)
+    gids = torch.arange(G, device=dev).repeat_interleave(n)
+    m_labels = torch.from_numpy(glab.astype(np.int64)).to(dev)
+    for agg in ("mean", "max"):
+        cf, cm = cfg_f._replace(aggregator=agg), cfg_m._replace(aggregator=agg)
+        plan = _zoo_plan(f"gnn_full_{agg}", dict(
+            features=feats.numel() * 4,
+            messages=2 * src.numel() * cf.d_in * 4,
+            layer_inputs=2 * feats.numel() * 4,
+            params_grads_moments=4 * 4 * param.count_params(gnn.param_specs(cf))))
+
+        def make_full(cf=cf):
+            model, step, state = _zoo_sage_step(
+                cf, lambda p_, f, s, d, y, mk: gnn.loss_full_batch(
+                    p_, f, s, d, y, mk, cf), ZOO_SMALL_STEPS, ZOO_SMALL_LR,
+                ZOO_SEED)
+            return model, step, state, lambda i: (feats, src, dst, labels,
+                                                  mask)
+
+        _, losses, ms = _zoo_train_twice(make_full, ZOO_SMALL_STEPS)
+        out[f"full_graph_sm_{agg}"] = dict(
+            nodes=g.num_nodes, edges=g.num_edges, d_in=cf.d_in,
+            labelled=int(mask.sum()), losses=losses, step_ms=ms,
+            **_zoo_peak(plan))
+        plan = _zoo_plan(f"gnn_graph_{agg}", dict(
+            features=m_feats.numel() * 4,
+            messages=2 * m_src.numel() * cm.d_in * 4,
+            params_grads_moments=4 * 4 * param.count_params(gnn.param_specs(cm))))
+
+        def make_graph(cm=cm):
+            model, step, state = _zoo_sage_step(
+                cm, lambda p_, f, s, d, gi, y: gnn.loss_graph_batch(
+                    p_, f, s, d, gi, y, G, cm), ZOO_SMALL_STEPS,
+                ZOO_SMALL_LR, ZOO_SEED)
+            return model, step, state, lambda i: (m_feats, m_src, m_dst,
+                                                  gids, m_labels)
+
+        _, losses, ms = _zoo_train_twice(make_graph, ZOO_SMALL_STEPS)
+        out[f"molecule_{agg}"] = dict(
+            graphs=G, nodes=G * n, edges=G * e, d_in=cm.d_in, losses=losses,
+            step_ms=ms, **_zoo_peak(plan))
+    return out
+
+
+def _zoo_gnn_index(model, graph, feats, cfg, errs: dict) -> tuple:
+    """bench/gnn_index.py's index side on the minibatch graph's full-graph
+    embeddings: OPQ with the rotation frozen and learned by GCD-G, each
+    quantizer served through flat_adc, neighbour recall@10 of ZOO_PROBES
+    nodes against the exact backend. Held: R orthogonal to ZOO_ORTH (the
+    frozen R the identity, GCD-G's moved), distortion and recall finite,
+    at least gnn_index.COMMUNITY_MIN of each probe's top 10 in its own
+    community, the launches the path implies, and its four kernels against
+    their plain versions at its shapes. Returns (report, kernel rows,
+    launches)."""
+    import torch
+
+    from repro_torch.bench import gnn_index
+    from repro_torch.index import ivf as index_ivf
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import gnn
+    from repro_torch.quant.base import PQConfig
+
+    N = graph.num_nodes
+    plan = _zoo_plan("gnn_index", dict(
+        features=feats.numel() * 4, edges=graph.num_edges * 8,
+        message_block=gnn.CSR_BLOCK_ELEMS * 4,
+        embeddings=2 * N * cfg.d_hidden * 4,
+        flat_scores=ZOO_PROBES * N * 4 * 2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = gnn_index.embeddings(model, graph, feats, cfg)
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    check(tuple(h.shape) == (N, cfg.d_hidden)
+          and bool(torch.all(torch.isfinite(h))),
+          f"gnn_index: embeddings {tuple(h.shape)} not finite or not "
+          f"({N}, {cfg.d_hidden})")
+    truth = gnn_index.neighbour_truth(h, ZOO_PROBES)
+    seen, adc_seen, launches = {}, {}, {}
+    t1 = time.perf_counter()
+    with contextlib.ExitStack() as spies:
+        for name in ("gcd_score", "givens_rotate", "pq_assign"):
+            spies.enter_context(_last_call(name, seen, by_shape=True))
+        spies.enter_context(_last_call("adc_lookup", adc_seen))
+        with _counted(launches):
+            solvers = gnn_index.index_recall(
+                h, truth, graph.labels, PQConfig(*ZOO_PQ), seed=ZOO_SEED + 3,
+                **ZOO_OPQ)
+            torch.cuda.synchronize()
+    index_s = time.perf_counter() - t1
+    peak = _zoo_peak(plan)
+    # OPQ as fig2 counts it (frozen: no rotation step; GCD-G: an assign, a
+    # gcd_score and a givens_rotate an inner step), then from_quantizer's
+    # encode (a coarse and a PQ assign a chunk of ENCODE_ROWS) and one
+    # scan a solver
+    it, inner = ZOO_OPQ["iters"], ZOO_OPQ["inner_steps"]
+    chunks = -(-N // index_ivf.ENCODE_ROWS)
+    want = dict(pq_assign=(1 + 2 * it) + (1 + it * (2 + inner))
+                + 2 * 2 * chunks, gcd_score=it * inner,
+                givens_rotate=it * inner, adc_lookup=2)
+    _expect("zoo gnn_index", launches, want)
+    for solver, r in solvers.items():
+        check(math.isfinite(r["distortion"]) and math.isfinite(r["recall"]),
+              f"gnn_index {solver}: {r}")
+        check(r["orthogonality_error"] <= ZOO_ORTH, f"gnn_index {solver}: "
+              f"R off orthogonal by {r['orthogonality_error']}")
+    check(solvers["frozen"]["r_moved"] == 0.0
+          and solvers["gcd_greedy"]["r_moved"] > 0.0,
+          f"gnn_index: R moved {solvers}")
+    # recall@10 is near chance within a community of near-equal embeddings
+    # whether the index works or not; what a working encode, id mapping and
+    # top-k find, and random ids do not, is the probe's community
+    chance = gnn_index.chance_share(graph.labels)
+    exact_share = gnn_index.community_share(truth, graph.labels, ZOO_PROBES)
+    for solver, r in solvers.items():
+        check(r["community_share"] >= gnn_index.COMMUNITY_MIN,
+              f"gnn_index {solver}: {r['community_share']} of the top 10 in "
+              f"the probe's community, under {gnn_index.COMMUNITY_MIN} "
+              f"(random ids: {chance}, exact: {exact_share})")
+    held = _hold_rotation_kernels("zoo", seen, errs)
+    rows = _lm_kernel_rows(seen, "zoo")
+    del seen
+    lut, codes, scales, ids = adc_seen.pop("adc_lookup")
+    errs["adc_lookup/zoo_gnn_index"] = bit_equal(
+        ops.adc_lookup(lut, codes, scales, ids),
+        ref.adc_lookup_ref(lut, codes, scales, ids), "adc_lookup at gnn_index")
+    b, (cap, Dp) = lut.shape[0], codes.shape
+    lib = flat_library(lut, codes)
+    compare(lib().T, ref.adc_lookup_ref(lut, codes), ATOL, RTOL)
+    tiles = torch.arange(cap // BS, device=codes.device)
+    nbytes = _scan_bytes(lut, None, codes, ids, tiles, BS, b * cap, 0)
+    flops = b * int(torch.sum(ids >= 0)) * Dp
+    rows[f"adc_lookup_zoo_{b}x{cap}x{Dp}"] = dict(
+        shape=dict(b=b, N=cap, Dp=Dp, K=lut.shape[2]),
+        ms=graph_ms(lambda: ops.adc_lookup(lut, codes, None, ids),
+                    launches=20),
+        plain_ms=graph_ms(lambda: ref.adc_lookup_ref(lut, codes, None, ids),
+                          launches=2),
+        library_ms=graph_ms(lib, launches=5), bytes=nbytes, flops=flops,
+        **_bound(nbytes, flops))
+    del lib, lut, codes, ids, h
+    report = dict(
+        embeddings=[N, cfg.d_hidden], embed_s=embed_s,
+        pq=dict(subspaces=ZOO_PQ[0], codewords=ZOO_PQ[1]), opq=ZOO_OPQ,
+        probes=ZOO_PROBES, served="flat_adc (from_quantizer)",
+        solvers=solvers, community_min=gnn_index.COMMUNITY_MIN,
+        exact_community_share=exact_share, chance_share=chance, margins=dict(
+            distortion_frozen_minus_gcd=solvers["frozen"]["distortion"]
+            - solvers["gcd_greedy"]["distortion"],
+            recall_gcd_minus_frozen=solvers["gcd_greedy"]["recall"]
+            - solvers["frozen"]["recall"]),
+        index_s=index_s, launches=launches, kernels_held=held, **peak)
+    return report, rows, launches
+
+
+def _zoo_ranker_extra(arch: str, model, cfg) -> dict:
+    """On the straight run's model, without gradients: Wide&Deep's
+    serve_p99 forward (512 rows), MIND's retrieval of one user over 1M
+    candidates (the first 1M item embeddings) against the same scores in
+    float64, DIN's bulk scoring of one user's history against 1M
+    candidates in chunks of 8,192, its first 8,192 against one
+    din_forward call."""
+    import torch
+
+    from repro_torch import device
+    from repro_torch.data import synthetic
+    from repro_torch.models import recsys
+
+    g = device.generator(ZOO_SEED + 7)
+    dev = device.resolve()
+    with torch.no_grad():
+        if arch == "wide-deep":
+            ids, _ = synthetic.ctr_batch(g, ZOO_SERVE_BATCH, cfg.n_sparse,
+                                         cfg.vocab_per_field)
+            logits = recsys.widedeep_forward(model, ids, cfg)
+            check(tuple(logits.shape) == (ZOO_SERVE_BATCH,) and bool(
+                torch.all(torch.isfinite(logits))), "wide-deep serve_p99")
+            return dict(serve_batch=ZOO_SERVE_BATCH, serve_ms=time_ms(
+                lambda: recsys.widedeep_forward(model, ids, cfg), reps=20))
+        if arch == "mind":
+            hist = torch.randint(0, cfg.item_vocab, (1, cfg.hist_len),
+                                 generator=g, device=dev)
+            cand = model.item_table[:ZOO_CANDIDATES]
+            n = cand.shape[0]
+            scores = recsys.mind_retrieve(model, hist, cand, cfg)
+            u = recsys.mind_interests(model, hist, cfg).double()
+            want = torch.amax(torch.einsum("bie,ne->bin", u, cand.double()),
+                              dim=1)
+            err = float((scores.double() - want).abs().max())
+            scale = float(want.abs().max())
+            check(tuple(scores.shape) == (1, n) and err <= 1e-5 * scale,
+                  f"mind_retrieve: error {err} against float64 at scale "
+                  f"{scale}")
+            return dict(candidates=n, max_abs_err_vs_f64=err,
+                        scale=scale, retrieve_ms=time_ms(
+                            lambda: recsys.mind_retrieve(model, hist, cand,
+                                                         cfg), reps=10))
+        hist = torch.randint(0, cfg.item_vocab, (cfg.hist_len,), generator=g,
+                             device=dev)
+        cand = torch.randint(0, cfg.item_vocab, (ZOO_CANDIDATES,),
+                             generator=g, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = recsys.din_score_candidates(model, hist, cand, cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        chunk = 8192
+        first = recsys.din_forward(model, hist[None].expand(chunk, -1),
+                                   cand[:chunk], cfg)
+        n = ZOO_CANDIDATES // chunk * chunk
+        check(tuple(scores.shape) == (n,) and bool(
+            torch.all(torch.isfinite(scores)))
+            and torch.equal(scores[:chunk], first),
+            "din_score_candidates: shape, finiteness or its first chunk")
+        return dict(candidates=ZOO_CANDIDATES, scored=n, chunk=chunk,
+                    score_ms=ms)
+
+
+@contextlib.contextmanager
+def _timed_steps(train_state, into: list):
+    """Inside the block, every train step that ``train_state.make_train_step``
+    builds is timed on the host clock, the card synchronised before and
+    after, and its ms appended to ``into``."""
+    import torch
+
+    real = train_state.make_train_step
+
+    def make(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*a, **k)
+            torch.cuda.synchronize()
+            into.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+    train_state.make_train_step = make
+    try:
+        yield
+    finally:
+        train_state.make_train_step = real
+
+
+def _zoo_batch_ms(arch: str, cfg, batch: int) -> list:
+    """ms of each of ZOO_BATCH_CALLS calls of the launcher's batch maker for
+    ``arch`` at ``batch`` (host clock, synchronised; the maker built
+    first, so GraphSAGE's graph and its one feature upload are left out)."""
+    import torch
+
+    from repro_torch import configs, device
+    from repro_torch.launch import train as launch
+
+    make = launch.make_batch_fn(cfg, configs.get(arch).family, batch)
+    g = device.generator(ZOO_SEED + 11)
+    ms = []
+    for _ in range(ZOO_BATCH_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = make(g)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        del b
+    return ms
+
+
+def _zoo_launcher(arch: str) -> dict:
+    """``launch.train`` at the architecture's full config: the job straight
+    (ZOO_LAUNCH_STEPS steps of ZOO_LAUNCH[arch]), then stopped after
+    ZOO_STOP_AFTER with a checkpoint under build/ and resumed, under
+    deterministic algorithms. Held: the resumed final loss within
+    ZOO_RESUME_RTOL of the straight run's and its parameters bit-equal to
+    the straight run's (MIND's loss barely moves in a few steps, so the
+    loss alone cannot tell a wrong restore), every loss finite, no kernel
+    launched; the checkpoint's bytes and the save / restore ms reported,
+    and the recommenders' serving calls on the straight run's model
+    (``_zoo_ranker_extra``). The straight run's steps are timed without
+    their batches (host clock, synchronised; the first holds the warm-up),
+    and the batch maker alone (``_zoo_batch_ms``)."""
+    import shutil
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.bench import common
+    from repro_torch.launch import train as launch
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import optimizer as opt_lib
+
+    cfg = configs.get(arch).make_config()
+    batch = ZOO_LAUNCH[arch]
+    d = Path(__file__).resolve().parent / "build" / "zoo_ckpt" / arch
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    kw = dict(steps=ZOO_LAUNCH_STEPS, batch=batch, full=True, seed=ZOO_SEED,
+              log_every=ZOO_LAUNCH_STEPS)
+    io_ms, launches, out, step_ms = {}, {}, {}, []
+    t_all = time.perf_counter()
+    try:
+        with common.deterministic(), _counted(launches):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with _timed_steps(launch.ts, step_ms):
+                state_a, hist_a = launch.train(arch, ckpt_dir=None, **kw)
+            torch.cuda.synchronize()
+            out["straight_s"] = time.perf_counter() - t0
+            out["step_ms"] = step_ms
+            out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            out["num_params"] = sum(p.numel()
+                                    for p in state_a.params.parameters())
+            out["batch_ms"] = _zoo_batch_ms(arch, cfg, batch)
+            if arch != "graphsage-reddit":
+                out.update(_zoo_ranker_extra(arch, state_a.params, cfg))
+            want = {k: v.detach().clone() for k, v in
+                    opt_lib.named_leaves(state_a.params).items()}
+            del state_a
+            torch.cuda.empty_cache()
+            with _timed_calls(ckpt, ("save", "restore"), io_ms):
+                t0 = time.perf_counter()
+                _, hist_c = launch.train(arch, ckpt_dir=str(d),
+                                         stop_after=ZOO_STOP_AFTER, **kw)
+                out["stopped_s"] = time.perf_counter() - t0
+                out["checkpoint_bytes"] = sum(
+                    f.stat().st_size
+                    for f in (d / f"step_{ZOO_STOP_AFTER:010d}").iterdir())
+                torch.cuda.empty_cache()
+                t0 = time.perf_counter()
+                state_b, hist_b = launch.train(arch, ckpt_dir=str(d), **kw)
+                torch.cuda.synchronize()
+                out["resumed_s"] = time.perf_counter() - t0
+        got = opt_lib.named_leaves(state_b.params)
+        out["params_bit_equal"] = got.keys() == want.keys() and all(
+            torch.equal(got[k], v) for k, v in want.items())
+        del state_b, got, want
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.empty_cache()
+    check(len(hist_a) == ZOO_LAUNCH_STEPS and len(hist_c) == ZOO_STOP_AFTER
+          and len(hist_b) == ZOO_LAUNCH_STEPS - ZOO_STOP_AFTER,
+          f"{arch} launcher step counts {len(hist_a)}, {len(hist_c)}, "
+          f"{len(hist_b)}")
+    check(all(math.isfinite(v) for v in hist_a + hist_c + hist_b),
+          f"{arch} launcher losses {hist_a} {hist_c} {hist_b}")
+    rel = abs(hist_b[-1] - hist_a[-1]) / abs(hist_a[-1])
+    check(rel <= ZOO_RESUME_RTOL, f"{arch}: the resumed final loss "
+          f"{hist_b[-1]} is {rel} from the straight run's {hist_a[-1]}")
+    check(out["params_bit_equal"], f"{arch}: the resumed run's parameters "
+          "differ from the straight run's")
+    _expect(f"{arch} launcher", launches, {})
+    return dict(batch=batch, steps=ZOO_LAUNCH_STEPS,
+                stop_after=ZOO_STOP_AFTER, losses_straight=hist_a,
+                losses_stopped=hist_c, losses_resumed=hist_b,
+                final_rel_diff=rel, deterministic=True,
+                save_ms=io_ms.get("save"), restore_ms=io_ms.get("restore"),
+                seconds=time.perf_counter() - t_all, **out)
+
+
+def phase_zoo(smi: str) -> tuple[dict, dict, dict]:
+    """The model zoo on the port at the configs' full widths: GraphSAGE's
+    minibatch training on minibatch_lg's graph, the paper's index on its
+    embeddings (gnn_index), full-graph and graph-batch training on
+    full_graph_sm's and molecule's sizes under mean and max, and every zoo
+    architecture through ``launch.train`` with a resume. Returns (kernel
+    rows, errors, the main path's launches: gnn_index's)."""
+    import gc
+
+    import torch
+
+    from repro_torch import configs, device
+    from repro_torch.configs import base
+    from repro_torch.data import graph as graph_lib
+
+    dev = device.resolve()
+    t_all = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs: dict = {}
+    spec = configs.get("graphsage-reddit")
+    cfg = spec.config_for_shape("minibatch_lg")
+    p = base.GNN_SHAPES["minibatch_lg"].params
+    t0 = time.perf_counter()
+    graph = graph_lib.synthetic_graph(ZOO_SEED, p["n_nodes"], ZOO_AVG_DEGREE,
+                                      cfg.d_in, num_classes=cfg.num_classes)
+    build_s = time.perf_counter() - t0
+    feats = torch.from_numpy(graph.feats).to(dev)
+    graph_info = dict(nodes=graph.num_nodes, edges=graph.num_edges,
+                      shape_edges=p["n_edges"], avg_degree=ZOO_AVG_DEGREE,
+                      d_feat=cfg.d_in, build_s=build_s)
+    t0 = time.perf_counter()
+    model, minibatch = _zoo_minibatch(graph, feats, cfg)
+    minibatch["seconds"] = time.perf_counter() - t0
+    index, rows, launches = _zoo_gnn_index(model, graph, feats, cfg, errs)
+    del model, feats, graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    small = _zoo_small(spec)
+    small["seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    launcher = {}
+    for arch in ZOO_LAUNCH:
+        launcher[arch] = _zoo_launcher(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in ZOO_KERNELS:
+        check(launches.get(name, 0) > 0, f"kernel {name} was not launched "
+              "on the zoo path")
+    full = {a: configs.get(a).make_config() for a in ZOO_LAUNCH}
+    emit("zoo", graph=graph_info, config=dict(
+        graphsage=dict(d_in=cfg.d_in, d_hidden=cfg.d_hidden,
+                       layers=cfg.num_layers, classes=cfg.num_classes,
+                       aggregator=cfg.aggregator,
+                       fanout=list(cfg.sample_sizes)),
+        **{a: {k: v for k, v in c._asdict().items()
+               if k not in ("dtype", "param_dtype", "name")}
+           for a, c in full.items() if a != "graphsage-reddit"}),
+        gnn_minibatch=minibatch, gnn_index=index, gnn_small=small,
+        launcher=launcher, kernels=rows, max_abs_err=errs,
+        launches=launches,
+        cuts=dict(
+            gnn_minibatch=f"{ZOO_GNN_STEPS} steps",
+            graph=f"{graph_info['edges']} edges from the generator at "
+                  f"average degree {ZOO_AVG_DEGREE} (the shape's "
+                  f"{p['n_edges']})",
+            gnn_small=f"{ZOO_SMALL_STEPS} steps each; full_graph_sm's "
+                      "edges are the generator's at the shape's average "
+                      "degree",
+            launcher=f"{ZOO_LAUNCH_STEPS} steps, stopped at "
+                     f"{ZOO_STOP_AFTER}; MIND at batch {ZOO_LAUNCH['mind']} "
+                     "(its (B, I, B) float32 scores are 68.7 GB at "
+                     "train_batch's 65,536)",
+            weights="seeded init"),
+        seconds=time.perf_counter() - t_all, card=smi)
+    return rows, errs, launches
+
+
 def main() -> int:
     import torch
 
@@ -5506,6 +6159,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     _, moe_errs, paths["moe"] = phase_moe(smi)
     errs.update(moe_errs)
+    torch.cuda.empty_cache()
+    _, zoo_errs, paths["zoo"] = phase_zoo(smi)
+    errs.update(zoo_errs)
     summary = []
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]

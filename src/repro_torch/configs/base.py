@@ -1,13 +1,13 @@
-"""Architecture registry scaffolding (port of ``repro/configs/base.py``
-for the families ported so far: the LM grid and the recsys shapes; the GNN
-grid waits for its slice).
+"""Architecture registry scaffolding (port of ``repro/configs/base.py``:
+the LM grid, the GNN shapes and the recsys shapes).
 
 Every ported architecture ships one module exposing an ``ArchSpec``:
   * ``make_config()``      — the full published config
   * ``make_smoke()``       — a reduced same-family config for CPU tests
   * ``shapes``             — the architecture's own input-shape set
   * ``config_for_shape()`` — per-shape adjustments (the PQ KV cache
-                             switches on for ``long_500k``)
+                             switches on for ``long_500k``; GraphSAGE takes
+                             each graph's feature width)
 """
 from __future__ import annotations
 
@@ -15,14 +15,15 @@ from typing import Any, Callable, NamedTuple
 
 
 class Shape(NamedTuple):
-    kind: str            # train | prefill | decode | recsys_train
-    #                      | recsys_serve | recsys_retrieval
+    kind: str            # train | prefill | decode | gnn_full | gnn_minibatch
+    #                      | gnn_graph_batch | recsys_train | recsys_serve
+    #                      | recsys_retrieval
     params: dict[str, Any]
 
 
 class ArchSpec(NamedTuple):
     arch_id: str
-    family: str          # lm | recsys
+    family: str          # lm | gnn | recsys
     make_config: Callable[[], Any]
     make_smoke: Callable[[], Any]
     shapes: dict[str, Shape]
@@ -45,6 +46,20 @@ LM_SHAPES = {
     "decode_32k": Shape("decode", {"seq_len": 32768, "global_batch": 128}),
     "long_500k": Shape("decode", {"seq_len": 524288, "global_batch": 1,
                                    "pq_cache": True}),
+}
+
+GNN_SHAPES = {
+    "full_graph_sm": Shape("gnn_full", {"n_nodes": 2708, "n_edges": 10556,
+                                        "d_feat": 1433}),
+    "minibatch_lg": Shape("gnn_minibatch", {"n_nodes": 232965,
+                                            "n_edges": 114615892,
+                                            "batch_nodes": 1024,
+                                            "fanout": (15, 10),
+                                            "d_feat": 602}),
+    "ogb_products": Shape("gnn_full", {"n_nodes": 2449029,
+                                       "n_edges": 61859140, "d_feat": 100}),
+    "molecule": Shape("gnn_graph_batch", {"n_nodes": 30, "n_edges": 64,
+                                          "batch": 128, "d_feat": 64}),
 }
 
 RECSYS_SHAPES = {

@@ -6,8 +6,9 @@ numpy first (``np.asarray`` of each leaf) and hands the dict here; both
 packages then compute from the very same leaves. Storage dtypes are kept:
 codes uint8 (K ≤ 256), ids and offsets int32. Model and optimizer leaves
 are keyed by the JAX path keys (``item_table``, ``user0_w``, ``index/R``,
-``index/codebooks``; ``training.optimizer.path_key``); the transformer's
-leaves come as the JAX package's nested dict (``layers/attn/wq``, ``kvq``).
+``index/codebooks``; ``training.optimizer.path_key``; GraphSAGE's
+``layer0/w_self``); the transformer's leaves come as the JAX package's
+nested dict (``layers/attn/wq``, ``kvq``).
 A bfloat16 leaf (numpy's ``ml_dtypes`` bfloat16, which torch cannot take
 directly) goes across through float32, which holds it exactly.
 """
@@ -23,7 +24,7 @@ from repro_torch import quant
 from repro_torch import rotations as rot_lib
 from repro_torch.core import index_layer as il
 from repro_torch.index.ivf import IVFPQIndex
-from repro_torch.models import recsys
+from repro_torch.models import gnn, recsys
 from repro_torch.models import transformer as tfm
 from repro_torch.rotations.cayley import CayleyState
 from repro_torch.rotations.gcd import GCDState
@@ -175,6 +176,74 @@ def twotower_params_from_numpy(arrays: dict, cfg: recsys.TwoTowerConfig, *,
         index = il.IndexLayer(_t(arrays["index/R"], dev, np.float32),
                               _t(arrays["index/codebooks"], dev, np.float32))
     return recsys.TwoTower(tensors, index)
+
+
+def _module_from_numpy(arrays: dict, specs: dict, cls, what: str,
+                       dev: torch.device):
+    """``cls`` (a ``models.param.Params``) from path-keyed numpy leaves,
+    keys and shapes checked against the (nested) ``specs``."""
+    flat = {}
+
+    def walk(tree: dict, prefix: str) -> None:
+        for k, v in tree.items():
+            key = f"{prefix}/{k}" if prefix else k
+            if isinstance(v, dict):
+                walk(v, key)
+            else:
+                flat[key] = v.shape
+
+    walk(specs, "")
+    missing = sorted(set(flat) - set(arrays))
+    extra = sorted(set(arrays) - set(flat))
+    if missing or extra:
+        raise KeyError(f"{what}: missing {missing}, unexpected {extra}")
+    for k, shape in flat.items():
+        if np.shape(arrays[k]) != tuple(shape):
+            raise ValueError(f"{k}: shape {np.shape(arrays[k])}, the config "
+                             f"gives {tuple(shape)}")
+
+    def carry(tree: dict, prefix: str) -> dict:
+        return {k: (carry(v, f"{prefix}{k}/") if isinstance(v, dict)
+                    else _t(arrays[f"{prefix}{k}"], dev, np.float32))
+                for k, v in tree.items()}
+
+    return cls(carry(specs, ""))
+
+
+def graphsage_params_from_numpy(arrays: dict, cfg: gnn.GraphSAGEConfig, *,
+                                device=None) -> gnn.GraphSAGE:
+    """A ``GraphSAGE`` on ``device`` from the JAX model's leaves, keyed by
+    path (``layer0/w_self``, ..., ``classifier``)."""
+    return _module_from_numpy(arrays, gnn.param_specs(cfg), gnn.GraphSAGE,
+                              "graphsage_params_from_numpy",
+                              _device.resolve(device))
+
+
+def widedeep_params_from_numpy(arrays: dict, cfg: recsys.WideDeepConfig, *,
+                               device=None) -> recsys.WideDeep:
+    """A ``WideDeep`` on ``device`` from the JAX model's leaves (``table``,
+    ``wide``, ``mlp{i}_w``, ``mlp{i}_b``)."""
+    return _module_from_numpy(arrays, recsys.widedeep_specs(cfg),
+                              recsys.WideDeep, "widedeep_params_from_numpy",
+                              _device.resolve(device))
+
+
+def mind_params_from_numpy(arrays: dict, cfg: recsys.MINDConfig, *,
+                           device=None) -> recsys.MIND:
+    """A ``MIND`` on ``device`` from the JAX model's leaves
+    (``item_table``, ``bilinear``, ``interest{i}_w``, ``interest{i}_b``)."""
+    return _module_from_numpy(arrays, recsys.mind_specs(cfg), recsys.MIND,
+                              "mind_params_from_numpy",
+                              _device.resolve(device))
+
+
+def din_params_from_numpy(arrays: dict, cfg: recsys.DINConfig, *,
+                          device=None) -> recsys.DIN:
+    """A ``DIN`` on ``device`` from the JAX model's leaves (``item_table``,
+    ``attn{i}_w``/``_b``, ``head{i}_w``/``_b``)."""
+    return _module_from_numpy(arrays, recsys.din_specs(cfg), recsys.DIN,
+                              "din_params_from_numpy",
+                              _device.resolve(device))
 
 
 def opt_state_from_numpy(arrays: dict, cfg: opt_lib.OptimizerConfig, *,

@@ -1,8 +1,10 @@
 """Synthetic data (port of ``repro/data/synthetic.py``: ``sift_like``,
-the LM's ``lm_batch`` and the ``ClickLog`` of the two-tower experiments).
+the LM's ``lm_batch``, the ``ClickLog`` of the two-tower experiments and
+MIND, and the CTR batches of Wide&Deep and DIN).
 
 A torch generator draws other numbers than a JAX key of the same seed, so
-the port's vectors match the JAX package's in distribution only. The click
+the port's vectors and batches match the JAX package's in distribution
+only. The click
 log's batches are drawn with numpy's ``RandomState`` exactly as the JAX
 package draws them, so given the same item vectors both give the same ids.
 """
@@ -141,3 +143,49 @@ class ClickLog:
         sims = torch.from_numpy(hv).to(self.device) @ vecs.T     # (num, N)
         truth = torch.topk(sims, k_truth, dim=1).indices
         return torch.from_numpy(hist).to(self.device), truth
+
+
+# ---------------------------------------------------------------------------
+# CTR (Wide&Deep / DIN)
+# ---------------------------------------------------------------------------
+
+def ctr_batch(generator: torch.Generator, batch: int, n_fields: int,
+              vocab: int):
+    """Sparse ids and labels from a hidden logistic model over the fields:
+    ids (batch, n_fields) int64 uniform in [0, vocab); a hidden weight
+    table w (n_fields, 64) ~ N(0, 1); logit = 0.05 Σ_f Σ_k w[f, k]
+    cos(0.37 · id_f); labels (batch,) float32 ~ Bernoulli(sigmoid(logit)).
+    On the generator's device."""
+    kw = dict(generator=generator, device=generator.device)
+    ids = torch.randint(0, vocab, (batch, n_fields), **kw)
+    w = torch.randn((n_fields, 64), **kw)
+    logit = torch.sum(torch.cos(ids.float() * 0.37) * w.sum(1), dim=1) * 0.05
+    labels = torch.bernoulli(torch.sigmoid(logit), generator=generator)
+    return ids, labels
+
+
+def median(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jnp.median``'s value: the middle of the sorted values, the mean of
+    the two middle ones at an even count (``torch.median`` returns the
+    lower one), in float32."""
+    s = torch.sort(x, dim=dim).values.float()
+    n = s.shape[dim]
+    lo = s.narrow(dim, (n - 1) // 2, 1)
+    hi = s.narrow(dim, n // 2, 1)
+    return ((lo + hi) * 0.5).squeeze(dim)
+
+
+def din_batch(generator: torch.Generator, batch: int, hist_len: int,
+              vocab: int):
+    """DIN's batch: history (batch, hist_len) and target (batch,) ids,
+    int64 uniform in [0, vocab), and labels (batch,) float32 ~
+    Bernoulli(sigmoid(1 − 0.1 |median(hist mod 97) − target mod 97|)): the
+    target "matches" the history's dominant bucket. On the generator's
+    device."""
+    kw = dict(generator=generator, device=generator.device)
+    hist = torch.randint(0, vocab, (batch, hist_len), **kw)
+    target = torch.randint(0, vocab, (batch,), **kw)
+    match = median(hist % 97, dim=1) - (target % 97).float()
+    p = torch.sigmoid(1.0 - 0.1 * torch.abs(match))
+    labels = torch.bernoulli(p, generator=generator)
+    return hist, target, labels

@@ -12,12 +12,15 @@ step (AdamW + the manifold learner on every rotation leaf) → checkpoints
     ``watchdog_factor`` × the median of the last 64 is printed and counted
     (``train.straggler_steps``).
 
-The families ported so far run: ``lm`` (the transformer, dense or MoE:
-grok-1, llama4-maverick) and the two-tower recommender. GNN, Wide&Deep,
-MIND and DIN raise NotImplementedError (queue 1, item 13). The LM batch is
-(batch, 128) tokens, as in the JAX launcher, which trains every family
-with AdamW (``launch.cells._opt_cfg_for`` picks Adafactor above 50B
-parameters for the full-size cells).
+Every architecture of the registry trains: ``lm`` (the transformer, dense
+or MoE: grok-1, llama4-maverick), ``gnn`` (GraphSAGE on minibatch blocks of
+a 2,000-node synthetic graph, as the JAX launcher builds it) and the
+recommenders (Wide&Deep, the two-tower model, MIND, DIN). The batches are
+the JAX launcher's: (batch, 128) LM tokens, ``sample_blocks`` of ``batch``
+seeds at the config's fanout, ``ctr_batch``, the click log's batches (two
+tower, MIND) and ``din_batch``. The JAX launcher trains every family with
+AdamW (``launch.cells._opt_cfg_for`` picks Adafactor above 50B parameters
+for the full-size cells).
 
 The step runs on the card unless ``device="cpu"``. The parameters come
 from a generator seeded with ``seed``, the learner's from ``(seed << 32) |
@@ -35,72 +38,107 @@ import argparse
 import statistics
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import configs, obs, rotations
 from repro_torch import device as _device
+from repro_torch.data import graph as graph_lib
 from repro_torch.data import pipeline as pipe_lib
 from repro_torch.data import synthetic
-from repro_torch.models import recsys
+from repro_torch.models import gnn, recsys
 from repro_torch.models import transformer as tfm
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training import optimizer as opt_lib
 from repro_torch.training import train_state as ts
 
-ZOO_LATER = ("the {} family is not ported yet (ROADMAP.md queue 1, "
-             "item 13)")
-#: the JAX registry's architectures the port has no config for yet, and
-#: the family each belongs to
-UNPORTED = {"graphsage-reddit": "gnn", "wide-deep": "Wide&Deep",
-            "mind": "MIND", "din": "DIN"}
 LM_SEQ = 128
+#: the JAX launcher's GNN graph: nodes, average degree (seed 0)
+GNN_GRAPH = (2000, 8)
+
+#: the recommenders' parameter modules, by config type
+_RECSYS = {recsys.WideDeepConfig: recsys.WideDeep,
+           recsys.TwoTowerConfig: recsys.TwoTower,
+           recsys.MINDConfig: recsys.MIND, recsys.DINConfig: recsys.DIN}
 
 
-def _unported(family: str) -> NotImplementedError:
-    return NotImplementedError(ZOO_LATER.format(family))
+def _draw_seed(g: torch.Generator) -> int:
+    return int(torch.randint(0, 1 << 30, (), generator=g, device=g.device))
 
 
-def make_batch_fn(cfg, family: str, batch: int):
+def make_batch_fn(cfg, family: str, batch: int, *, device=None):
     """The family's synthetic batch: generator -> tuple of tensors on the
-    generator's device."""
+    generator's device. ``device`` (the card by default) holds the GNN
+    graph's features, uploaded once; the generator must be on it."""
     if family == "lm":
         def f(g):
             return synthetic.lm_batch(g, batch, LM_SEQ, cfg.vocab_size)
         return f
-    if isinstance(cfg, recsys.TwoTowerConfig):
+    if family == "gnn":
+        graph = graph_lib.synthetic_graph(0, *GNN_GRAPH, cfg.d_in,
+                                          num_classes=cfg.num_classes)
+        feats = torch.from_numpy(graph.feats).to(_device.resolve(device))
+
+        def f(g):
+            seed = _draw_seed(g)
+            seeds = np.random.RandomState(seed).randint(
+                0, graph.num_nodes, size=batch)
+            blocks, labels = graph_lib.sample_blocks(
+                graph, seeds, cfg.sample_sizes, seed, feats)
+            return (*blocks, labels)
+        return f
+    if isinstance(cfg, recsys.WideDeepConfig):
+        def f(g):
+            return synthetic.ctr_batch(g, batch, cfg.n_sparse,
+                                       cfg.vocab_per_field)
+        return f
+    if isinstance(cfg, (recsys.TwoTowerConfig, recsys.MINDConfig)):
         log = synthetic.ClickLog(0, cfg.item_vocab, dim=32, device="cpu")
 
         def f(g):
-            seed = int(torch.randint(0, 1 << 30, (), generator=g,
-                                     device=g.device))
-            hist, pos = log.batch(seed, batch, cfg.hist_len)
+            hist, pos = log.batch(_draw_seed(g), batch, cfg.hist_len)
             dev = torch.device(g.device)
             return hist.to(dev), pos.to(dev)
         return f
-    raise _unported(family if family == "gnn" else type(cfg).__name__)
+    if isinstance(cfg, recsys.DINConfig):
+        def f(g):
+            return synthetic.din_batch(g, batch, cfg.hist_len,
+                                       cfg.item_vocab)
+        return f
+    raise TypeError(type(cfg))
 
 
 def make_loss_fn(cfg, family: str):
     if family == "lm":
         return lambda p, tok, lab: tfm.forward_train(p, tok, lab, cfg)
+    if family == "gnn":
+        return lambda p, *b: gnn.loss_minibatch(p, list(b[:-1]), b[-1], cfg)
+    if isinstance(cfg, recsys.WideDeepConfig):
+        return lambda p, ids, lab: recsys.widedeep_loss(p, ids, lab, cfg)
     if isinstance(cfg, recsys.TwoTowerConfig):
         return lambda p, h, pos: recsys.twotower_loss(p, h, pos, cfg)
-    raise _unported(family if family == "gnn" else type(cfg).__name__)
+    if isinstance(cfg, recsys.MINDConfig):
+        return lambda p, h, pos: recsys.mind_loss(p, h, pos, cfg)
+    if isinstance(cfg, recsys.DINConfig):
+        return lambda p, h, t, lab: recsys.din_loss(p, h, t, lab, cfg)
+    raise TypeError(type(cfg))
 
 
 def init_model(generator: torch.Generator, cfg, family: str, *,
                device=None):
     """Fresh trainable parameters on ``device`` (the card by default): the
     transformer's nested dict with every leaf requiring grad, or the
-    two-tower ``nn.Module``."""
+    model's ``nn.Module`` (GraphSAGE, a recommender)."""
     if family == "lm":
         params = tfm.init_params(generator, cfg, device=device)
         for leaf in opt_lib.named_leaves(params).values():
             leaf.requires_grad_(True)
         return params
-    if isinstance(cfg, recsys.TwoTowerConfig):
-        return recsys.TwoTower.init(generator, cfg, device=device)
-    raise _unported(family if family == "gnn" else type(cfg).__name__)
+    if family == "gnn":
+        return gnn.GraphSAGE.init(generator, cfg, device=device)
+    if type(cfg) in _RECSYS:
+        return _RECSYS[type(cfg)].init(generator, cfg, device=device)
+    raise TypeError(type(cfg))
 
 
 def _rotation_health(params) -> float | None:
@@ -165,8 +203,6 @@ def train(arch_id: str, steps: int, batch: int, ckpt_dir: str | None,
     ``live_loop``: a ``repro_torch.pipeline.LiveIndexLoop``; the step then
     emits its rotation deltas and the loop's ``on_step`` runs after each
     step, ``drain`` at the end."""
-    if arch_id in UNPORTED:
-        raise _unported(UNPORTED[arch_id])
     dev = _device.resolve(device)
     if obs_log:
         obs.enable(jsonl=obs_log)
@@ -174,7 +210,7 @@ def train(arch_id: str, steps: int, batch: int, ckpt_dir: str | None,
     arch = configs.get(arch_id)
     cfg = arch.make_config() if full else arch.make_smoke()
     loss_fn = make_loss_fn(cfg, arch.family)
-    batch_fn = make_batch_fn(cfg, arch.family, batch)
+    batch_fn = make_batch_fn(cfg, arch.family, batch, device=dev)
 
     ocfg = opt_lib.OptimizerConfig(
         lr=1e-3, total_steps=steps, warmup_steps=min(50, steps // 10 + 1),

@@ -1,9 +1,11 @@
 """Declarative parameter specs (port of ``repro/models/param.py``).
 
 A model declares its parameters as a dict of ``ParamSpec``, flat (the
-two-tower model) or nested (the transformer: ``layers/attn/wq`` with a
-leading layer axis); ``init_params`` turns it into a dict of the same
-shape holding tensors. Random state is an explicit ``torch.Generator``: a
+two-tower model, the rankers) or nested (the transformer:
+``layers/attn/wq`` with a leading layer axis; GraphSAGE's
+``layer0/w_self``); ``init_params`` turns it into a dict of the same
+shape holding tensors, and ``Params`` into an ``nn.Module`` whose
+parameter names are the JAX path keys. Random state is an explicit ``torch.Generator``: a
 JAX key of the same seed gives other numbers, so tests carry the JAX
 leaves across with ``repro_torch.convert`` instead. The logical sharding
 axes are kept for the sharded slice (ROADMAP.md queue 1, slice 11) and are
@@ -15,6 +17,7 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+from torch import nn
 
 from repro_torch import device as _device
 
@@ -66,3 +69,18 @@ def count_params(specs: dict) -> int:
     """Parameters in a (nested) dict of specs."""
     return sum(count_params(s) if isinstance(s, dict) else math.prod(s.shape)
                for s in specs.values())
+
+
+class Params(nn.Module):
+    """A (nested) dict of tensors as an ``nn.Module``: each leaf a
+    parameter under its key, each nested dict a child module, so
+    ``named_parameters`` gives the JAX path keys (``layer0.w_self`` for
+    ``layer0/w_self``) and ``params.layer0.w_self`` reads a leaf."""
+
+    def __init__(self, tensors: dict):
+        super().__init__()
+        for name, t in tensors.items():
+            if isinstance(t, dict):
+                self.add_module(name, Params(t))
+            else:
+                self.register_parameter(name, nn.Parameter(t))

@@ -1,13 +1,27 @@
-"""The two-tower retrieval model of the paper (port of the two-tower part of
-``repro/models/recsys.py:30-45, 119-221``; Wide&Deep, MIND and DIN wait).
+"""The RecSys model zoo (port of ``repro/models/recsys.py``): Wide&Deep,
+the paper's two-tower retrieval model, MIND and DIN.
 
-A user tower (EmbeddingBag over the click history, then an MLP) and an
+  wide-deep    concat + deep MLP ∥ wide linear           (ranking, BCE)
+  two-tower    dot(user MLP, item MLP), in-batch hinge   (retrieval — the
+               paper's own setting; index layer on the item tower)
+  mind         capsule dynamic routing → interests, max over interests
+  din          target attention over the user history → MLP (ranking, BCE)
+
+The rankers gather their tables with ``embedding.lookup`` (a plain gather,
+a dense gradient), as the JAX package does with ``jnp.take``; the masked
+psum lookup of the sharded slice (``psum_lookup=True``) raises.
+
+Two-tower: a user tower (EmbeddingBag over the click history, then an MLP) and an
 item tower (embedding lookup, then an MLP, then the trainable index layer
 T(X) = φ(XR)Rᵀ) are scored by cosine similarity and trained with the
 in-batch hinge loss (paper §3.2, margin 0.1) plus the distortion term of
 Eq. 1. ``TwoTower`` is an ``nn.Module`` whose parameter names are the JAX
 leaf names: ``item_table``, ``user{i}_w``/``_b``, ``item{i}_w``/``_b``,
-``index.R``, ``index.codebooks``.
+``index.R``, ``index.codebooks``. ``WideDeep``, ``MIND`` and ``DIN`` are
+``models.param.Params`` modules under the JAX leaf names too (``table``,
+``wide``, ``mlp{i}_w``; ``item_table``, ``bilinear``, ``interest{i}_w``;
+``item_table``, ``attn{i}_w``, ``head{i}_w``). MIND's routing runs its
+``capsule_iters`` iterations as a loop where the JAX package scans.
 """
 from __future__ import annotations
 
@@ -42,6 +56,94 @@ def _mlp_apply(params, x: torch.Tensor, dims: tuple[int, ...],
             x = torch.relu(x)
     return x
 
+
+def _bce_with_logits(logits: torch.Tensor, labels: torch.Tensor
+                     ) -> torch.Tensor:
+    """Mean binary cross-entropy, the JAX package's stable form."""
+    return torch.mean(torch.clamp(logits, min=0) - logits * labels
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def _sharded_lookup(name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{name}: psum_lookup=True needs the masked psum lookup of the "
+        "sharded slice (ROADMAP.md queue 1, item 11)")
+
+
+class _Model(param.Params):
+    """A ranker's parameters, drawn from its ``specs`` function."""
+
+    specs: Any = None
+
+    @classmethod
+    def init(cls, generator: torch.Generator, cfg, *, device=None):
+        """Fresh parameters on ``device`` (the card by default)."""
+        dev = _device.resolve(device)
+        return cls(param.init_params(generator, cls.specs(cfg),
+                                     cfg.param_dtype, device=dev))
+
+
+# ===========================================================================
+# Wide & Deep
+# ===========================================================================
+
+class WideDeepConfig(NamedTuple):
+    name: str = "wide-deep"
+    n_sparse: int = 40
+    vocab_per_field: int = 1_000_000
+    embed_dim: int = 32
+    mlp_dims: tuple[int, ...] = (1024, 512, 256)
+    psum_lookup: bool = False        # the sharded slice's lookup (raises)
+    dtype: Any = torch.float32
+    param_dtype: Any = torch.float32
+
+    @property
+    def total_vocab(self) -> int:
+        return self.n_sparse * self.vocab_per_field
+
+
+def widedeep_specs(cfg: WideDeepConfig) -> dict[str, ParamSpec]:
+    d_in = cfg.n_sparse * cfg.embed_dim
+    dims = (d_in, *cfg.mlp_dims, 1)
+    return {
+        # one fused table; field f owns rows [f·V, (f+1)·V)
+        "table": ParamSpec((cfg.total_vocab, cfg.embed_dim),
+                           ("vocab_rows", "w_embed_dim"), scale=0.01),
+        "wide": ParamSpec((cfg.total_vocab, 1), ("vocab_rows", None),
+                          scale=0.01),
+        **_mlp_specs(dims),
+    }
+
+
+class WideDeep(_Model):
+    specs = staticmethod(widedeep_specs)
+
+
+def widedeep_forward(params: WideDeep, sparse_ids: torch.Tensor,
+                     cfg: WideDeepConfig) -> torch.Tensor:
+    """sparse_ids (B, n_sparse) field-local ids -> logits (B,)."""
+    if cfg.psum_lookup:
+        raise _sharded_lookup("widedeep_forward")
+    B, F = sparse_ids.shape
+    offsets = torch.arange(F, device=sparse_ids.device) * cfg.vocab_per_field
+    gids = sparse_ids.long() + offsets[None, :]
+    emb = embedding.lookup(params.table, gids)                 # (B, F, e)
+    deep_in = emb.reshape(B, F * cfg.embed_dim).to(cfg.dtype)
+    d_in = F * cfg.embed_dim
+    deep = _mlp_apply(params, deep_in, (d_in, *cfg.mlp_dims, 1))[:, 0]
+    wide = torch.sum(embedding.lookup(params.wide, gids)[..., 0], dim=-1)
+    return deep + wide.to(deep.dtype)
+
+
+def widedeep_loss(params: WideDeep, sparse_ids: torch.Tensor,
+                  labels: torch.Tensor, cfg: WideDeepConfig) -> torch.Tensor:
+    logits = widedeep_forward(params, sparse_ids, cfg).float()
+    return _bce_with_logits(logits, labels)
+
+
+# ===========================================================================
+# Two-tower retrieval (the paper's own setting)
+# ===========================================================================
 
 class TwoTowerConfig(NamedTuple):
     name: str = "two-tower-retrieval"
@@ -166,3 +268,158 @@ def twotower_retrieve_adc(params: TwoTower, hist_ids: torch.Tensor,
     if cfg.scoring == "cosine":
         u = _normalize(u)
     return il.adc_scores(params.index, u, cand_codes)
+
+
+# ===========================================================================
+# MIND — multi-interest capsule routing
+# ===========================================================================
+
+class MINDConfig(NamedTuple):
+    name: str = "mind"
+    item_vocab: int = 2_000_000
+    embed_dim: int = 64
+    n_interests: int = 4
+    capsule_iters: int = 3
+    hist_len: int = 50
+    dtype: Any = torch.float32
+    param_dtype: Any = torch.float32
+
+
+def mind_specs(cfg: MINDConfig) -> dict[str, ParamSpec]:
+    e = cfg.embed_dim
+    return {
+        "item_table": ParamSpec((cfg.item_vocab, e),
+                                ("vocab_rows", "w_embed_dim"), scale=0.01),
+        "bilinear": ParamSpec((e, e), ("w_in", "w_hidden")),  # S (B2I routing)
+        **_mlp_specs((e, 4 * e, e), prefix="interest"),       # per interest
+    }
+
+
+class MIND(_Model):
+    specs = staticmethod(mind_specs)
+
+
+def _squash(s: torch.Tensor) -> torch.Tensor:
+    n2 = torch.sum(torch.square(s), dim=-1, keepdim=True)
+    return (n2 / (1.0 + n2)) * s / torch.sqrt(n2 + 1e-9)
+
+
+def mind_interests(params: MIND, hist_ids: torch.Tensor,
+                   cfg: MINDConfig) -> torch.Tensor:
+    """Dynamic routing (B2I): hist (B, L), −1 padded -> interests (B, I, e).
+    The routing logits start at 0 and take ``capsule_iters`` updates; the
+    last iteration's capsules go through the interest MLP."""
+    B, L = hist_ids.shape
+    valid = hist_ids >= 0
+    e = embedding.lookup(params.item_table, torch.clamp(hist_ids, min=0))
+    e = torch.where(valid[..., None], e, 0.0).to(cfg.dtype)    # (B, L, e)
+    eS = (e @ params.bilinear.to(e.dtype)).float()     # behaviour→interest
+    b = torch.zeros((B, L, cfg.n_interests), dtype=torch.float32,
+                    device=hist_ids.device)                      # logits
+    u = None
+    for _ in range(cfg.capsule_iters):
+        w = torch.softmax(b, dim=-1)                             # over I
+        w = torch.where(valid[..., None], w, 0.0)
+        s = torch.einsum("bli,ble->bie", w, eS)
+        u = _squash(s)                                           # (B, I, e)
+        b = b + torch.einsum("ble,bie->bli", eS, u)
+    return _mlp_apply(params, u.to(cfg.dtype),
+                      (cfg.embed_dim, 4 * cfg.embed_dim, cfg.embed_dim),
+                      prefix="interest")
+
+
+def mind_loss(params: MIND, hist_ids: torch.Tensor,
+              pos_item_ids: torch.Tensor, cfg: MINDConfig) -> torch.Tensor:
+    """Max over interests, then the in-batch softmax. The (B, I, B)
+    float32 scores are the largest temporary: 4.3 GB at B = 16,384, 68.7
+    GB at the recsys train_batch of 65,536."""
+    u = mind_interests(params, hist_ids, cfg)                   # (B, I, e)
+    v = embedding.lookup(params.item_table, pos_item_ids).to(cfg.dtype)
+    att = torch.einsum("bie,ce->bic", u, v).float()             # (B, I, B)
+    scores = torch.amax(att, dim=1)          # ties share the gradient, as
+    logp = torch.log_softmax(scores, dim=-1)  # jnp.max's do
+    return -torch.mean(torch.diagonal(logp))
+
+
+def mind_retrieve(params: MIND, hist_ids: torch.Tensor,
+                  cand_vecs: torch.Tensor, cfg: MINDConfig) -> torch.Tensor:
+    """(B, L) histories × (N, e) candidates -> (B, N): the max over
+    interests of the dot scores."""
+    u = mind_interests(params, hist_ids, cfg)
+    return torch.amax(torch.einsum("bie,ne->bin", u,
+                                   cand_vecs.to(u.dtype)), dim=1)
+
+
+# ===========================================================================
+# DIN — deep interest network (target attention)
+# ===========================================================================
+
+class DINConfig(NamedTuple):
+    name: str = "din"
+    item_vocab: int = 1_000_000
+    embed_dim: int = 18
+    hist_len: int = 100
+    attn_dims: tuple[int, ...] = (80, 40)
+    mlp_dims: tuple[int, ...] = (200, 80)
+    dtype: Any = torch.float32
+    param_dtype: Any = torch.float32
+
+
+def din_specs(cfg: DINConfig) -> dict[str, ParamSpec]:
+    e = cfg.embed_dim
+    return {
+        "item_table": ParamSpec((cfg.item_vocab, e),
+                                ("vocab_rows", "w_embed_dim"), scale=0.01),
+        **_mlp_specs((4 * e, *cfg.attn_dims, 1), prefix="attn"),
+        **_mlp_specs((2 * e, *cfg.mlp_dims, 1), prefix="head"),
+    }
+
+
+class DIN(_Model):
+    specs = staticmethod(din_specs)
+
+
+def din_forward(params: DIN, hist_ids: torch.Tensor, target_ids: torch.Tensor,
+                cfg: DINConfig) -> torch.Tensor:
+    """hist (B, L), −1 padded, target (B,) -> logits (B,). Target
+    attention: the attention MLP sees [h, t, h − t, h ⊙ t] for each history
+    item (DIN eq. 3); padded items are masked with −1e30, so a history with
+    no item pools zeros under uniform weights (no NaN)."""
+    e = cfg.embed_dim
+    valid = hist_ids >= 0
+    h = embedding.lookup(params.item_table,
+                         torch.clamp(hist_ids, min=0)).to(cfg.dtype)
+    h = torch.where(valid[..., None], h, 0.0)                   # (B, L, e)
+    t = embedding.lookup(params.item_table, target_ids).to(cfg.dtype)
+    tt = t[:, None].expand_as(h)
+    attn_in = torch.cat([h, tt, h - tt, h * tt], dim=-1)        # (B, L, 4e)
+    w = _mlp_apply(params, attn_in, (4 * e, *cfg.attn_dims, 1),
+                   prefix="attn")[..., 0]
+    w = torch.where(valid, w, -1e30)
+    w = torch.softmax(w.float(), dim=-1).to(cfg.dtype)
+    pooled = torch.einsum("bl,ble->be", w, h)
+    head_in = torch.cat([pooled, t], dim=-1)
+    return _mlp_apply(params, head_in, (2 * e, *cfg.mlp_dims, 1),
+                      prefix="head")[:, 0]
+
+
+def din_loss(params: DIN, hist_ids: torch.Tensor, target_ids: torch.Tensor,
+             labels: torch.Tensor, cfg: DINConfig) -> torch.Tensor:
+    logits = din_forward(params, hist_ids, target_ids, cfg).float()
+    return _bce_with_logits(logits, labels)
+
+
+def din_score_candidates(params: DIN, hist_ids: torch.Tensor,
+                         cand_ids: torch.Tensor, cfg: DINConfig,
+                         chunk: int = 8192) -> torch.Tensor:
+    """Target-attention scores of N candidates for ONE user: hist (L,),
+    cand (N,) -> (N // chunk · chunk,), a chunk of candidates at a time
+    (no N × L temporary beyond chunk × L). As in the JAX package, the
+    candidates past the last whole chunk are not scored."""
+    nc = cand_ids.shape[0] // chunk
+    hist_b = hist_ids[None].expand(chunk, hist_ids.shape[0])
+    out = [din_forward(params, hist_b, cand_ids[i * chunk:(i + 1) * chunk],
+                       cfg) for i in range(nc)]
+    if not out:
+        return torch.zeros((0,), dtype=cfg.dtype, device=cand_ids.device)
+    return torch.cat(out)

@@ -291,8 +291,9 @@ def test_configs_match_jax(arch_id):
 
 def test_config_registry():
     assert configs.get("paper-twotower").family == "recsys"
+    assert configs.get("graphsage-reddit").family == "gnn"
     with pytest.raises(KeyError, match="olmo-1b"):
-        configs.get("graphsage-reddit")
+        configs.get("no-such-arch")
     long = configs.get("olmo-1b").config_for_shape("long_500k")
     assert long.kv_quant == kv.KVQuantConfig(128, 16, 256)
     assert configs.base.LM_SHAPES["long_500k"].params["seq_len"] == 524288
