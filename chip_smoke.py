@@ -344,7 +344,23 @@ Phases, one JSON line each:
            kernel launched), with Wide&Deep's serve_p99 forward, MIND's
            retrieval over 1M candidates against float64 and DIN's bulk
            scoring of 1M candidates. A memory reckoning is printed before
-           each arm and the peak beside it.
+           each arm and the peak beside it;
+  dryrun   the launch layer (launch.cells, launch.dryrun, roofline) on the
+           card: olmo-1b × train_4k at DRY_MICRO sequences a microbatch
+           [cut: 32] and the cell's accumulation of 8, DRY_STEPS steps at
+           full depth and at DRY_DEPTHS layers, the fit to 16 layers held
+           within DRY_HELD of the measurement in peak bytes and in the
+           fastest step's microbatch time;
+           then launch.dryrun.run_cell's records of two-tower-retrieval ×
+           train_batch (at DRY_TT_BATCHES [cut: 65,536]), its
+           retrieval_cand, olmo-1b's and grok-1's long_500k (grok-1 does
+           not fit one card whole: two depths, fits_hbm false),
+           graphsage-reddit × molecule and wide-deep × serve_p99, each
+           printed on its own line and held complete (every JAX key,
+           model_flops_total the cell's, the launches its runs imply);
+           embedding_bag, pq_assign, gcd_score, givens_rotate, adc_lookup
+           and adc_batch held against their plain versions on the
+           operands of their last call at each shape.
 Every check raises on failure, so the script exits non-zero with the error;
 it also exits non-zero without a CUDA device. The last three lines are the
 nvidia-smi line, the per-kernel JSON summary and the device JSON. A
@@ -357,7 +373,7 @@ arms; serve's build of beta and its seven frontends;
 train's parts; table1's run; fig4's and fig2's runs;
 decode's prefill and greedy tokens; lm_train's kvq steps, and its decode
 of the trained and initial leaves; moe's PQ prefills, greedy tokens and
-train steps; zoo's gnn_index. The checks that run beside them in a phase's window are left out.
+train steps; zoo's gnn_index; dryrun's cells. The checks that run beside them in a phase's window are left out.
 """
 from __future__ import annotations
 
@@ -641,6 +657,21 @@ ZOO_RESUME_RTOL = 1e-4
 ZOO_SERVE_BATCH = 512              # RECSYS_SHAPES serve_p99
 ZOO_CANDIDATES = 1_000_000         # RECSYS_SHAPES retrieval_cand
 ZOO_KERNELS = ("pq_assign", "gcd_score", "givens_rotate", "adc_lookup")
+# dryrun (launch.dryrun's cells on the card)
+DRY_MICRO = 2                      # olmo-1b train_4k's microbatch [cut: 32]
+DRY_DEPTHS = (2, 4)                # extrapolated to olmo-1b's 16 layers
+DRY_HELD = 0.10                    # extrapolated against measured
+DRY_STEPS = 3                      # timed steps a depth; the fastest held
+DRY_TT_BATCHES = (16_384, 8_192)   # two-tower train_batch [cut: 65,536]
+DRY_RECORDS = (("two-tower-retrieval", "retrieval_cand"),
+               ("olmo-1b", "long_500k"),
+               ("grok-1-314b", "long_500k"),   # does not fit one card whole
+               ("graphsage-reddit", "molecule"), ("wide-deep", "serve_p99"))
+DRY_KERNELS = ("embedding_bag", "pq_assign", "gcd_score", "givens_rotate",
+               "adc_lookup", "adc_batch")
+#: operands larger than this are kept by reference, not copied, by the
+#: dryrun phase's spies (the two-tower item table is 10.2 GB)
+DRY_COPY_BYTES = 1 << 28
 
 
 def lm_orth_bound(steps: int) -> float:
@@ -6107,6 +6138,232 @@ def phase_zoo(smi: str) -> tuple[dict, dict, dict]:
     return rows, errs, launches
 
 
+# -- dryrun ------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _dry_spies(into: dict):
+    """Inside the block, the operands of the last call of each of
+    DRY_KERNELS at each shape of its first operand, in
+    ``into[(name, shape)]``: tensors up to
+    DRY_COPY_BYTES copied, larger ones (an embedding table the optimizer
+    then updates in place) kept by reference: the kernel and its plain
+    version read the same tensor either way."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    real = {name: getattr(ops, name) for name in DRY_KERNELS}
+
+    def keep(a):
+        if torch.is_tensor(a) and a.numel() * a.element_size() <= \
+                DRY_COPY_BYTES:
+            return a.detach().clone()
+        return a.detach() if torch.is_tensor(a) else a
+
+    def spy(name):
+        def wrapped(*args, **kwargs):
+            into[(name, tuple(args[0].shape))] = tuple(map(keep, args))
+            return real[name](*args, **kwargs)
+        return wrapped
+
+    for name in DRY_KERNELS:
+        setattr(ops, name, spy(name))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(ops, name, fn)
+
+
+def _dry_hold(seen: dict, errs: dict) -> dict:
+    """Each kernel of the dryrun phase against its plain version on the
+    operands of its last call at each shape: the scans bit for bit on
+    float32 tables, embedding_bag within BAG_RTOL (empty bags exact
+    zeros), gcd_score, givens_rotate and pq_assign as
+    ``_hold_rotation_kernels``. Returns the shapes held by kernel."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    rot = {}
+    held: dict = {}
+    for (name, shape), args in sorted(seen.items(), key=lambda kv: kv[0]):
+        tag = f"{name}/dryrun_{'x'.join(map(str, shape))}"
+        held.setdefault(name, []).append(list(shape))
+        if name in ("gcd_score", "givens_rotate", "pq_assign"):
+            rot[(name, shape)] = args
+        elif name == "embedding_bag":
+            table, idx, bags, num = args[:4]
+            got = ops.embedding_bag(table, idx, bags, num)
+            want = ref.embedding_bag_ref(table, idx, bags, num)
+            valid = torch.zeros(num, dtype=torch.bool, device=idx.device)
+            valid[bags[idx >= 0].long()] = True
+            errs[tag] = _bag_error(got, want, valid)
+        elif name == "adc_lookup":
+            errs[tag] = bit_equal(ops.adc_lookup(*args),
+                                  ref.adc_lookup_ref(*args),
+                                  f"adc_lookup at {shape}")
+        else:
+            errs[tag] = bit_equal(ops.adc_batch(*args),
+                                  ref.adc_batch_ref(*args),
+                                  f"adc_batch at {shape}")
+    rot_held = _hold_rotation_kernels("dryrun", rot, errs)
+    return dict(shapes=held, pq_assign_flips=rot_held["pq_assign_flips"])
+
+
+def _dry_launches(rec: dict) -> dict:
+    """The launches a record's runs imply: each run's launches a call ×
+    its calls."""
+    out: dict = {}
+    for p in rec["measured_at"]:
+        for k, v in p["launches"].items():
+            out[k] = out.get(k, 0) + v * p["calls"]
+    return out
+
+
+def _dry_record(arch: str, shape: str, dev, seen: dict, launches: dict,
+                plan=None) -> dict:
+    """``launch.dryrun.run_cell`` on the card with the kernels spied and
+    counted; held: the record ok, complete (every JAX key, measured or
+    reckoned with the reason), model_flops_total the cell's, the launches
+    its runs imply exactly. The record prints on its own line."""
+    from repro_torch.launch import cells, dryrun
+
+    got: dict = {}
+    with _dry_spies(seen), _counted(got):
+        rec = dryrun.run_cell(arch, shape, device=dev, plan=plan,
+                              verbose=False)
+    check(rec["ok"], f"dryrun {arch} × {shape}: {rec.get('error')}\n"
+          f"{rec.get('traceback')}")
+    for k in ("arch", "shape", "mesh", "ok", "kind", "n_chips", "fits_hbm",
+              "report", "measured_at", "reduced", "step_s"):
+        check(k in rec, f"dryrun {arch} × {shape}: no {k!r}")
+    for k in ("flops_per_device", "bytes_per_device", "loop_trips",
+              "collective_bytes", "compute_s", "memory_s", "collective_s",
+              "dominant", "roofline_fraction", "memory", "model_flops_total",
+              "useful_compute_ratio"):
+        check(k in rec["report"], f"dryrun {arch} × {shape}: no report "
+              f"key {k!r}")
+    check(rec["measured_at"] or rec["reduced"],
+          f"dryrun {arch} × {shape}: neither measured nor reckoned")
+    check(rec["report"]["model_flops_total"]
+          == cells.build_cell(arch, shape, smoke=dev.type != "cuda"
+                              ).meta["model_flops"],
+          f"dryrun {arch} × {shape}: model_flops_total")
+    _expect(f"dryrun {arch} × {shape}", got, _dry_launches(rec))
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    emit("dryrun_record", **{k: v for k, v in rec.items()
+                             if k != "traceback"})
+    return rec
+
+
+def phase_dryrun(smi: str) -> tuple[dict, dict]:
+    """The launch layer on the card (``launch.cells``, ``launch.dryrun``):
+    olmo-1b × train_4k at DRY_MICRO sequences a microbatch and the cell's
+    accumulation of 8, DRY_STEPS steps at full depth and at DRY_DEPTHS, the
+    extrapolation to 16 layers held within DRY_HELD of the measurement in
+    peak bytes and in the fastest step's microbatch time; the records of two-tower-retrieval
+    × train_batch (at DRY_TT_BATCHES) and of DRY_RECORDS, each complete,
+    its launches exact, and every kernel the cells launched held against
+    its plain version on the operands of its last call at each shape.
+    Returns (errors, the phase's launches)."""
+    import torch
+
+    from repro_torch import device
+    from repro_torch.launch import cells, dryrun
+    from repro_torch.roofline import analysis
+
+    dev = device.resolve()
+    t_all = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs: dict = {}
+    total = torch.cuda.get_device_properties(0).total_memory
+    emit("dryrun_memory", chip_hbm_bytes=analysis.CHIP_HBM_BYTES,
+         total_memory_bytes=total)
+    # the extrapolation against a cell that fits whole at a cut microbatch
+    cell = cells.build_cell("olmo-1b", "train_4k")
+    A, L = cell.meta["accum"], cell.meta["depth"]
+    olmo: dict = {}
+    with _counted(olmo):
+        t0 = time.perf_counter()
+        whole = dryrun.measure(cell, None, DRY_MICRO, A, dev, DRY_STEPS)
+        cut = [dryrun.measure(cell, d, DRY_MICRO, A, dev, DRY_STEPS)
+               for d in DRY_DEPTHS]
+        olmo_s = time.perf_counter() - t0
+    _expect("dryrun olmo-1b train_4k", olmo, {})
+    # the fastest of DRY_STEPS steps at each depth: a step at 8,192 tokens
+    # a microbatch waits on the shared host by up to 6% on an H100 (a
+    # depth-4 step 3.27-3.48 s), and the fit from depths 2 and 4 to 16
+    # multiplies the error of the slope by 7
+    for p in (whole, *cut):
+        p["micro_best_s"] = min(p["micro_s_all"])
+    x_peak = dryrun.extrapolate(cut, "peak_bytes", L, DRY_MICRO)
+    x_micro = dryrun.extrapolate(cut, "micro_best_s", L, DRY_MICRO)
+    d_peak = x_peak / whole["peak_bytes"] - 1.0
+    d_micro = x_micro / whole["micro_best_s"] - 1.0
+    emit("dryrun_extrapolation", cell="olmo-1b × train_4k",
+         microbatch=DRY_MICRO, accum=A, depths=list(DRY_DEPTHS), depth=L,
+         measured=dict(peak_bytes=whole["peak_bytes"],
+                       micro_best_s=whole["micro_best_s"],
+                       micro_s=whole["micro_s"],
+                       micro_s_all=whole["micro_s_all"],
+                       step_s=whole["step_s"], flops=whole["flops"]),
+         extrapolated=dict(peak_bytes=x_peak, micro_best_s=x_micro,
+                           micro_s=dryrun.extrapolate(cut, "micro_s", L,
+                                                      DRY_MICRO),
+                           flops=dryrun.extrapolate(cut, "flops", L,
+                                                    DRY_MICRO)),
+         rel_peak=d_peak, rel_micro=d_micro, held=DRY_HELD,
+         runs=[{k: v for k, v in p.items() if k != "step_s_all"}
+               for p in cut], seconds=olmo_s)
+    check(abs(d_peak) <= DRY_HELD, f"dryrun olmo-1b: peak extrapolated "
+          f"{x_peak} against {whole['peak_bytes']} measured ({d_peak:+.3f})")
+    check(abs(d_micro) <= DRY_HELD, f"dryrun olmo-1b: microbatch "
+          f"extrapolated {x_micro} s against {whole['micro_best_s']} s "
+          f"measured ({d_micro:+.3f})")
+    launches: dict = {}
+    records = {}
+    held: dict = dict(shapes={}, pq_assign_flips={})
+    plan = dryrun.Plan((None,), DRY_TT_BATCHES, 1, 1,
+                       f"batch 65536 -> {DRY_TT_BATCHES}")
+    for arch, shape in (("two-tower-retrieval", "train_batch"),
+                        *DRY_RECORDS):
+        seen: dict = {}
+        records[f"{arch}/{shape}"] = _dry_record(
+            arch, shape, dev, seen, launches,
+            plan=plan if shape == "train_batch" else None)
+        # held before the next cell: a spied operand kept by reference
+        # (the two-tower item table, 10.2 GB) would count in its peak
+        h = _dry_hold(seen, errs)
+        for name, shapes in h["shapes"].items():
+            held["shapes"].setdefault(name, []).extend(shapes)
+        held["pq_assign_flips"].update(h["pq_assign_flips"])
+        del seen, h
+        gc.collect()
+        torch.cuda.empty_cache()
+    grok = records["grok-1-314b/long_500k"]
+    check(not grok["fits_hbm"] and grok["reduced"]
+          and len(grok["measured_at"]) >= 2,
+          f"dryrun grok-1 long_500k: fits {grok['fits_hbm']}, reduced "
+          f"{grok['reduced']}")
+    for name in DRY_KERNELS:
+        check(launches.get(name, 0) > 0, f"kernel {name} was not launched "
+              "on the dryrun path")
+    emit("dryrun", records={k: dict(
+        fits_hbm=r["fits_hbm"], step_s=r["step_s"],
+        peak_bytes=r["report"]["memory"]["peak_bytes"],
+        peak_from=r["peak_from"], flops=r["report"]["flops_per_device"],
+        model_flops=r["report"]["model_flops_total"],
+        useful=r["report"]["useful_compute_ratio"],
+        dominant=r["report"]["dominant"], reduced=r["reduced"])
+        for k, r in records.items()}, launches=launches, held=held,
+         max_abs_err=errs, seconds=time.perf_counter() - t_all, card=smi)
+    return errs, launches
+
+
 def main() -> int:
     import torch
 
@@ -6162,6 +6419,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     _, zoo_errs, paths["zoo"] = phase_zoo(smi)
     errs.update(zoo_errs)
+    torch.cuda.empty_cache()
+    dry_errs, paths["dryrun"] = phase_dryrun(smi)
+    errs.update(dry_errs)
     summary = []
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]

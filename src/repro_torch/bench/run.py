@@ -17,10 +17,12 @@ Departures from the JAX script:
   * **Its trajectories are ``torch_fast`` and ``torch_full``**
     (``serve_load``'s own is ``torch_serve``), so a shared
     ``$REPRO_BENCH_DIR`` never mixes a card run into a JAX trajectory.
-  * **``kernels`` and ``roofline`` raise** ``NotImplementedError``: they
-    read ``repro.roofline``'s XLA dry-run analysis, which has no
-    counterpart (ROADMAP.md queue 1, item 13). The default ``--only`` is
-    every ported section. ``--devices > 1`` raises too (item 11).
+  * **``kernels`` times the hand-written kernels** (``bench.kernels_micro``:
+    each kernel's device time beside its plain version's and the port's
+    roofline prediction) and **``roofline`` reads the port's dry-run
+    records** (``launch.dryrun --out DIR``) from ``--dryrun-dir``; without
+    it the section books no cell. Every section is ported; ``--devices >
+    1`` raises (ROADMAP.md queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -34,8 +36,7 @@ from repro_torch import device as _device
 from repro_torch.bench import common
 
 SECTIONS = ("train_e2e", "fig2a", "fig2bc", "table1", "fig4", "ivf",
-            "churn", "serve")
-NOT_PORTED = ("kernels", "roofline")
+            "churn", "serve", "kernels", "roofline")
 SHARDED_LATER = ("--devices > 1: the sharded cells are not ported yet "
                  "(ROADMAP.md queue 1, item 11)")
 
@@ -47,22 +48,18 @@ def resolve_bench_dir(cli_out: str | None) -> str | None:
 
 def sections_of(only: str | None) -> list[str]:
     """The sections to run, in the JAX order; raises for a section that is
-    not ported or not known."""
+    not known."""
     if not only:
         return list(SECTIONS)
     names = [s for s in only.split(",") if s]
     for s in names:
-        if s in NOT_PORTED:
-            raise NotImplementedError(
-                f"the {s} section reads repro.roofline's XLA dry-run "
-                "analysis, which is not ported (ROADMAP.md queue 1, item 13)")
         if s not in SECTIONS:
-            raise ValueError(f"unknown section {s!r}; have "
-                             f"{SECTIONS + NOT_PORTED}")
+            raise ValueError(f"unknown section {s!r}; have {SECTIONS}")
     return [s for s in SECTIONS if s in names]
 
 
-def run_sections(names, *, fast: bool, device) -> tuple[dict, dict, list]:
+def run_sections(names, *, fast: bool, device,
+                 dryrun_dir: str | None = None) -> tuple[dict, dict, list]:
     """Run ``names`` at the JAX script's sizes; (sections, checks,
     failures) with every check under ``section/check``."""
     sections: dict = {}
@@ -145,14 +142,22 @@ def run_sections(names, *, fast: bool, device) -> tuple[dict, dict, list]:
         else:
             res, checks = serve_load.run(device=device)
         book("serve", res, checks)
+
+    if "kernels" in names:
+        from repro_torch.bench import kernels_micro
+        results = kernels_micro.run(device=device)
+        book("kernels", results, {k: v["ok"] for k, v in results.items()})
+
+    if "roofline" in names:
+        from repro_torch.bench import roofline_table
+        book("roofline", roofline_table.run(dryrun_dir=dryrun_dir))
     return sections, checks_all, failures
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=None,
-                    help="comma list of " + ",".join(SECTIONS)
-                    + " (kernels and roofline are not ported)")
+                    help="comma list of " + ",".join(SECTIONS))
     ap.add_argument("--fast", action="store_true")
     ap.add_argument("--devices", type=int, default=1,
                     help="the sharded cells: not ported yet")
@@ -161,6 +166,9 @@ def main(argv=None) -> int:
                          "$REPRO_BENCH_DIR; unset: print only)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--dryrun-dir", default=None,
+                    help="the roofline section's records (launch.dryrun "
+                         "--out); default none")
     args = ap.parse_args(argv)
     if args.devices > 1:
         raise NotImplementedError(SHARDED_LATER)
@@ -171,7 +179,8 @@ def main(argv=None) -> int:
 
     t0 = time.time()
     sections, checks, failures = run_sections(names, fast=args.fast,
-                                              device=dev)
+                                              device=dev,
+                                              dryrun_dir=args.dryrun_dir)
     elapsed = time.time() - t0
     common.emit("run", "total", seconds=elapsed, sections=names,
                 failures=failures)

@@ -76,6 +76,8 @@ MANIFOLD_LEAVES = ("R", "rot_k", "rot_v")
 ADAFACTOR_CHUNK = 1 << 27
 #: elements of a half-precision gradient widened at a time by global_norm
 NORM_CHUNK = 1 << 28
+#: the most elements one cuBLAS dot product takes
+DOT_MAX = 2**31 - 1
 
 
 class OptimizerConfig(NamedTuple):
@@ -220,12 +222,15 @@ def global_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:
     dot product per leaf, so no squared copy of the table is made. A
     half-precision leaf is widened to float32 first, NORM_CHUNK elements
     at a time, so its sum accumulates in float32 (as the JAX package's
-    ``preferred_element_type``), not in the leaf's dtype."""
+    ``preferred_element_type``), not in the leaf's dtype; so is a leaf of
+    more than 2³¹ − 1 elements (two-tower-retrieval's 10M × 256 table),
+    which cuBLAS's dot cannot take in one call."""
     total = None
     for g in grads.values():
         g = g.reshape(-1)
         half = g.dtype in (torch.bfloat16, torch.float16)
-        for c in g.split(NORM_CHUNK) if half else (g,):
+        whole = not half and g.numel() <= DOT_MAX
+        for c in (g,) if whole else g.split(NORM_CHUNK):
             if half:
                 c = c.float()              # one chunk's copy at a time
             sq = torch.dot(c, c)

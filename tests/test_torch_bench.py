@@ -7,7 +7,9 @@ A file written by either package validates under the other's
 under the port's and is only read. ``serve_load.run`` at a tiny size has
 the JAX run's result keys and holds the five checks that are not timing
 claims; its arrival trace is the JAX script's. ``bench.run`` never writes
-under ``benchmarks/`` and raises for the sections that are not ported.
+under ``benchmarks/`` and raises for the sharded cells; its ``kernels``
+section holds each kernel's plain version at the JAX script's shapes and
+its ``roofline`` section renders the dry run's records.
 """
 from __future__ import annotations
 
@@ -184,17 +186,60 @@ def test_run_destination_never_falls_back_to_benchmarks(monkeypatch,
 
 
 def test_run_raises_for_what_is_not_ported():
-    for section in ("kernels", "roofline"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            brun.sections_of(section)
-        with pytest.raises(NotImplementedError, match="item 13"):
-            brun.main(["--only", f"serve,{section}", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="item 11"):
         brun.main(["--devices", "2", "--only", "serve", "--device", "cpu"])
     with pytest.raises(ValueError, match="unknown section"):
         brun.sections_of("nope")
     assert brun.sections_of(None) == list(brun.SECTIONS)
     assert brun.sections_of("serve,fig4") == ["fig4", "serve"]
+
+
+def test_run_kernels_section_on_cpu():
+    """The JAX script's rows at its shapes, each held on the plain versions
+    (the CPU runs no kernel) by the JAX script's checks."""
+    sections, checks, failures = brun.run_sections(["kernels"], fast=True,
+                                                   device=torch.device("cpu"))
+    rows = sections["kernels"]
+    assert set(rows) == {"givens_rotate", "gcd_score", "gcd_score_ref",
+                         "pq_assign", "adc_lookup", "adc_lookup_int8",
+                         "embedding_bag", "fused_lut", "stream_merge",
+                         "fused_refresh"}
+    assert failures == [] and all(checks.values())
+    assert all(r["ok"] and r["us_per_call"] > 0 for r in rows.values())
+    assert rows["adc_lookup_int8"]["bytes_ratio"] >= 2.0
+    assert rows["adc_lookup_int8"]["topk_agree"] >= 0.9
+    assert rows["fused_refresh"]["lut_invalidations"] == 0
+    for name in ("givens_rotate", "gcd_score", "pq_assign", "adc_lookup",
+                 "embedding_bag", "fused_lut"):
+        assert rows[name]["predicted_us"] > 0, name
+
+
+def test_run_roofline_section_reads_records(tmp_path, capsys):
+    """Records that ``launch.dryrun.run_cell`` writes on the CPU, rendered
+    into the roofline table by the ``roofline`` section."""
+    from repro_torch.bench import roofline_table
+    from repro_torch.launch import dryrun
+
+    out = tmp_path / "dryrun"
+    for aid, shape in (("wide-deep", "serve_p99"), ("olmo-1b", "long_500k")):
+        assert dryrun.run_cell(aid, shape, device="cpu", out_dir=str(out),
+                               verbose=False)["ok"]
+    sections, _, failures = brun.run_sections(
+        ["roofline"], fast=True, device=torch.device("cpu"),
+        dryrun_dir=str(out))
+    res = sections["roofline"]
+    assert failures == [] and res["cells_ok"] == 2
+    assert res["cells_failed"] == 0
+    table = res["table"].splitlines()
+    assert table[0].startswith("| arch | shape | mesh | fits |")
+    assert len(table) == 4
+    assert table[2].startswith("| olmo-1b | long_500k | 1xCPU | yes |")
+    assert table[3].startswith("| wide-deep | serve_p99 | 1xCPU | yes |")
+    assert brun.run_sections(["roofline"], fast=True,
+                             device=torch.device("cpu"))[0]["roofline"][
+        "cells_ok"] == 0
+    assert roofline_table.main(["--dryrun-dir", str(out)]) == 0
+    assert "| wide-deep | serve_p99 |" in capsys.readouterr().out
 
 
 def test_run_writes_a_valid_torch_trajectory(monkeypatch, tmp_path):
