@@ -360,7 +360,30 @@ Phases, one JSON line each:
            model_flops_total the cell's, the launches its runs imply);
            embedding_bag, pq_assign, gcd_score, givens_rotate, adc_lookup
            and adc_batch held against their plain versions on the
-           operands of their last call at each shape.
+           operands of their last call at each shape;
+  tooling  the rest of queue 1: one GCD-G step of a stacked (2, 128, 128)
+           bf16 rotation (the learner state's R bf16 and bit-equal to the
+           leaf, R within lm_orth_bound(1)); training.grad_compress over
+           two spawned gloo ranks on the one card, four steps of error
+           feedback on 16M-element gradients from a seed, each step
+           bit-equal in every rank to a one-process reference of the same
+           formulas and the same on both ranks, with a case of equal
+           positive gradients whose int8 sum wraps as the JAX package's
+           does (payload bytes and ms a step printed); GraphSAGE's blocked
+           aggregation against gnn.aggregate_edges_ref on a 4,000-node
+           graph in 82 blocks (forward bit-equal, gradients within 1e-5
+           of the largest entry, mean and max); graphsage-reddit ×
+           ogb_products whole through launch.dryrun.run_cell (2,449,030
+           nodes, 61.9M edges, three timed steps under deterministic
+           algorithms, twice: losses finite and bit-equal, fits_hbm,
+           nothing reduced, peak and step printed); the three examples
+           (repro_torch.examples) at their JAX scripts' defaults through
+           their main: quickstart (exact recall 1.0, GCD-G below frozen,
+           every R orthogonal to 1e-4), serve_ann (no new executable after
+           the refresh, refresh_mismatch ≤ 1%, recall before and after)
+           and train_twotower straight and resumed from its step-300
+           checkpoint (loss and p@50 bit-equal), every kernel they
+           launched held against its plain version at each shape.
 Every check raises on failure, so the script exits non-zero with the error;
 it also exits non-zero without a CUDA device. The last three lines are the
 nvidia-smi line, the per-kernel JSON summary and the device JSON. A
@@ -373,7 +396,8 @@ arms; serve's build of beta and its seven frontends;
 train's parts; table1's run; fig4's and fig2's runs;
 decode's prefill and greedy tokens; lm_train's kvq steps, and its decode
 of the trained and initial leaves; moe's PQ prefills, greedy tokens and
-train steps; zoo's gnn_index; dryrun's cells. The checks that run beside them in a phase's window are left out.
+train steps; zoo's gnn_index; dryrun's cells; tooling's bf16 rotation
+step; the examples' runs. The checks that run beside them in a phase's window are left out.
 """
 from __future__ import annotations
 
@@ -382,6 +406,7 @@ import functools
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -672,6 +697,22 @@ DRY_KERNELS = ("embedding_bag", "pq_assign", "gcd_score", "givens_rotate",
 #: operands larger than this are kept by reference, not copied, by the
 #: dryrun phase's spies (the two-tower item table is 10.2 GB)
 DRY_COPY_BYTES = 1 << 28
+# tooling (14c, grad_compress, ogb_products, the three examples)
+TOOL_SEED = SEED + 110
+TOOL_ROT = (2, 128)                # a stacked bf16 rotation: (L, n)
+TOOL_GC_RANKS = 2                  # gloo ranks on the one card
+TOOL_GC_STEPS = 4
+TOOL_GC_SIZE = 1 << 24             # gradient elements a rank (64 MB f32)
+TOOL_GC_PEAK = 2.553               # the equal gradients' largest entry
+TOOL_GC_TIMEOUT = 300              # seconds the ranks may take
+TOOL_GNN_STEPS = 3                 # timed steps of the ogb_products cell
+TOOL_GNN_SMALL = (4000, 40_000, 64)  # nodes, edges, width: blocked vs ref
+TOOL_GNN_BLOCK_ROWS = 500          # message rows a block there
+TOOL_GNN_RTOL = 1e-5               # gradients: of the reference's largest
+TOOL_REFRESH_MISMATCH = 0.01       # serve_ann: tests/test_ivf.py:112
+TOOL_ORTH = 1e-4                   # quickstart: ‖RᵀR − I‖ of every learner
+EXAMPLE_KERNELS = ("pq_assign", "gcd_score", "givens_rotate", "ivf_adc",
+                   "adc_lookup", "embedding_bag")
 
 
 def lm_orth_bound(steps: int) -> float:
@@ -6142,32 +6183,34 @@ def phase_zoo(smi: str) -> tuple[dict, dict, dict]:
 
 
 @contextlib.contextmanager
-def _dry_spies(into: dict):
-    """Inside the block, the operands of the last call of each of
-    DRY_KERNELS at each shape of its first operand, in
-    ``into[(name, shape)]``: tensors up to
-    DRY_COPY_BYTES copied, larger ones (an embedding table the optimizer
-    then updates in place) kept by reference: the kernel and its plain
-    version read the same tensor either way."""
+def _kernel_spies(into: dict, names):
+    """Inside the block, the operands (positional and keyword) of the last
+    call of each kernel of ``names`` at each shape of its first operand,
+    in ``into[(name, shape)]``: tensors up to DRY_COPY_BYTES copied,
+    larger ones (an embedding table the optimizer then updates in place)
+    kept by reference: the kernel and its plain version read the same
+    tensor either way."""
     import torch
 
     from repro_torch.kernels import ops
 
-    real = {name: getattr(ops, name) for name in DRY_KERNELS}
+    real = {name: getattr(ops, name) for name in names}
 
     def keep(a):
-        if torch.is_tensor(a) and a.numel() * a.element_size() <= \
-                DRY_COPY_BYTES:
-            return a.detach().clone()
-        return a.detach() if torch.is_tensor(a) else a
+        if torch.is_tensor(a):
+            small = a.numel() * a.element_size() <= DRY_COPY_BYTES
+            return a.detach().clone() if small else a.detach()
+        return a
 
     def spy(name):
         def wrapped(*args, **kwargs):
-            into[(name, tuple(args[0].shape))] = tuple(map(keep, args))
+            into[(name, tuple(args[0].shape))] = (
+                tuple(map(keep, args)),
+                {k: keep(v) for k, v in kwargs.items()})
             return real[name](*args, **kwargs)
         return wrapped
 
-    for name in DRY_KERNELS:
+    for name in names:
         setattr(ops, name, spy(name))
     try:
         yield
@@ -6176,40 +6219,47 @@ def _dry_spies(into: dict):
             setattr(ops, name, fn)
 
 
-def _dry_hold(seen: dict, errs: dict) -> dict:
-    """Each kernel of the dryrun phase against its plain version on the
-    operands of its last call at each shape: the scans bit for bit on
-    float32 tables, embedding_bag within BAG_RTOL (empty bags exact
-    zeros), gcd_score, givens_rotate and pq_assign as
-    ``_hold_rotation_kernels``. Returns the shapes held by kernel."""
+def _hold_spied(phase: str, seen: dict, errs: dict) -> dict:
+    """Each kernel a phase's spies saw (``_kernel_spies``) against its
+    plain version on the operands of its last call at each shape: the
+    scans bit for bit, fused_lut within LUT_RTOL, embedding_bag within
+    BAG_RTOL (empty bags exact zeros), gcd_score, givens_rotate and
+    pq_assign as ``_hold_rotation_kernels``. Returns the shapes held by
+    kernel and pq_assign's flips."""
+    import inspect
+
     import torch
 
     from repro_torch.kernels import ops, ref
 
-    rot = {}
-    held: dict = {}
-    for (name, shape), args in sorted(seen.items(), key=lambda kv: kv[0]):
-        tag = f"{name}/dryrun_{'x'.join(map(str, shape))}"
+    rot, held, fails = {}, {}, []
+    for (name, shape), (args, kwargs) in sorted(seen.items(),
+                                                key=lambda kv: kv[0]):
+        at = f"{phase}_{'x'.join(map(str, shape))}"
+        tag = f"{name}/{at}"
+        bound = inspect.signature(getattr(ops, name)).bind(*args, **kwargs)
+        a = bound.arguments
         held.setdefault(name, []).append(list(shape))
         if name in ("gcd_score", "givens_rotate", "pq_assign"):
-            rot[(name, shape)] = args
+            rot[(name, shape)] = bound.args
         elif name == "embedding_bag":
-            table, idx, bags, num = args[:4]
-            got = ops.embedding_bag(table, idx, bags, num)
-            want = ref.embedding_bag_ref(table, idx, bags, num)
-            valid = torch.zeros(num, dtype=torch.bool, device=idx.device)
+            got = ops.embedding_bag(*args, **kwargs)
+            want = ref.embedding_bag_ref(*bound.args)
+            idx, bags = a["indices"], a["bag_ids"]
+            valid = torch.zeros(a["num_bags"], dtype=torch.bool,
+                                device=idx.device)
             valid[bags[idx >= 0].long()] = True
             errs[tag] = _bag_error(got, want, valid)
-        elif name == "adc_lookup":
-            errs[tag] = bit_equal(ops.adc_lookup(*args),
-                                  ref.adc_lookup_ref(*args),
-                                  f"adc_lookup at {shape}")
+        elif name == "fused_lut":
+            _hold_fused_lut(at, a["Q"], a["qdelta"], a["cb_flat"],
+                            a["colmap"], errs, {}, fails)
         else:
-            errs[tag] = bit_equal(ops.adc_batch(*args),
-                                  ref.adc_batch_ref(*args),
-                                  f"adc_batch at {shape}")
-    rot_held = _hold_rotation_kernels("dryrun", rot, errs)
-    return dict(shapes=held, pq_assign_flips=rot_held["pq_assign_flips"])
+            plain = getattr(ref, f"{name}_ref")
+            errs[tag] = bit_equal(getattr(ops, name)(*args, **kwargs),
+                                  plain(**a), f"{name} at {shape}")
+    check(not fails, f"{phase}: {fails}")
+    flips = _hold_rotation_kernels(phase, rot, errs)["pq_assign_flips"]
+    return dict(shapes=held, pq_assign_flips=flips)
 
 
 def _dry_launches(rec: dict) -> dict:
@@ -6231,7 +6281,7 @@ def _dry_record(arch: str, shape: str, dev, seen: dict, launches: dict,
     from repro_torch.launch import cells, dryrun
 
     got: dict = {}
-    with _dry_spies(seen), _counted(got):
+    with _kernel_spies(seen, DRY_KERNELS), _counted(got):
         rec = dryrun.run_cell(arch, shape, device=dev, plan=plan,
                               verbose=False)
     check(rec["ok"], f"dryrun {arch} × {shape}: {rec.get('error')}\n"
@@ -6337,7 +6387,7 @@ def phase_dryrun(smi: str) -> tuple[dict, dict]:
             plan=plan if shape == "train_batch" else None)
         # held before the next cell: a spied operand kept by reference
         # (the two-tower item table, 10.2 GB) would count in its peak
-        h = _dry_hold(seen, errs)
+        h = _hold_spied("dryrun", seen, errs)
         for name, shapes in h["shapes"].items():
             held["shapes"].setdefault(name, []).extend(shapes)
         held["pq_assign_flips"].update(h["pq_assign_flips"])
@@ -6362,6 +6412,422 @@ def phase_dryrun(smi: str) -> tuple[dict, dict]:
         for k, r in records.items()}, launches=launches, held=held,
          max_abs_err=errs, seconds=time.perf_counter() - t_all, card=smi)
     return errs, launches
+
+
+# -- tooling ------------------------------------------------------------------
+
+
+def _tool_rotation(errs: dict) -> tuple[dict, dict]:
+    """14c: one GCD-G step of a stacked (L, n, n) bf16 rotation from the
+    identity through ``training.optimizer``: the learner state's R in the
+    leaf's dtype and bit-equal to the leaf, the accumulators float32, R
+    moved and orthogonal within lm_orth_bound(1); gcd_score and
+    givens_rotate launched once a layer and held at the step's shapes.
+    Returns (report, launches)."""
+    import torch
+
+    from repro_torch import device, rotations
+    from repro_torch.training import optimizer as opt_lib
+
+    dev = device.resolve()
+    L, n = TOOL_ROT
+    eye = torch.eye(n, device=dev).expand(L, n, n)
+    params = {"kvq": {"rot_k": eye.to(torch.bfloat16).clone()}}
+    g = device.generator(TOOL_SEED, dev)
+    grads = {"kvq/rot_k": torch.randn((L, n, n), generator=g, device=dev)
+             .to(torch.bfloat16)}
+    cfg = opt_lib.OptimizerConfig(rotation=rotations.RotationConfig(
+        learner="gcd", method="greedy", lr=1e-2))
+    state = opt_lib.init(params, cfg)
+    check(state.rot["kvq/rot_k"].R.dtype == torch.bfloat16,
+          "14c: a bf16 rotation's fresh learner state is not bf16")
+    seen: dict = {}
+    launches: dict = {}
+    with _counted(launches), \
+            _last_call("gcd_score", seen, by_shape=True), \
+            _last_call("givens_rotate", seen, by_shape=True):
+        _, state = opt_lib.update(grads, state, params, cfg)
+    _expect("tooling 14c", launches, {"gcd_score": L, "givens_rotate": L})
+    st, leaf = state.rot["kvq/rot_k"], params["kvq"]["rot_k"]
+    check(st.R.dtype == leaf.dtype == torch.bfloat16
+          and st.accum.dtype == st.accum2.dtype == torch.float32,
+          f"14c: state dtypes R {st.R.dtype}, accum {st.accum.dtype}")
+    check(torch.equal(st.R, leaf) and st.R.data_ptr() != leaf.data_ptr(),
+          "14c: the learner state's R is not bit-equal to the leaf")
+    moved = float((leaf.float() - eye).abs().max())
+    orth = max(float(rotations.orthogonality_error(r.float()))
+               for r in leaf)
+    check(moved > 0 and orth <= lm_orth_bound(1),
+          f"14c: R moved {moved}, orthogonality {orth} against "
+          f"{lm_orth_bound(1)}")
+    held = _hold_rotation_kernels("tooling", seen, errs)
+    return dict(layers=L, n=n, state_R_dtype=str(st.R.dtype),
+                state_equals_leaf=True, moved=moved, orthogonality=orth,
+                bound=lm_orth_bound(1), held=held["shapes"]), launches
+
+
+def _gc_grad(case: str, step: int, rank: int, dev):
+    """A rank's gradient at a step, from TOOL_SEED: ``random`` its own,
+    ``equal`` the same on every rank, its largest entry TOOL_GC_PEAK."""
+    import torch
+
+    from repro_torch import device
+
+    who = 0 if case == "equal" else 1 + rank
+    g = device.generator(TOOL_SEED + 1000 * step + 100 * who
+                         + (50 if case == "equal" else 0), dev)
+    x = torch.randn(TOOL_GC_SIZE, generator=g, device=dev)
+    if case == "equal":
+        x = torch.clamp(x, -2.5, 2.5)
+        x[TOOL_GC_SIZE // 3] = TOOL_GC_PEAK
+    return x
+
+
+def _gc_reference(grads: list, errs: list, n: int):
+    """The int8 error-feedback all-reduce of ``grads`` computed in one
+    process from the formulas (no collective): the shared scale from the
+    largest |g + err| over every rank, each rank's int8 codes, their sum
+    in int8 (wrapping), the sum dequantized and each rank's new error."""
+    import torch
+
+    xf = [g.float() + e for g, e in zip(grads, errs)]
+    amax = torch.max(torch.stack([torch.max(torch.abs(x)) for x in xf]))
+    scale = torch.clamp(amax, min=1e-12) / amax.new_tensor(127.0)
+    q = [torch.clamp(torch.round(x / (scale * n)), -127, 127)
+         .to(torch.int8) for x in xf]
+    total = q[0].clone()
+    for qi in q[1:]:
+        total += qi
+    g_out = total.float() * scale * n
+    return g_out, [x - qi.float() * scale * n for x, qi in zip(xf, q)]
+
+
+def _gc_rank(rank: int, world: int, port: int, out: str,
+             dev_type: str) -> None:
+    """One gloo rank of the grad_compress check (spawned): each case's
+    TOOL_GC_STEPS steps through ``make_compressed_crosspod_psum`` with
+    error feedback, each step timed (synchronised) and held bit for bit
+    against ``_gc_reference`` on the same device; the rank's report, with
+    a digest of each step's sum, goes to ``out``."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.training import grad_compress as gc
+
+    dev = torch.device(dev_type)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    try:
+        f = gc.make_compressed_crosspod_psum()
+        report = {}
+        for case in ("random", "equal"):
+            err = torch.zeros(TOOL_GC_SIZE, device=dev)
+            ref_errs = [torch.zeros(TOOL_GC_SIZE, device=dev)
+                        for _ in range(world)]
+            steps = []
+            for s in range(TOOL_GC_STEPS):
+                grads = [_gc_grad(case, s, r, dev) for r in range(world)]
+                sync()
+                t0 = time.perf_counter()
+                g_out, err = f(grads[rank], err)
+                sync()
+                ms = (time.perf_counter() - t0) * 1e3
+                truth = sum(g.double() + e.double()
+                            for g, e in zip(grads, ref_errs))
+                want, ref_errs = _gc_reference(grads, ref_errs, world)
+                peak = TOOL_GC_SIZE // 3
+                steps.append(dict(
+                    ms=ms, bit_equal=bool(torch.equal(g_out, want)
+                                          and torch.equal(err,
+                                                          ref_errs[rank])),
+                    sha256=hashlib.sha256(
+                        g_out.cpu().numpy().tobytes()).hexdigest(),
+                    peak_out=float(g_out[peak]), peak_sum=float(truth[peak]),
+                    max_abs_vs_float=float((g_out.double() - truth)
+                                           .abs().max())))
+            report[case] = steps
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as fh:
+            json.dump(report, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _tool_grad_compress() -> dict:
+    """``training.grad_compress`` over TOOL_GC_RANKS spawned gloo ranks on
+    the one card: every step of both cases bit-equal to the one-process
+    reference in every rank, the same sum on every rank, and the equal
+    gradients' first sum wrapped at their peak (negative against a
+    positive float sum), as the JAX package's int8 psum wraps. Returns the
+    payload bytes and the per-step ms."""
+    import shutil
+    import socket
+
+    import torch.multiprocessing as tmp
+
+    from repro_torch import device
+
+    dev = device.resolve()
+    out = Path(__file__).resolve().parent / "build" / "grad_compress"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    ctx = tmp.start_processes(_gc_rank, args=(TOOL_GC_RANKS, port, str(out),
+                                              dev.type),
+                              nprocs=TOOL_GC_RANKS, join=False,
+                              start_method="spawn")
+    deadline = time.monotonic() + TOOL_GC_TIMEOUT
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.terminate()
+            check(False, f"grad_compress: {TOOL_GC_RANKS} ranks did not "
+                  f"finish in {TOOL_GC_TIMEOUT} s")
+    seconds = time.perf_counter() - t0
+    ranks = []
+    for r in range(TOOL_GC_RANKS):
+        with open(out / f"rank{r}.json") as fh:
+            ranks.append(json.load(fh))
+    shutil.rmtree(out, ignore_errors=True)
+    for case in ("random", "equal"):
+        for s in range(TOOL_GC_STEPS):
+            rows = [rep[case][s] for rep in ranks]
+            check(all(x["bit_equal"] for x in rows),
+                  f"grad_compress {case} step {s}: a rank differs from "
+                  "the one-process reference")
+            check(len({x["sha256"] for x in rows}) == 1,
+                  f"grad_compress {case} step {s}: the ranks' sums differ")
+    first = ranks[0]["equal"][0]
+    check(first["peak_sum"] > 0 > first["peak_out"],
+          f"grad_compress: the equal gradients' peak {first['peak_sum']} "
+          f"came back as {first['peak_out']}, not wrapped")
+    ms = [x["ms"] for rep in ranks for case in rep.values() for x in case]
+    return dict(ranks=TOOL_GC_RANKS, backend="gloo", elements=TOOL_GC_SIZE,
+                payload_bytes=TOOL_GC_SIZE + 4,
+                float32_bytes=4 * TOOL_GC_SIZE, steps=TOOL_GC_STEPS,
+                step_ms={f"rank{r}/{case}": [x["ms"] for x in rep[case]]
+                         for r, rep in enumerate(ranks) for case in rep},
+                step_ms_p50=statistics.median(ms),
+                wrap=dict(peak_sum=first["peak_sum"],
+                          peak_out=first["peak_out"]),
+                random_max_abs_vs_float=[
+                    x["max_abs_vs_float"] for x in ranks[0]["random"]],
+                seconds=seconds)
+
+
+def _tool_gnn_small() -> dict:
+    """The blocked aggregation against ``gnn.aggregate_edges_ref`` on the
+    card, on a graph of TOOL_GNN_SMALL (nodes, edges, width) with ties
+    (edges repeated) in blocks of TOOL_GNN_BLOCK_ROWS rows: the forward
+    bit-equal, the gradient of h within TOOL_GNN_RTOL of the reference's
+    largest entry, under mean and max."""
+    import torch
+
+    from repro_torch import device
+    from repro_torch.models import gnn
+
+    dev = device.resolve()
+    N, E, d = TOOL_GNN_SMALL
+    g = device.generator(TOOL_SEED + 5, dev)
+    h0 = torch.randn((N, d), generator=g, device=dev)
+    src = torch.randint(0, N, (E,), generator=g, device=dev)
+    dst = torch.randint(0, N, (E,), generator=g, device=dev)
+    src, dst = torch.cat([src, src[:E // 100]]), torch.cat([dst, dst[:E // 100]])
+    cot = torch.randn((N, d), generator=g, device=dev)
+    saved = gnn.CSR_BLOCK_ELEMS
+    gnn.CSR_BLOCK_ELEMS = TOOL_GNN_BLOCK_ROWS * d
+    out = {}
+    try:
+        plan = gnn.EdgePlan.from_edges(src, dst, N)
+        blocks = (len(plan.blocks(d)), len(plan.transposed().blocks(d)))
+        check(min(blocks) > 4, f"blocked gnn: only {blocks} blocks")
+        for agg in ("mean", "max"):
+            h1 = h0.clone().requires_grad_(True)
+            h2 = h0.clone().requires_grad_(True)
+            got = gnn.aggregate(h1, plan, agg)
+            want = gnn.aggregate_edges_ref(h2, src, dst, N, agg)
+            bit_equal(got, want, f"blocked gnn {agg} forward")
+            c = torch.where(torch.isfinite(want), cot, 0.0)
+            (g1,) = torch.autograd.grad(got, h1, c)
+            (g2,) = torch.autograd.grad(want, h2, c)
+            err = float((g1 - g2).abs().max())
+            scale = float(g2.abs().max())
+            check(err <= TOOL_GNN_RTOL * scale, f"blocked gnn {agg}: "
+                  f"gradient {err} against {TOOL_GNN_RTOL} of {scale}")
+            out[agg] = dict(forward_bit_equal=True, grad_max_abs=err,
+                            grad_scale=scale)
+    finally:
+        gnn.CSR_BLOCK_ELEMS = saved
+    return dict(nodes=N, edges=int(src.numel()), width=d, blocks=blocks,
+                **out)
+
+
+def _tool_ogb_products() -> dict:
+    """graphsage-reddit × ogb_products whole through
+    ``launch.dryrun.run_cell``: the ladder's first plan is the whole cell;
+    TOOL_GNN_STEPS timed steps after the warm one, under deterministic
+    algorithms, twice from one seed. Held: the record whole (fits_hbm,
+    measured at the cell's own batch, nothing reduced), every loss finite,
+    the two runs' losses bit-equal."""
+    import torch
+
+    from repro_torch import device
+    from repro_torch.launch import cells, dryrun
+    from repro_torch.roofline import analysis
+
+    dev = device.resolve()
+    cell = cells.build_cell("graphsage-reddit", "ogb_products",
+                            smoke=dev.type != "cuda")
+    meta = cell.meta
+    ladder = dryrun.plans(cell, dryrun.PLAN_SHARE * analysis.CHIP_HBM_BYTES)
+    check(ladder and ladder[0].why == "whole",
+          f"ogb_products: the first plan is {ladder[:1]}, not whole")
+    plan = dryrun.Plan((None,), (meta["batch"],), meta["accum"],
+                       TOOL_GNN_STEPS, "whole")
+    recs = []
+    for _ in range(2):
+        rec = dryrun.run_cell("graphsage-reddit", "ogb_products", device=dev,
+                              verbose=False, plan=plan)
+        check(rec["ok"], f"ogb_products: {rec.get('error')}\n"
+              f"{rec.get('traceback')}")
+        recs.append(rec)
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec = recs[0]
+    (point,) = rec["measured_at"]
+    losses = point["losses"]
+    # the CPU rehearsal's record names its smoke config first
+    cut = rec["reduced"][0 if dev.type == "cuda" else 1:]
+    check(rec["fits_hbm"] and not cut and point["batch"] == meta["batch"],
+          f"ogb_products: fits {rec['fits_hbm']}, reduced {rec['reduced']},"
+          f" batch {point['batch']}")
+    check(len(losses) == TOOL_GNN_STEPS + 1
+          and all(math.isfinite(v) for v in losses),
+          f"ogb_products: losses {losses}")
+    again = recs[1]["measured_at"][0]["losses"]
+    check(again == losses, f"ogb_products: two runs of one seed differ: "
+          f"{losses} / {again}")
+    emit("tooling_ogb_products_record",
+         **{k: v for k, v in rec.items() if k != "traceback"})
+    return dict(nodes=meta["batch"], edges=meta["edges"], losses=losses,
+                losses_again=again, peak_gb=point["peak_bytes"] / 1e9
+                if point["peak_bytes"] is not None else None,
+                reckoned_peak_gb=rec["reckoned_peak_bytes"] / 1e9,
+                step_s=rec["step_s"], step_s_all=point["step_s_all"],
+                step_s_again=recs[1]["measured_at"][0]["step_s_all"],
+                fits_hbm=rec["fits_hbm"], peak_from=rec["peak_from"],
+                flops=rec["report"]["flops_per_device"],
+                memory_s=rec["report"]["memory_s"])
+
+
+def _tool_examples(errs: dict) -> tuple[dict, dict]:
+    """The three examples at their JAX scripts' defaults through their
+    ``main``: quickstart (``exact`` recall 1.0, GCD-G's final distortion
+    below frozen's, ‖RᵀR − I‖ ≤ TOOL_ORTH for every learner), serve_ann
+    (no new executable after the refresh, refresh_mismatch ≤
+    TOOL_REFRESH_MISMATCH, recall after the refresh printed beside
+    before), train_twotower straight and resumed from its step-300
+    checkpoint (the same loss and p@50, bit for bit); every kernel of
+    EXAMPLE_KERNELS launched, and every kernel held at each shape it was
+    launched at. Returns (report, launches)."""
+    import shutil
+
+    from repro_torch.examples import quickstart, serve_ann, train_twotower
+    from repro_torch.kernels import ops
+
+    ckpt = Path(__file__).resolve().parent / "build" / "twotower_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    seen: dict = {}
+    launches: dict = {}
+    seconds = {}
+    with _kernel_spies(seen, tuple(ops.LAUNCHES)), _counted(launches):
+        t0 = time.perf_counter()
+        q = quickstart.main([])
+        seconds["quickstart"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sa = serve_ann.main([])
+        seconds["serve_ann"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tt = train_twotower.main(["--ckpt-dir", str(ckpt)])
+        seconds["train_twotower"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = train_twotower.main(["--ckpt-dir", str(ckpt)])
+        seconds["train_twotower_resumed"] = time.perf_counter() - t0
+    shutil.rmtree(ckpt, ignore_errors=True)
+    check(q["backends"]["exact"]["recall"] == 1.0,
+          f"quickstart: exact recall {q['backends']['exact']['recall']}")
+    check(q["learners"]["gcd_greedy"]["distortion_last"]
+          < q["learners"]["frozen"]["distortion_last"],
+          f"quickstart: GCD-G {q['learners']['gcd_greedy']} against frozen "
+          f"{q['learners']['frozen']}")
+    for name, r in q["learners"].items():
+        check(r["orthogonality_error"] <= TOOL_ORTH,
+              f"quickstart {name}: ‖RᵀR − I‖ {r['orthogonality_error']}")
+    r = sa["refresh"]
+    check(r["executables_after"] == r["executables_before"],
+          f"serve_ann: executables {r['executables_before']} -> "
+          f"{r['executables_after']} after the refresh")
+    check(r["refresh_mismatch"] <= TOOL_REFRESH_MISMATCH,
+          f"serve_ann: refresh_mismatch {r['refresh_mismatch']}")
+    last = tt["steps_run"] // tt["ckpt_every"] * tt["ckpt_every"]
+    check(again["resumed_from"] == last, f"train_twotower: resumed from "
+          f"{again['resumed_from']}, not {last}")
+    check(again["final_loss"] == tt["final_loss"]
+          and again["p_at_50"] == tt["p_at_50"],
+          f"train_twotower: straight loss {tt['final_loss']} p@50 "
+          f"{tt['p_at_50']}, resumed {again['final_loss']} "
+          f"{again['p_at_50']}")
+    for name in EXAMPLE_KERNELS:
+        check(launches.get(name, 0) > 0, f"kernel {name} was not launched "
+              "on the examples path")
+    held = _hold_spied("examples", seen, errs)
+    return dict(quickstart=q, serve_ann=sa, train_twotower=tt,
+                train_twotower_resumed=again, seconds=seconds,
+                held=held), launches
+
+
+def phase_tooling(smi: str) -> tuple[dict, dict]:
+    """The rest of queue 1 on the card: 14c (a bf16 rotation's learner
+    state), grad_compress over two gloo ranks, graphsage-reddit ×
+    ogb_products trained whole through the blocked aggregation (and the
+    blocked path against its reference on a small graph), and the three
+    examples at their JAX defaults. Returns (errors, launches by path:
+    ``tooling`` the 14c step's, ``examples`` the examples')."""
+    import torch
+
+    t_all = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs: dict = {}
+    seconds = {}
+    t0 = time.perf_counter()
+    rot, rot_launches = _tool_rotation(errs)
+    seconds["bf16_rotation"] = time.perf_counter() - t0
+    emit("tooling_bf16_rotation", **rot)
+    t0 = time.perf_counter()
+    emit("tooling_grad_compress", **_tool_grad_compress())
+    seconds["grad_compress"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    emit("tooling_gnn_blocked", **_tool_gnn_small())
+    ogb = _tool_ogb_products()
+    seconds["ogb_products"] = time.perf_counter() - t0
+    emit("tooling_ogb_products", **ogb)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ex, ex_launches = _tool_examples(errs)
+    seconds["examples"] = time.perf_counter() - t0
+    emit("tooling_examples", **ex)
+    emit("tooling", launches=dict(tooling=rot_launches,
+                                  examples=ex_launches),
+         max_abs_err=errs, seconds=seconds,
+         total_s=time.perf_counter() - t_all, card=smi)
+    return errs, dict(tooling=rot_launches, examples=ex_launches)
 
 
 def main() -> int:
@@ -6422,6 +6888,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     dry_errs, paths["dryrun"] = phase_dryrun(smi)
     errs.update(dry_errs)
+    torch.cuda.empty_cache()
+    tool_errs, tool_paths = phase_tooling(smi)
+    errs.update(tool_errs)
+    paths.update(tool_paths)
     summary = []
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]

@@ -10,7 +10,8 @@ are keyed by the JAX path keys (``item_table``, ``user0_w``, ``index/R``,
 ``layer0/w_self``); the transformer's leaves come as the JAX package's
 nested dict (``layers/attn/wq``, ``kvq``).
 A bfloat16 leaf (numpy's ``ml_dtypes`` bfloat16, which torch cannot take
-directly) goes across through float32, which holds it exactly.
+directly) goes across through float32, which holds it exactly; a learner
+state's R keeps bfloat16 where the JAX state has it.
 """
 from __future__ import annotations
 
@@ -251,8 +252,9 @@ def opt_state_from_numpy(arrays: dict, cfg: opt_lib.OptimizerConfig, *,
     """An ``OptState`` on ``device`` from the JAX one: ``mu`` and ``nu``
     (path key -> array, kept in ``cfg.moment_dtype``; Adafactor's factored
     row and column statistics in float32 whatever it says), ``step``, and
-    ``rot`` (path key -> the learner state's fields: ``R`` and ``step``
-    for every learner, and GCD's ``accum`` and ``accum2``; a stacked
+    ``rot`` (path key -> the learner state's fields: ``R``, bfloat16 if
+    the JAX state's is, else float32, and ``step`` for every learner, and
+    GCD's float32 ``accum`` and ``accum2``; a stacked
     (L, n, n) ``R`` with every field stacked on L, as the JAX package's
     vmapped state). A field the learner's state lacks is an error; one the
     arrays lack keeps the fresh state's value."""
@@ -260,7 +262,10 @@ def opt_state_from_numpy(arrays: dict, cfg: opt_lib.OptimizerConfig, *,
     learner = rot_lib.from_config(cfg.rotation)
 
     def one(fields: dict, k: str):
-        st = learner.init_from(_t(fields["R"], dev, np.float32))
+        R = np.asarray(fields["R"])
+        st = learner.init_from(_leaf(R, dev, torch.bfloat16
+                                     if R.dtype.name == "bfloat16"
+                                     else torch.float32))
         extra = sorted(set(fields) - set(st._fields))
         if extra:
             raise KeyError(f"opt_state_from_numpy {k}: {extra} are not "

@@ -64,7 +64,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.launch import cells as cells_lib
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.models import recsys
+from repro_torch.models import gnn, recsys
 from repro_torch.models import transformer as tfm
 from repro_torch.roofline import analysis
 
@@ -213,11 +213,17 @@ def reckon(cell, cfg, batch: int, accum: int) -> dict:
             else:
                 n = batch
                 E = round(meta["edges"] * batch / meta["batch"])
+            # the blocked aggregation (``gnn.aggregate``): the edge list,
+            # its dst order and the transposed order (E int64 each, one
+            # more while sorting), one block of messages and its reduce
+            # at a time; each layer's (n, h) activations saved
             terms["features"] = n * F * 4
-            terms["edges"] = 2 * E * 8
-            terms["messages"] = 3 * E * (F + h) * 4
-            terms["nodes"] = 6 * n * h * 4
-            moved = sum(terms.values()) - terms["params"] + 6 * P * pb
+            terms["edges"] = 5 * E * 8
+            terms["messages"] = 2 * min(E * max(F, h),
+                                        gnn.CSR_BLOCK_ELEMS) * 4
+            terms["nodes"] = 10 * n * h * 4
+            moved = (sum(terms.values()) - terms["params"]
+                     - terms["messages"] + 3 * E * (F + h) * 4 + 6 * P * pb)
     else:
         table = _table_params(cfg)
         dense = P - table
@@ -357,8 +363,9 @@ def measure(cell, depth, batch: int, accum: int, dev: torch.device,
     ``reset_peak_memory_stats`` and ``max_memory_allocated``. Train cells
     run under deterministic algorithms (the caller's mode restored).
     Returns the run's FLOPs, peak bytes, step seconds (median, and each
-    step's; a train step also split into its microbatches and optimizer),
-    launches a call and the calls made."""
+    step's; a train step also split into its microbatches and optimizer,
+    and every step's loss, the warm one's first), launches a call and the
+    calls made."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.bench import common
@@ -391,6 +398,7 @@ def measure(cell, depth, batch: int, accum: int, dev: torch.device,
             marks.split_s()
         flops = float(counter.get_total_flops()) + work["flops"]
         _check_finite(out, meta)
+        losses = [float(out)] if train else []
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         times, splits = [], []
@@ -402,6 +410,7 @@ def measure(cell, depth, batch: int, accum: int, dev: torch.device,
             times.append(time.perf_counter() - t0)
             if train:
                 splits.append(marks.split_s())
+                losses.append(float(out))
             n = len(times)
             if train and n >= steps:
                 break
@@ -424,6 +433,7 @@ def measure(cell, depth, batch: int, accum: int, dev: torch.device,
                                                  for s in splits)
         point["micro_s"] = point["grads_s"] / accum
         point["micro_s_all"] = [x["grads_s"] / accum for x in splits]
+        point["losses"] = losses
     return point
 
 

@@ -9,16 +9,32 @@ there), as ``quant.kmeans.segment_sum`` does. A node with no in-edge gets 0
 under ``mean`` and −inf under ``max``, as in JAX; the degree counts are sums
 of 1.0, exact in any order.
 
+Every full-graph mode aggregates through one blocked path
+(``aggregate``): an ``EdgePlan`` holds the edges sorted by dst, and the
+messages are gathered and reduced a block of dst rows at a time
+(``csr_blocks``, at most ``CSR_BLOCK_ELEMS`` message elements a block), so
+no (E, d) message tensor outlives a block, in the forward or the backward
+(ogb_products: 61.9M edges, 24.7 GB of layer-0 messages in float32). The
+backward of ``mean`` sums, for each node, grad[dst] / deg[dst] over its
+out-edges: a ``segment_reduce`` over the plan's transposed order (the
+dst-sorted edges stably sorted by src), blocked the same way, so each
+node's terms are added in the order of the dst-sorted list and no
+``index_add_`` runs. The backward of ``max`` recomputes each block's
+messages and shares a tie's gradient evenly among the tied rows, as
+``jax.ops.segment_max`` does (the tie counts are an (N, d) tensor), then
+sums it over the transposed order. ``aggregate_edges_ref``, the gather of
+all E messages then one reduce, is the plain reference the tests and the
+smoke hold the blocked path to; no mode calls it.
+
 Three execution modes:
   * ``full_batch_forward`` — whole-graph propagation from an edge list
-    (full_graph_sm); ``loss_graph_batch`` the same on a disjoint union of
-    small graphs, mean-pooled per graph (molecule);
+    (full_graph_sm, ogb_products); ``loss_graph_batch`` the same on a
+    disjoint union of small graphs, mean-pooled per graph (molecule);
   * ``minibatch_forward`` — seed nodes and dense fanout blocks from
     ``data.graph.sample_blocks`` (minibatch_lg), GraphSAGE's own training
     mode;
   * ``node_embeddings_csr`` — the full-graph embeddings of a CSR graph
-    without gradients, its edges gathered a block of rows at a time, so a
-    graph of 114.6M edges needs no (E, d) message tensor.
+    without gradients (a graph of 114.6M edges), its CSR rows the plan.
 
 ``GraphSAGE`` is a ``models.param.Params`` module whose parameter names are
 the JAX leaf names: ``layer{l}.w_self``, ``layer{l}.w_neigh``,
@@ -36,7 +52,7 @@ from repro_torch import device as _device
 from repro_torch.models import param
 from repro_torch.models.param import ParamSpec
 
-#: elements of a message block ``node_embeddings_csr`` gathers at a time
+#: elements of a message block the aggregation gathers at a time
 CSR_BLOCK_ELEMS = 1 << 28
 
 
@@ -94,33 +110,170 @@ class _SegmentMax(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
         msgs, lengths, out = ctx.saved_tensors
-        seg = torch.repeat_interleave(
-            torch.arange(lengths.shape[0], device=lengths.device), lengths)
+        seg = _segment_ids(lengths)
         hit = (msgs == out[seg]).to(grad.dtype)
         ties = torch.segment_reduce(hit, "sum", lengths=lengths, unsafe=True)
         return hit * (grad / torch.clamp(ties, min=1.0))[seg], None
 
 
-def _reduce(msgs: torch.Tensor, lengths: torch.Tensor,
-            aggregator: str) -> torch.Tensor:
+def _segment_ids(lengths: torch.Tensor, first: int = 0) -> torch.Tensor:
+    """Each row's segment, first + 0 … for rows sorted by segment."""
+    return torch.repeat_interleave(
+        torch.arange(first, first + lengths.shape[0],
+                     device=lengths.device), lengths)
+
+
+def _segment(msgs: torch.Tensor, lengths: torch.Tensor,
+             aggregator: str) -> torch.Tensor:
     """Each segment's rows of ``msgs`` (sorted by segment, ``lengths``
-    rows a segment) reduced in row order: (sum) / count or max."""
+    rows a segment) reduced in row order: the sum, the sum / count
+    (``mean``) or the max."""
+    if aggregator == "max":
+        return torch.segment_reduce(msgs, "max", lengths=lengths,
+                                    unsafe=True)
+    s = torch.segment_reduce(msgs, "sum", lengths=lengths, unsafe=True)
+    if aggregator == "sum":
+        return s
     if aggregator == "mean":
-        s = torch.segment_reduce(msgs, "sum", lengths=lengths, unsafe=True)
-        deg = lengths.to(s.dtype)
-        return s / torch.clamp(deg, min=1.0)[:, None]
+        return s / torch.clamp(lengths.to(s.dtype), min=1.0)[:, None]
+    raise ValueError(aggregator)
+
+
+def aggregate_edges_ref(h: torch.Tensor, src: torch.Tensor,
+                        dst: torch.Tensor, num_nodes: int,
+                        aggregator: str) -> torch.Tensor:
+    """The plain reference: all E messages h[src] gathered in dst order,
+    then reduced into dst's segment: h (N, d) -> (N, d); the gradient by
+    autograd (``_SegmentMax`` for ``max``)."""
+    dst = dst.long()
+    order = torch.sort(dst, stable=True)[1]
+    lengths = torch.bincount(dst, minlength=num_nodes)
+    msgs = h[src.long()[order]]
     if aggregator == "max":
         return _SegmentMax.apply(msgs, lengths)
-    raise ValueError(aggregator)
+    return _segment(msgs, lengths, aggregator)
+
+
+class EdgePlan:
+    """A graph's edges as the blocked aggregation reads them: ``src`` the
+    edges' sources sorted stably by destination, ``lengths`` each node's
+    in-degree and ``indptr`` its host prefix sum (the row ranges
+    ``csr_blocks`` cuts); ``transposed()``, built on a backward's first
+    call and kept, is the same edge list stably sorted by source, as a
+    plan of its own whose ``src`` holds each edge's destination."""
+
+    def __init__(self, src: torch.Tensor, lengths: torch.Tensor,
+                 indptr: np.ndarray):
+        self.src = src
+        self.lengths = lengths
+        self.indptr = indptr
+        self._transposed = None
+
+    @classmethod
+    def from_edges(cls, src: torch.Tensor, dst: torch.Tensor,
+                   num_nodes: int) -> "EdgePlan":
+        dst = dst.long()
+        order = torch.sort(dst, stable=True)[1]
+        return cls.from_lengths(src[order],
+                                torch.bincount(dst, minlength=num_nodes))
+
+    @classmethod
+    def from_lengths(cls, src: torch.Tensor,
+                     lengths: torch.Tensor) -> "EdgePlan":
+        indptr = np.zeros(lengths.shape[0] + 1, dtype=np.int64)
+        np.cumsum(lengths.cpu().numpy(), out=indptr[1:])
+        return cls(src, lengths, indptr)
+
+    @classmethod
+    def from_csr(cls, indptr: np.ndarray, indices: torch.Tensor
+                 ) -> "EdgePlan":
+        """A CSR graph's plan: row r's neighbours ``indices[indptr[r]:
+        indptr[r + 1]]`` are the sources of r's in-edges."""
+        indptr = np.asarray(indptr, dtype=np.int64)
+        return cls(indices, torch.from_numpy(np.diff(indptr)).to(
+            indices.device), indptr)
+
+    @property
+    def num_nodes(self) -> int:
+        return self.lengths.shape[0]
+
+    def blocks(self, width: int) -> list[tuple[int, int, int, int]]:
+        """(r0, r1, e0, e1): row and edge ranges of blocks of at most
+        CSR_BLOCK_ELEMS message elements of ``width``."""
+        return [(r0, r1, int(self.indptr[r0]), int(self.indptr[r1]))
+                for r0, r1 in csr_blocks(self.indptr,
+                                         max(1, CSR_BLOCK_ELEMS // width))]
+
+    def transposed(self) -> "EdgePlan":
+        if self._transposed is None:
+            by_src = torch.sort(self.src, stable=True)[1]
+            self._transposed = EdgePlan.from_lengths(
+                _segment_ids(self.lengths)[by_src],
+                torch.bincount(self.src.long(), minlength=self.num_nodes))
+        return self._transposed
+
+
+def _blocked(h: torch.Tensor, plan: EdgePlan,
+             aggregator: str) -> torch.Tensor:
+    out = h.new_empty((plan.num_nodes, h.shape[1]))
+    for r0, r1, e0, e1 in plan.blocks(h.shape[1]):
+        out[r0:r1] = _segment(h[plan.src[e0:e1].long()],
+                              plan.lengths[r0:r1], aggregator)
+    return out
+
+
+class _BlockedAggregate(torch.autograd.Function):
+    """The blocked aggregation with its blocked backward (module
+    docstring); saves h and the output for ``max``, nothing of E size."""
+
+    @staticmethod
+    def forward(ctx, h: torch.Tensor, plan: EdgePlan, aggregator: str):
+        out = _blocked(h, plan, aggregator)
+        ctx.plan, ctx.aggregator = plan, aggregator
+        if aggregator == "max":
+            ctx.save_for_backward(h, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        plan = ctx.plan
+        t = plan.transposed()
+        if ctx.aggregator == "mean":
+            deg = torch.clamp(plan.lengths.to(grad.dtype), min=1.0)
+            return _blocked(grad / deg[:, None], t, "sum"), None, None
+        h, out = ctx.saved_tensors
+        ties = torch.empty_like(out)
+        for r0, r1, e0, e1 in plan.blocks(h.shape[1]):
+            lengths = plan.lengths[r0:r1]
+            hit = h[plan.src[e0:e1].long()] == out[_segment_ids(lengths, r0)]
+            ties[r0:r1] = torch.segment_reduce(hit.to(grad.dtype), "sum",
+                                               lengths=lengths, unsafe=True)
+        share = grad / torch.clamp(ties, min=1.0)
+        dh = torch.empty_like(h)
+        for u0, u1, j0, j1 in t.blocks(h.shape[1]):
+            lengths = t.lengths[u0:u1]
+            dst = t.src[j0:j1]
+            hit = h[_segment_ids(lengths, u0)] == out[dst]
+            dh[u0:u1] = torch.segment_reduce(hit.to(grad.dtype) * share[dst],
+                                             "sum", lengths=lengths,
+                                             unsafe=True)
+        return dh, None, None
+
+
+def aggregate(h: torch.Tensor, plan: EdgePlan,
+              aggregator: str) -> torch.Tensor:
+    """Messages h[src] reduced into dst's segment over ``plan``, in blocks:
+    h (N, d) -> (N, d) (``mean`` or ``max``), bit-equal in the forward to
+    ``aggregate_edges_ref``."""
+    if aggregator not in ("mean", "max"):
+        raise ValueError(aggregator)
+    return _BlockedAggregate.apply(h, plan, aggregator)
 
 
 def _aggregate_edges(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                      num_nodes: int, aggregator: str) -> torch.Tensor:
-    """Messages h[src] reduced into dst's segment: h (N, d) -> (N, d)."""
-    dst = dst.long()
-    order = torch.sort(dst, stable=True)[1]
-    lengths = torch.bincount(dst, minlength=num_nodes)
-    return _reduce(h[src.long()[order]], lengths, aggregator)
+    """``aggregate`` over an edge list's plan: h (N, d) -> (N, d)."""
+    return aggregate(h, EdgePlan.from_edges(src, dst, num_nodes), aggregator)
 
 
 def _sage_layer(lp, h_self: torch.Tensor, h_neigh: torch.Tensor
@@ -141,11 +294,16 @@ def node_embeddings_full(params, feats: torch.Tensor, src: torch.Tensor,
                          dst: torch.Tensor, cfg: GraphSAGEConfig
                          ) -> torch.Tensor:
     """feats (N, F), edge endpoints (E,) each -> embeddings (N, d_hidden)."""
-    N = feats.shape[0]
+    return _embeddings(params, feats, EdgePlan.from_edges(
+        src, dst, feats.shape[0]), cfg)
+
+
+def _embeddings(params, feats: torch.Tensor, plan: EdgePlan,
+                cfg: GraphSAGEConfig) -> torch.Tensor:
     h = feats.to(cfg.dtype)
     for l in range(cfg.num_layers):
-        h_n = _aggregate_edges(h, src, dst, N, cfg.aggregator)
-        h = _sage_layer(_layer(params, l), h, h_n)
+        h = _sage_layer(_layer(params, l), h,
+                        aggregate(h, plan, cfg.aggregator))
     return h
 
 
@@ -176,22 +334,11 @@ def node_embeddings_csr(params, feats: torch.Tensor, indptr: np.ndarray,
                         indices: torch.Tensor, cfg: GraphSAGEConfig
                         ) -> torch.Tensor:
     """The embeddings of ``node_embeddings_full`` on a CSR graph's edge
-    list (``CSRGraph.edge_list``), (N, d_hidden), without gradients: each
-    layer's messages are gathered and reduced a block of rows at a time
-    (``csr_blocks``, at most ``CSR_BLOCK_ELEMS`` message elements a block).
+    list (``CSRGraph.edge_list``), (N, d_hidden), without gradients,
+    through the blocked aggregation with the CSR rows as its plan.
     ``indptr`` is the host array, ``indices`` the neighbours on the
     features' device."""
-    lengths = torch.from_numpy(np.diff(indptr)).to(feats.device)
-    h = feats.to(cfg.dtype)
-    for l in range(cfg.num_layers):
-        h_n = torch.empty_like(h)
-        for r0, r1 in csr_blocks(indptr, max(1, CSR_BLOCK_ELEMS
-                                             // h.shape[1])):
-            e0, e1 = int(indptr[r0]), int(indptr[r1])
-            h_n[r0:r1] = _reduce(h[indices[e0:e1].long()], lengths[r0:r1],
-                                 cfg.aggregator)
-        h = _sage_layer(_layer(params, l), h, h_n)
-    return h
+    return _embeddings(params, feats, EdgePlan.from_csr(indptr, indices), cfg)
 
 
 def node_embeddings_minibatch(params, feats_by_hop, cfg: GraphSAGEConfig

@@ -17,8 +17,12 @@ parameter tree reads back in either package:
 A leaf is a tensor, a numpy array or a Python scalar. An ``nn.Module`` is
 saved as the dict of its parameters under their path keys. ``restore``
 puts each tensor on the device, and in the dtype, of the leaf it replaces
-in ``like``; a bfloat16 tensor is stored as float32, which holds it
-exactly.
+in ``like``. A bfloat16 tensor is stored as the JAX package stores one:
+``np.savez`` of an ``ml_dtypes`` bfloat16 array writes its raw 2-byte
+elements with a void descriptor (``<V2``), which ``np.load`` returns as
+``|V2``; the port writes the same bits without ``ml_dtypes`` and reads
+such an entry back as bfloat16 bit for bit (a float32 entry is cast to
+the leaf's dtype as before).
 """
 from __future__ import annotations
 
@@ -54,13 +58,25 @@ def _items(node):
     return None
 
 
+#: the npz entry of a bfloat16 leaf: its raw 2-byte elements
+_BF16_ON_DISK = np.dtype("V2")
+
+
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach()
+        t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
-            t = t.float()
-        return np.array(t.cpu().numpy())     # a copy, on the CPU too
+            return np.array(t.view(torch.int16).numpy()).view(_BF16_ON_DISK)
+        return np.array(t.numpy())           # a copy, on the CPU too
     return np.array(leaf)
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """A host tensor of an npz entry: a 2-byte void entry is bfloat16."""
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
 
 
 def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -157,8 +173,7 @@ def _rebuild(like, data, prefix: str):
             if arr.shape != tuple(like.shape):
                 raise ValueError(f"checkpoint mismatch at {prefix}: "
                                  f"{arr.shape} vs {tuple(like.shape)}")
-            return torch.from_numpy(np.array(arr)).to(device=like.device,
-                                                      dtype=like.dtype)
+            return _tensor(arr).to(device=like.device, dtype=like.dtype)
         if isinstance(like, np.ndarray):
             if arr.shape != like.shape:
                 raise ValueError(f"checkpoint mismatch at {prefix}: "

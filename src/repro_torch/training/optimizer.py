@@ -40,11 +40,14 @@ layout of the JAX package's vmapped state, so a checkpoint of either
 package reads in the other; the update runs layer by layer through the
 learner (and its kernels), a random learner taking its draws for each
 layer in turn from the one generator, and ``update_with_deltas`` returns
-the layers' deltas stacked on L. A rotation stored in bfloat16 is
-re-synced into the learner in float32 each step (the givens_rotate kernel
-takes float32) and the moved R is rounded back into the bf16 leaf; the
-learner state keeps float32 R where the JAX package keeps the leaf's
-dtype (ROADMAP.md, parity hazards). Gradient accumulation
+the layers' deltas stacked on L. The learner state holds R in the leaf's
+dtype, as the JAX package's ``init_from(p)`` does; its accumulators stay
+float32. A rotation stored in bfloat16 is re-synced into the learner in
+float32 each step (the givens_rotate kernel takes float32), moved in
+float32, and rounded to bf16 once: that one tensor is the new leaf and
+the state's R, so the two stay bit-equal after every step, as in JAX,
+where ``materialize`` returns ``state.R`` (ROADMAP.md, parity hazards).
+Gradient accumulation
 (``accum_steps``, ``accum_dtype``) lives in ``training.train_state``.
 
 ``name="adafactor"`` (the JAX package's choice above 50B parameters,
@@ -172,8 +175,9 @@ def _stack_deltas(deltas: list):
 
 
 def _init_rot_leaf(learner, p: torch.Tensor):
-    """The learner state of one manifold leaf, stacked for (L, n, n)."""
-    R = p.detach().float().clone()
+    """The learner state of one manifold leaf, R in the leaf's dtype,
+    stacked for (L, n, n)."""
+    R = p.detach().clone()
     if R.dim() == 3:
         return stack_states([learner.init_from(r) for r in R])
     return learner.init_from(R)
@@ -335,6 +339,17 @@ def _adafactor_leaf(cfg, p, g, vr, vc, lr: float, t: np.float32):
             P[b].copy_(P[b].to(cdt).sub_(u))
 
 
+def _rotate_into(learner, p: torch.Tensor, st, g, lr: float, generator):
+    """One learner step of the rotation ``p`` (written in place): the state
+    re-synced from p in float32, moved in float32, and the moved R rounded
+    once to p's dtype, which becomes both p and the state's R."""
+    st, delta = learner.update(learner.with_rotation(st, p.detach().float()),
+                               g, lr, generator)
+    R = learner.materialize(st).to(p.dtype)
+    p.copy_(R)
+    return learner.with_rotation(st, R), delta
+
+
 def _rotation_leaf(learner, cfg, p, g, st, generator):
     """One manifold leaf: (new learner state, delta), p written in place.
     A stacked (L, n, n) leaf goes layer by layer and comes back stacked."""
@@ -342,16 +357,12 @@ def _rotation_leaf(learner, cfg, p, g, st, generator):
     if p.dim() == 3:
         states, deltas = [], []
         for i in range(p.shape[0]):
-            s_i = learner.with_rotation(layer_state(st, i), p[i].float())
-            s_i, d_i = learner.update(s_i, g[i], lr, generator)
-            p[i].copy_(learner.materialize(s_i))
+            s_i, d_i = _rotate_into(learner, p[i], layer_state(st, i), g[i],
+                                    lr, generator)
             states.append(s_i)
             deltas.append(d_i)
         return stack_states(states), _stack_deltas(deltas)
-    st = learner.with_rotation(st, p.detach().float())
-    st2, delta = learner.update(st, g, lr, generator)
-    p.copy_(learner.materialize(st2))
-    return st2, delta
+    return _rotate_into(learner, p, st, g, lr, generator)
 
 
 def _update_impl(grads, state: OptState, params, cfg: OptimizerConfig,

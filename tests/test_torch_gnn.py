@@ -322,6 +322,132 @@ def test_csr_embeddings_match_the_edge_list(params, aggregator, monkeypatch):
     _close(got, h)
 
 
+def _blocked_case(seed: int, N: int = 90, E: int = 700, d: int = 24):
+    """Features and an edge list with ties under max (each node's first
+    in-edge repeated) and a node without an in-edge (5)."""
+    rng = np.random.RandomState(seed)
+    h = rng.randn(N, d).astype(np.float32)
+    src = rng.randint(0, N, E)
+    dst = rng.randint(0, N, E)
+    dst[dst == 5] = 6
+    src = np.concatenate([src, src[:40]])
+    dst = np.concatenate([dst, dst[:40]])
+    return h, _t(src), _t(dst)
+
+
+@pytest.mark.parametrize("aggregator", ["mean", "max"])
+def test_blocked_aggregation_is_the_reference(aggregator, monkeypatch):
+    """``aggregate`` in many blocks (CSR_BLOCK_ELEMS cut to a few rows, the
+    transposed plan too): the forward bit-equal to
+    ``aggregate_edges_ref``, the gradient of h within 1e-5 of the
+    reference's largest entry, for a cotangent with every entry set and
+    one that leaves the empty segment out (under max its row is −inf)."""
+    h_np, src, dst = _blocked_case(11)
+    N, d = h_np.shape
+    monkeypatch.setattr(gnn, "CSR_BLOCK_ELEMS", 60 * d)
+    plan = gnn.EdgePlan.from_edges(src, dst, N)
+    assert len(plan.blocks(d)) > 8
+    assert len(plan.transposed().blocks(d)) > 8
+    cot = torch.from_numpy(np.random.RandomState(4).randn(N, d).astype(
+        np.float32))
+    cot[5] = 0.0
+    h1 = torch.from_numpy(h_np).requires_grad_(True)
+    h2 = torch.from_numpy(h_np).requires_grad_(True)
+    got = gnn.aggregate(h1, plan, aggregator)
+    want = gnn.aggregate_edges_ref(h2, src, dst, N, aggregator)
+    assert torch.equal(got, want)
+    keep = torch.isfinite(want)
+    (g1,) = torch.autograd.grad(got, h1, torch.where(keep, cot, 0.0))
+    (g2,) = torch.autograd.grad(want, h2, torch.where(keep, cot, 0.0))
+    _close(g1, g2.numpy())
+    assert float(g2.abs().max()) > 0
+
+
+@pytest.mark.parametrize("aggregator", ["mean", "max"])
+def test_blocked_losses_match_jax(params, aggregator, monkeypatch):
+    """The full-graph loss (full_graph_sm-like: 120 nodes, 900 edges) and
+    the graph-batch loss (6 graphs of 20 nodes) in many blocks against the
+    JAX package: losses and every leaf's gradient within 1e-5 of the
+    largest entry; and the blocked full-graph gradients against the
+    reference path's, the same model, to the same 1e-5."""
+    jcfg, tcfg = _cfgs(aggregator)
+    jp, model = params
+    monkeypatch.setattr(gnn, "CSR_BLOCK_ELEMS", 50 * JCFG.d_in)
+    N = 120
+    feats, src, dst = _random_edges(N, 900, 8)
+    src, dst = np.append(src, np.arange(N)), np.append(dst, np.arange(N))
+    src, dst = src.astype(np.int32), dst.astype(np.int32)
+    labels = np.random.RandomState(9).randint(0, 7, N).astype(np.int32)
+    mask = np.random.RandomState(10).rand(N) < 0.5
+    plan = gnn.EdgePlan.from_edges(_t(src), _t(dst), N)
+    assert len(plan.blocks(JCFG.d_hidden)) > 8
+
+    def jloss(p):
+        return jgnn.loss_full_batch(p, jnp.asarray(feats), src, dst,
+                                    labels, mask, jcfg)
+
+    jl, jg = jax.value_and_grad(jloss)(jp)
+    loss = gnn.loss_full_batch(model, _t(feats), _t(src), _t(dst),
+                               _t(labels), _t(mask), tcfg)
+    _close(loss, jl)
+    named = list(opt_lib.named_leaves(model).values())
+    blocked = torch.autograd.grad(loss, named, retain_graph=True)
+    _grads_close(model, loss, jg)
+    monkeypatch.setattr(gnn, "aggregate", lambda h, pl, agg:
+                        gnn.aggregate_edges_ref(h, _t(src), _t(dst), N, agg))
+    ref = gnn.loss_full_batch(model, _t(feats), _t(src), _t(dst),
+                              _t(labels), _t(mask), tcfg)
+    assert torch.equal(loss, ref)
+    for a, b in zip(blocked, torch.autograd.grad(ref, named)):
+        _close(a, b.numpy())
+    monkeypatch.undo()
+    monkeypatch.setattr(gnn, "CSR_BLOCK_ELEMS", 30 * JCFG.d_in)
+    rng = np.random.RandomState(12)
+    G, n = 6, 20
+    gfeats = rng.randn(G * n, JCFG.d_in).astype(np.float32)
+    local = rng.randint(0, n, (2, G, 50))
+    gsrc = np.concatenate([(local[0] + n * np.arange(G)[:, None]).ravel(),
+                           np.arange(G * n)]).astype(np.int32)
+    gdst = np.concatenate([(local[1] + n * np.arange(G)[:, None]).ravel(),
+                           np.arange(G * n)]).astype(np.int32)
+    gid = np.repeat(np.arange(G), n).astype(np.int32)
+    glab = rng.randint(0, 7, G).astype(np.int32)
+    want, jgr = jax.value_and_grad(lambda p: jgnn.loss_graph_batch(
+        p, jnp.asarray(gfeats), gsrc, gdst, gid, glab, G, jcfg))(jp)
+    loss = gnn.loss_graph_batch(model, _t(gfeats), _t(gsrc), _t(gdst),
+                                _t(gid), _t(glab), G, tcfg)
+    _close(loss, want)
+    _grads_close(model, loss, jgr)
+
+
+def test_ogb_products_cell_is_reckoned_blocked_and_runs_whole():
+    """graphsage-reddit × ogb_products: the reckoning holds one block of
+    messages (2²⁸ elements), not E·(F + h), and fits one card whole; the
+    cell runs whole through ``run_cell`` on the CPU (its smoke sizes),
+    every step's loss finite, and two runs from one seed give the same
+    losses bit for bit."""
+    from repro_torch.launch import cells, dryrun
+    cell = cells.build_cell("graphsage-reddit", "ogb_products")
+    meta = cell.meta
+    rk = dryrun.reckon(cell, meta["cfg"], meta["batch"], meta["accum"])
+    assert rk["terms"]["messages"] == 2 * gnn.CSR_BLOCK_ELEMS * 4
+    assert rk["peak_bytes"] < 0.5 * dryrun.PLAN_SHARE * 80e9
+    assert dryrun.plans(cell, dryrun.PLAN_SHARE * 80e9)[0].why == "whole"
+    small = cells.build_cell("graphsage-reddit", "ogb_products", smoke=True)
+    plan = dryrun.Plan((None,), (small.meta["batch"],), 1, 3, "whole")
+    runs = [dryrun.run_cell("graphsage-reddit", "ogb_products",
+                            device="cpu", verbose=False, plan=plan)
+            for _ in range(2)]
+    for rec in runs:
+        assert rec["ok"], rec.get("traceback")
+        assert rec["fits_hbm"]
+        (point,) = rec["measured_at"]
+        assert len(point["losses"]) == 4
+        assert all(np.isfinite(point["losses"]))
+    assert runs[0]["measured_at"][0]["losses"] == \
+        runs[1]["measured_at"][0]["losses"]
+
+
 def test_gnn_index_bench_at_the_example_sizes():
     """bench/gnn_index.py at examples/gnn_index.py's sizes on the CPU:
     the minibatch training falls, both solvers' distortion and recall are

@@ -159,11 +159,15 @@ def test_blockwise_attention_matches_jax_with_grad_on_and_off(hq, hkv,
 # -- forward_train ------------------------------------------------------------
 
 
-def _lm_pair(arch: str, kvq: bool, seed: int = 0):
+def _lm_pair(arch: str, kvq: bool, seed: int = 0, bf16: bool = False):
     """The JAX smoke config and params, and the port's, the leaves carried
-    across; kvq adds KVQuantConfig(hd, D, 16) with train_kv_quant."""
+    across; kvq adds KVQuantConfig(hd, D, 16) with train_kv_quant; bf16
+    stores and computes the model in bfloat16."""
     jcfg = jconfigs.get(arch).make_smoke()
     cfg = configs.get(arch).make_smoke()
+    if bf16:
+        jcfg = jcfg._replace(param_dtype=jnp.bfloat16, dtype=jnp.bfloat16)
+        cfg = cfg._replace(param_dtype=torch.bfloat16, dtype=torch.bfloat16)
     if kvq:
         hd = cfg.head_dim
         D = 4 if hd % 4 == 0 else 3
@@ -558,11 +562,27 @@ def test_rotation_health_reads_every_layer_of_a_stacked_leaf():
     assert launch._rotation_health(tp) > 1e-3
 
 
-def test_stacked_gcd_state_checkpoints_read_across_packages():
-    """An OptState with stacked GCD states (olmo-1b smoke with kvq) after
-    one step: written by the JAX package and read by the port, and written
-    by the port and read by the JAX package, every leaf equal."""
-    jcfg, jp, cfg, p = _lm_pair("olmo-1b", True)
+def _np_of(t: torch.Tensor) -> np.ndarray:
+    """A port tensor as the JAX package's numpy leaf: bfloat16 as
+    ``ml_dtypes`` bfloat16, bit for bit."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(jnp.bfloat16)
+    return t.numpy()
+
+
+def _as_saved(a) -> np.ndarray:
+    """What ``np.load`` returns for a leaf the JAX package saved: a
+    bfloat16 array's raw 2-byte elements (``|V2``), else the array."""
+    a = np.asarray(a)
+    return a.view(np.dtype("V2")) if a.dtype == jnp.bfloat16 else a
+
+
+def _checkpoints_read_across_packages(bf16: bool) -> None:
+    """An OptState with stacked GCD states (olmo-1b smoke with kvq, its
+    leaves in float32 or bfloat16) after one step: written by the JAX
+    package and read by the port, and written by the port and read by the
+    JAX package, every leaf's dtype and value equal."""
+    jcfg, jp, cfg, p = _lm_pair("olmo-1b", True, bf16=bf16)
     rcfg = dict(learner="gcd", method="greedy", lr=1e-2)
     jocfg = jopt.OptimizerConfig(rotation=jrot.RotationConfig(**rcfg))
     tocfg = opt_lib.OptimizerConfig(rotation=rotations.RotationConfig(
@@ -576,6 +596,7 @@ def test_stacked_gcd_state_checkpoints_read_across_packages():
     with tempfile.TemporaryDirectory() as d:
         jckpt.save(d, 1, {"opt": jstate})
         got, _ = ckpt.restore(d, 1, {"opt": like})
+        mine, _ = jckpt.restore(d, 1, {"opt": jopt.init(jp, jocfg)})
     got = got["opt"]
     assert got.step == 1
     for key in ("kvq/rot_k", "kvq/rot_v"):
@@ -583,13 +604,15 @@ def test_stacked_gcd_state_checkpoints_read_across_packages():
         assert tuple(st.R.shape) == (cfg.num_layers, cfg.head_dim,
                                      cfg.head_dim)
         for f in st._fields:
-            np.testing.assert_array_equal(
-                getattr(st, f).numpy(), np.asarray(getattr(jstate.rot[key],
-                                                           f)), err_msg=f)
+            want = np.asarray(getattr(jstate.rot[key], f))
+            assert _np_of(getattr(st, f)).dtype == want.dtype, f
+            np.testing.assert_array_equal(_np_of(getattr(st, f)), want,
+                                          err_msg=f)
     jmu = _flat(jax.tree.map(np.asarray, jstate.mu))
     for k, v in got.mu.items():
         np.testing.assert_array_equal(v.numpy(), jmu[k], err_msg=k)
     # and back: the port's state after one of its own steps, read by JAX
+    # as JAX reads its own file (the same dtypes, the same bytes)
     tg = {k: _t(np.asarray(v)) for k, v in _flat(grads).items()}
     _, tstate = opt_lib.update(tg, opt_lib.init(p, tocfg), p, tocfg)
     with tempfile.TemporaryDirectory() as d:
@@ -597,16 +620,82 @@ def test_stacked_gcd_state_checkpoints_read_across_packages():
         back, _ = jckpt.restore(d, 1, {"opt": jopt.init(jp, jocfg)})
     for key in ("kvq/rot_k", "kvq/rot_v"):
         for f in tstate.rot[key]._fields:
+            read = np.asarray(getattr(back["opt"].rot[key], f))
+            assert read.dtype == np.asarray(
+                getattr(mine["opt"].rot[key], f)).dtype, f
             np.testing.assert_array_equal(
-                np.asarray(getattr(back["opt"].rot[key], f)),
-                getattr(tstate.rot[key], f).numpy(), err_msg=f)
+                read, _as_saved(_np_of(getattr(tstate.rot[key], f))),
+                err_msg=f)
     conv = convert.opt_state_from_numpy(
         {"mu": _flat(back["opt"].mu), "nu": _flat(back["opt"].nu),
          "step": back["opt"].step,
-         "rot": {k: dict(v._asdict()) for k, v in back["opt"].rot.items()}},
+         "rot": {k: {f: _np_of(getattr(tstate.rot[k], f)) if bf16 else a
+                     for f, a in v._asdict().items()}
+                 for k, v in back["opt"].rot.items()}},
         tocfg, device="cpu")
     for key in ("kvq/rot_k", "kvq/rot_v"):
+        assert conv.rot[key].R.dtype == tstate.rot[key].R.dtype
         assert torch.equal(conv.rot[key].R, tstate.rot[key].R)
+
+
+def test_stacked_gcd_state_checkpoints_read_across_packages():
+    """The float32 case of ``_checkpoints_read_across_packages``."""
+    _checkpoints_read_across_packages(bf16=False)
+
+
+def test_bf16_gcd_state_checkpoints_read_across_packages():
+    """The bfloat16 case (14c): a bf16 rotation's state R is bf16 in
+    both packages and crosses the npz bit for bit; the accumulators stay
+    float32."""
+    _checkpoints_read_across_packages(bf16=True)
+
+
+#: bf16's unit roundoff
+BF16_U = 2.0 ** -8
+
+
+def test_bf16_rotation_state_is_the_leaf_after_every_step_as_in_jax():
+    """14c: three GCD-G steps of the bf16 olmo-1b smoke config with kvq in
+    both packages on the same bf16 gradients. The state's R has the
+    leaf's dtype (bf16, as JAX's) and the accumulators float32; state and
+    leaf are bit-equal after every step; the port's R (rotated in float32
+    and rounded once) is within 6u a step of JAX's (rotated in bf16
+    arithmetic: c and s rounded, two products and a sum, each rounding a
+    relative u = 2⁻⁸ at most)."""
+    jcfg, jp, cfg, p = _lm_pair("olmo-1b", True, bf16=True)
+    rcfg = dict(learner="gcd", method="greedy", lr=1e-2)
+    jocfg = jopt.OptimizerConfig(grad_clip=0.0,
+                                 rotation=jrot.RotationConfig(**rcfg))
+    tocfg = opt_lib.OptimizerConfig(grad_clip=0.0,
+                                    rotation=rotations.RotationConfig(**rcfg))
+    jstate, tstate = jopt.init(jp, jocfg), opt_lib.init(p, tocfg)
+    rng = np.random.default_rng(3)
+    keys = ("kvq/rot_k", "kvq/rot_v")
+    for step in range(3):
+        grads = jax.tree.map(lambda a: jnp.asarray(rng.standard_normal(
+            a.shape).astype(np.float32)).astype(a.dtype), jp)
+        jp, jstate = jopt.update(grads, jstate, jp, jocfg,
+                                 jax.random.PRNGKey(step))
+        tg = {k: torch.from_numpy(np.asarray(v, np.float32)).to(
+            p_leaf.dtype) for (k, v), p_leaf in zip(
+                _flat(grads).items(), _flat(p).values())}
+        with torch.no_grad():
+            _, tstate = opt_lib.update(tg, tstate, p, tocfg)
+        for key in keys:
+            jst, tst = jstate.rot[key], tstate.rot[key]
+            leaf = p["kvq"][key.split("/")[1]]
+            for f in jst._fields:
+                assert _np_of(getattr(tst, f)).dtype == \
+                    np.asarray(getattr(jst, f)).dtype, (step, key, f)
+            assert tst.R.dtype == leaf.dtype == torch.bfloat16
+            assert tst.accum.dtype == torch.float32
+            assert torch.equal(tst.R, leaf), (step, key)
+            assert tst.R.data_ptr() != leaf.data_ptr()
+            np.testing.assert_array_equal(
+                np.asarray(jst.R), np.asarray(jp["kvq"][key.split("/")[1]]))
+            gap = float(np.max(np.abs(np.asarray(jst.R, np.float32)
+                                      - tst.R.float().numpy())))
+            assert gap <= 6 * BF16_U * (step + 1), (step, key, gap)
 
 
 def test_forward_train_launches_nothing_on_the_cpu():
