@@ -168,7 +168,42 @@ Phases, one JSON line each:
            queue waits, host ms by part, and ivf_adc's times at bucket 16
            beside their bounds and F.embedding_bag; the result is written
            through obs.write_bench into a temporary directory and
-           validated. The 1M-row index is freed after;
+           validated;
+  sharded  the row-sharded serving family (search.sharded) on main's
+           1M-row index, SHARDS = 4 shards laid on the one card
+           (make_data_mesh(4, devices=("cuda:0",) * 4)): ivf_sharded and
+           flat_sharded attached (shard_split by id rank, codes carried),
+           held bit-equal to the single-device ivf at batches 512 / 100 /
+           37 and nprobe 8 / 32 / 128 and to flat_adc on 64 queries, and
+           exact_sharded against exact (ids equal, scores within ATOL),
+           the shares of equal ids and scores printed; the summed scanned
+           held equal to the shards' probe windows and at least the single
+           index's, each shard's share within SHARD_SHARE of 1/4;
+           sharded_parity (recall ≥ 0.999 against each replicated twin);
+           an eager refresh of the sharded state (rotate_components on
+           every replica) bit-equal to the refreshed single index;
+           build_sharded from 4 chunks of 250,000 rows with the coarse fit
+           by vq_kmeans_sharded on the mesh, its recall@10 against the
+           flat scan of its codes and against exact beside the single
+           build's (held within SHARD_BUILD_RECALL); an Engine over a
+           fused-refresh ivf_sharded state through ENGINE_SIZES, a
+           subspace-GCD refresh, no new executable, its results on
+           unseen queries bit-equal to a direct sharded search; the churn
+           --devices cell: a ChurnController (buffers of CHURN_STAGING
+           rows a shard, rebalance at 1.03) removing the lowest live ids
+           (shard 0's) and adding CHURN_BATCH rows a step until the
+           trigger fires, the flat top-k of the live set (every packed and
+           staged row) bit-equal before and after the rebalance, no
+           tombstoned id served, the first step's
+           staged rows served by the side passes bit-equal to the single
+           index with the same buffer. ivf_adc, adc_lookup and pq_assign
+           timed at a shard's shapes beside their plain versions, bounds
+           and library calls (the four shards' scans beside the single
+           index's), the sharded and single batch latency; the six
+           kernels of the path (SHARDED_KERNELS) held against their plain
+           versions at every shape the phase launched them at, the
+           sharded ivf and flat searches' launches exact. The 1M-row index
+           is freed after;
   train    the training slice at the full width of the paper's two-tower
            model (configs/paper_twotower.make_config: 1,541,673 items,
            embedding 512, towers (512, 512), history 16, D = 64, K = 256)
@@ -392,7 +427,8 @@ with the split by path: serving's learn, build, serve and refresh; the
 Engine's attach, requests and refreshes (with the learner steps that give
 their deltas); churn's attach, first search and both runs' steps; rq's
 build, serving, flat scan, refresh and fused Engine; train_e2e's three
-arms; serve's build of beta and its seven frontends;
+arms; serve's build of beta and its seven frontends; sharded's attach,
+searches, refreshes, build_sharded, Engine and churn steps;
 train's parts; table1's run; fig4's and fig2's runs;
 decode's prefill and greedy tokens; lm_train's kvq steps, and its decode
 of the trained and initial leaves; moe's PQ prefills, greedy tokens and
@@ -713,6 +749,18 @@ TOOL_REFRESH_MISMATCH = 0.01       # serve_ann: tests/test_ivf.py:112
 TOOL_ORTH = 1e-4                   # quickstart: ‖RᵀR − I‖ of every learner
 EXAMPLE_KERNELS = ("pq_assign", "gcd_score", "givens_rotate", "ivf_adc",
                    "adc_lookup", "embedding_bag")
+#: the sharded phase: main's index on SHARDS shards laid on one card
+SHARDS = 4
+SHARD_DEVICE = "cuda:0"
+SHARDED_KERNELS = ("ivf_adc", "adc_lookup", "pq_assign", "fused_lut",
+                   "givens_rotate", "gcd_score")
+SHARD_SHARE = 0.05                 # a shard's rows scanned: 1/S within this
+SHARD_PARITY = 0.999               # benchmarks/ivf_recall_qps.py sharded_parity
+SHARD_BUILD_RECALL = 0.15          # tests/test_distributed.py: build_sharded
+SHARD_BUILD_SEED = SEED + 120
+SHARD_REBALANCE = 1.03             # benchmarks/churn.py's sharded cell
+SHARD_COMPACT_AT = 0.05            # its compact_at
+SHARD_MAX_STEPS = 24               # the trigger fires at step 15 (PERF.md)
 
 
 def lm_orth_bound(steps: int) -> float:
@@ -6830,6 +6878,457 @@ def phase_tooling(smi: str) -> tuple[dict, dict]:
     return errs, dict(tooling=rot_launches, examples=ex_launches)
 
 
+# -- sharded ----------------------------------------------------------------
+
+
+def _shard_scanned(state, QR, nprobe: int):
+    """Rows each shard's probe window visits a query, from its offsets:
+    (S, b), the same probed lists on every shard (the shared coarse)."""
+    import torch
+
+    from repro_torch.index import search as index_search
+
+    lists, _ = index_search.probe(state.shards[0], QR, nprobe)
+    out = []
+    for part in state.shards:
+        offs = part.list_offsets.long()
+        nb = (offs[lists + 1] - offs[lists]) // part.block_size
+        out.append(torch.clamp(nb, max=state.max_blocks).sum(dim=1)
+                   * part.block_size)
+    return torch.stack(out)
+
+
+def _same(got, want) -> tuple[float, float]:
+    """Shares of equal ids and of bit-equal scores of two results."""
+    ids = float((got.ids == want.ids).float().mean())
+    scores = float((got.scores == want.scores).float().mean())
+    return ids, scores
+
+
+def _shard_kernel_rows(state, index, X, Q, errs) -> dict:
+    """ivf_adc, adc_lookup and pq_assign at shard 0's shapes (the four
+    shards' are one shape) beside their plain versions, bounds and library
+    calls, and the four shards' scans of a batch beside the single index's
+    one: serve_p99 (b = 512, nprobe 32), the flat check's 64 queries, and
+    one shard's k-means assign of the coarse fit (TRAIN / S rows)."""
+    import torch
+
+    from repro_torch.index import search as index_search
+    from repro_torch.kernels import ops, ref
+
+    rows = {}
+    part = state.shards[0]
+    codes, ids = part.codes, part.ids
+    QR = Q[:BATCHES[0]] @ index.R
+    lut = index_search.build_luts(index.quantizer, QR)
+    scheds = []
+    for p in (*state.shards, index):
+        mb = state.max_blocks if p is not index else index.max_list_blocks()
+        sch = index_search.scan_schedule(p, QR, nprobe=SERVE_NPROBE,
+                                         max_blocks=mb)
+        scheds.append((p, sch.block_idx, sch.block_query))
+    _, bi, bq = scheds[0]
+    errs["ivf_adc/sharded_serve_p99"] = bit_equal(
+        ops.ivf_adc(lut, codes, bi, bq, None, ids, block_size=BS),
+        ref.ivf_adc_ref(lut, codes, bi, bq, block_size=BS, ids=ids),
+        "ivf_adc at a shard's serve_p99 schedule")
+    work = ivf_work(lut, None, codes, ids, bi, BS)
+    rows["ivf_adc"] = dict(
+        shape=dict(b=BATCHES[0], nprobe=SERVE_NPROBE, S=work["S"],
+                   cap=part.capacity, max_blocks=state.max_blocks),
+        ms=graph_ms(lambda: ops.ivf_adc(lut, codes, bi, bq, None, ids,
+                                        block_size=BS), launches=20),
+        plain_ms=graph_ms(lambda: ref.ivf_adc_ref(
+            lut, codes, bi, bq, block_size=BS, ids=ids), launches=2),
+        library_ms=graph_ms(ivf_library(lut, codes, bi, bq, BS),
+                            launches=5), **work)
+
+    def scans(which):
+        for p, b_i, b_q in which:
+            ops.ivf_adc(lut, p.codes, b_i, b_q, None, p.ids, block_size=BS)
+
+    rows["ivf_adc"]["all_shards_ms"] = graph_ms(
+        lambda: scans(scheds[:-1]), launches=10)
+    rows["ivf_adc"]["single_index_ms"] = graph_ms(
+        lambda: scans(scheds[-1:]), launches=10)
+
+    QRf = Q[:FLAT_QUERIES] @ index.R
+    lutf = index_search.build_luts(index.quantizer, QRf)
+    errs["adc_lookup/sharded_flat"] = bit_equal(
+        ops.adc_lookup(lutf, codes, None, ids),
+        ref.adc_lookup_ref(lutf, codes, None, ids),
+        "adc_lookup at a shard's flat scan")
+    tiles = torch.arange(part.capacity // BS, device=codes.device)
+    nbytes = _scan_bytes(lutf, None, codes, ids, tiles, BS,
+                         FLAT_QUERIES * part.capacity, 0)
+    flops = FLAT_QUERIES * int(torch.sum(ids >= 0)) * D
+    rows["adc_lookup"] = dict(
+        shape=dict(b=FLAT_QUERIES, Dp=D, K=K, N=part.capacity),
+        ms=graph_ms(lambda: ops.adc_lookup(lutf, codes, None, ids),
+                    launches=20),
+        plain_ms=graph_ms(lambda: ref.adc_lookup_ref(lutf, codes, None, ids),
+                          launches=2),
+        library_ms=graph_ms(flat_library(lutf, codes), launches=5),
+        bytes=nbytes, flops=flops, **_bound(nbytes, flops))
+
+    # one shard's k-means assign: its TRAIN / S rows of the coarse fit's
+    # sample (the head of the first chunk) against the L centroids
+    Xs = (X[:TRAIN // SHARDS] @ index.R).contiguous()
+    C = index.centroids[None].contiguous()
+    got, want = ops.pq_assign(Xs, C), ref.pq_assign_ref(Xs, C)
+    flips = _assign_flips(Xs, C, got, want)
+    errs["pq_assign/sharded_kmeans"] = flips["max_abs_gap"]
+    m, n = Xs.shape
+    nbytes = m * n * 4 + L * n * 4 + m * 4
+    flops = 2 * m * n * L
+    rows["pq_assign"] = dict(
+        shape=dict(m=m, n=n, D=1, K=L, sub=n), flips=flips,
+        ms=graph_ms(lambda: ops.pq_assign(Xs, C), launches=20),
+        plain_ms=graph_ms(lambda: ref.pq_assign_ref(Xs, C), launches=2),
+        library_ms=None, bytes=nbytes, flops=flops, **_bound(nbytes, flops))
+    return rows
+
+
+def phase_sharded(ctx: dict, smi: str) -> tuple[dict, dict]:
+    """The row-sharded serving family on main's 1M-row index, SHARDS
+    shards laid on SHARD_DEVICE (search.sharded, index.ivf's shard_split
+    and build_sharded, the sharded k-means, sharded churn and
+    shard_rebalance). Returns (errors, the path's launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import churn, device, rotations, search
+    from repro_torch.churn import ops as churn_ops
+    from repro_torch.index import ivf as index_ivf
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.metrics import recall_at_k
+
+    t_all = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    index, X, Q, R0 = ctx["index"], ctx["X"], ctx["Q"], ctx["R"]
+    mesh = make_data_mesh(SHARDS, devices=(SHARD_DEVICE,) * SHARDS)
+    ivf, flat = search.make("ivf"), search.make("flat_adc")
+    sh_ivf = search.make("ivf_sharded", mesh=mesh)
+    sh_flat = search.make("flat_sharded", mesh=mesh)
+    errs, seen, own, side, sec, out = {}, {}, {}, {}, {}, {}
+
+    def held(ok: bool, what: str) -> None:
+        check(ok, f"sharded: {what}")
+
+    with _kernel_spies(seen, SHARDED_KERNELS):
+        # -- attach, and the twins against the single index -------------
+        t0 = time.perf_counter()
+        with _counted(own):
+            st = sh_ivf.attach(index, mesh=mesh, nprobe=SERVE_NPROBE)
+            st_flat = sh_flat.attach(index, mesh=mesh)
+            torch.cuda.synchronize()
+        sec["attach"] = time.perf_counter() - t0
+        stats = sh_ivf.stats(st)
+        held(stats["rows"] == N and stats["shards"] == SHARDS,
+             f"attach: {stats['rows']} rows over {stats['shards']} shards")
+        single = ivf.attach(index, nprobe=SERVE_NPROBE)
+        parity, arm, equal = [], {}, {}
+        t0 = time.perf_counter()
+        runs = {}
+        with _counted(arm):
+            for p in NPROBES:
+                lo = 0
+                for b in BATCHES:
+                    runs[(p, b, lo)] = sh_ivf.search(st, Q[lo:lo + b], k=10,
+                                                    nprobe=p)
+                    lo += b
+            torch.cuda.synchronize()
+        sec["ivf_parity"] = time.perf_counter() - t0
+        for key, v in arm.items():
+            own[key] = own.get(key, 0) + v
+        _expect("the sharded ivf searches", {"ivf_adc": arm.get("ivf_adc")},
+                {"ivf_adc": SHARDS * len(NPROBES) * len(BATCHES)})
+        shares = []
+        for (p, b, lo), got in runs.items():
+            q = Q[lo:lo + b]
+            want = ivf.search(single, q, k=10, nprobe=p)
+            i_eq, s_eq = _same(got, want)
+            per = _shard_scanned(st, q @ st.R, p)
+            held(torch.equal(per.sum(dim=0).to(got.scanned.dtype),
+                             got.scanned),
+                 f"scanned at nprobe {p} b {b} is not the shards' windows")
+            tot = float(got.scanned.float().mean())
+            share = (per.float().mean(dim=1) / tot).tolist()
+            shares.append(share)
+            parity.append(dict(
+                nprobe=p, b=b, ids_equal=i_eq, scores_equal=s_eq,
+                scanned=tot, single_scanned=float(want.scanned.float()
+                                                  .mean()),
+                shard_share=share))
+            held(torch.equal(got.ids, want.ids)
+                 and torch.equal(got.scores, want.scores),
+                 f"ivf_sharded at nprobe {p} b {b} differs from ivf "
+                 f"(ids {i_eq}, scores {s_eq} equal)")
+            held(tot >= parity[-1]["single_scanned"],
+                 f"scanned {tot} below the single index's")
+            held(max(abs(s - 1 / SHARDS) for s in share) <= SHARD_SHARE,
+                 f"shard shares {share} at nprobe {p} b {b}")
+        equal["ivf"] = parity
+
+        qf = Q[:FLAT_QUERIES]
+        fl = {}
+        with _counted(fl):
+            got = sh_flat.search(st_flat, qf, k=10)
+        for key, v in fl.items():
+            own[key] = own.get(key, 0) + v
+        _expect("the sharded flat scan", {"adc_lookup": fl.get(
+            "adc_lookup")}, {"adc_lookup": SHARDS})
+        want = flat.search(flat.attach(index), qf, k=10)
+        i_eq, s_eq = _same(got, want)
+        equal["flat"] = dict(ids_equal=i_eq, scores_equal=s_eq)
+        held(torch.equal(got.ids, want.ids)
+             and torch.equal(got.scores, want.scores),
+             f"flat_sharded differs from flat_adc (ids {i_eq}, scores "
+             f"{s_eq} equal)")
+
+        ex = search.make("exact_sharded", mesh=mesh)
+        t0 = time.perf_counter()
+        with _counted(own):
+            ex_state = ex.build(None, X, R0, search.SearchConfig(
+                tile_rows=EXACT_TILE))
+            got = ex.search(ex_state, Q, k=10)
+        sec["exact"] = time.perf_counter() - t0
+        want = search.make("exact").search(ctx["exact"], Q, k=10)
+        i_eq, s_eq = _same(got, want)
+        err = float((got.scores - want.scores).abs().max())
+        equal["exact"] = dict(ids_equal=i_eq, scores_equal=s_eq,
+                              max_abs_score_diff=err)
+        held(torch.equal(got.ids, want.ids) and err <= ATOL,
+             f"exact_sharded differs from exact (ids {i_eq} equal, scores "
+             f"within {err})")
+        held(int(got.scanned[0]) == N, "exact_sharded scanned")
+        del ex_state
+        sharded_parity = {
+            "exact_sharded": recall_at_k(got.ids, want.ids),
+            "flat_sharded": recall_at_k(
+                sh_flat.search(st_flat, Q, k=10).ids,
+                flat.search(flat.attach(index), Q, k=10).ids),
+            "ivf_sharded": recall_at_k(runs[(8, BATCHES[0], 0)].ids, ivf.search(
+                single, Q[:BATCHES[0]], k=10, nprobe=8).ids)}
+        held(min(sharded_parity.values()) >= SHARD_PARITY,
+             f"sharded_parity {sharded_parity}")
+
+        # -- the eager refresh of the sharded state (rotate_components) --
+        learner = rotations.make("subspace_gcd", sub=DIM // D)
+        with _counted(own):
+            delta = _gcd_delta(learner, index.R, X[:TRAIN], index.quantizer)
+            st_r = sh_ivf.refresh(st, delta)
+            got = sh_ivf.search(st_r, Q[:BATCHES[0]], k=10)
+        want = ivf.search(ivf.refresh(single, delta), Q[:BATCHES[0]], k=10)
+        i_eq, s_eq = _same(got, want)
+        equal["refreshed"] = dict(ids_equal=i_eq, scores_equal=s_eq)
+        held(torch.equal(got.ids, want.ids)
+             and torch.equal(got.scores, want.scores),
+             f"the refreshed sharded state differs from the refreshed index "
+             f"(ids {i_eq}, scores {s_eq} equal)")
+        held(all(torch.equal(p.R, st_r.R) and torch.equal(
+            p.coarse.centroids, st_r.coarse.centroids)
+            for p in st_r.shards), "a shard's replica was not refreshed")
+        del st_r
+
+        # -- build_sharded from four chunks, the coarse fit sharded -------
+        chunk = N // SHARDS
+        chunks = [X[s * chunk:(s + 1) * chunk] for s in range(SHARDS)]
+        t0 = time.perf_counter()
+        with _counted(own):
+            parts = index_ivf.build_sharded(
+                device.generator(SHARD_BUILD_SEED), chunks, R0,
+                serve_config().ivf_config(), mesh=mesh)
+            st_b = search.attach_shards(parts, mesh=mesh,
+                                        nprobe=SERVE_NPROBE)
+            torch.cuda.synchronize()
+        sec["build_sharded"] = time.perf_counter() - t0
+        del parts, chunks
+        held(sh_ivf.stats(st_b)["rows"] == N, "build_sharded lost rows")
+        with _counted(own):
+            b_ivf = sh_ivf.search(st_b, Q, k=10)
+            b_flat = sh_flat.search(st_b, Q, k=10)
+        s_ivf = ivf.search(single, Q, k=10)
+        s_flat = flat.search(flat.attach(index), Q, k=10)
+        truth = ctx["truth"]
+        build = dict(
+            recall_vs_flat=recall_at_k(b_ivf.ids, b_flat.ids),
+            recall_at_10=recall_at_k(b_ivf.ids, truth),
+            single_recall_vs_flat=recall_at_k(s_ivf.ids, s_flat.ids),
+            single_recall_at_10=recall_at_k(s_ivf.ids, truth),
+            max_blocks=st_b.max_blocks,
+            rows_per_shard=sh_ivf.stats(st_b)["rows_per_shard"])
+        held(build["recall_at_10"] >= build["single_recall_at_10"]
+             - SHARD_BUILD_RECALL,
+             f"build_sharded recall {build['recall_at_10']} against the "
+             f"single build's {build['single_recall_at_10']}")
+        del st_b, b_ivf, b_flat
+
+        # -- the Engine over a fused sharded state, through a refresh -----
+        st_f = sh_ivf.attach(index, mesh=mesh, nprobe=SERVE_NPROBE,
+                             fused_refresh=True)
+        engine = search.Engine(sh_ivf, st_f, k=10, nprobe=SERVE_NPROBE)
+        lo, eng = 0, {}
+        t0 = time.perf_counter()
+        with _counted(own):
+            for b in ENGINE_SIZES:
+                q = Q[lo % Q.shape[0]:][:b]
+                if q.shape[0] < b:
+                    q = torch.cat([q, Q[:b - q.shape[0]]])
+                lo += b
+                engine.search(q)
+            before = engine.stats()
+            engine.refresh(delta)
+            fresh = X[N - ENGINE_SIZES[0]:]       # rows never served
+            after = engine.search(fresh)
+            for b in ENGINE_SIZES:
+                engine.search(Q[:b])
+            torch.cuda.synchronize()
+        sec["engine"] = time.perf_counter() - t0
+        es = engine.stats()
+        direct = sh_ivf.search(engine.state, fresh, k=10)
+        eng = dict(compiles_before=before["compiles"],
+                   compiles_after=es["compiles"],
+                   executables=es["executables"], refreshes=es["refreshes"],
+                   lut_invalidations=es["lut_invalidations"],
+                   lut_hit_rate=es["lut_hit_rate"],
+                   latency_ms_p50=es["latency_ms_p50"],
+                   equal_direct=_same(after, direct))
+        held(es["compiles"] == before["compiles"]
+             and es["executables"] == before["executables"],
+             f"the refresh made an executable: {eng}")
+        held(torch.equal(after.ids, direct.ids)
+             and torch.equal(after.scores, direct.scores),
+             f"the Engine after the refresh differs from a direct sharded "
+             f"search: {eng['equal_direct']}")
+        del engine, st_f
+
+        # -- churn: low-end deletes until the 1.03 trigger rebalances ----
+        st_c = sh_ivf.attach(index, mesh=mesh, nprobe=SERVE_NPROBE)
+        eng_c = search.Engine(sh_ivf, st_c, k=10, nprobe=SERVE_NPROBE,
+                              min_bucket=32)
+        ctl = churn.ChurnController(
+            eng_c, staging_rows=CHURN_STAGING, flush_at=CHURN_FLUSH_AT,
+            compact_at=SHARD_COMPACT_AT,
+            imbalance_threshold=SHARD_REBALANCE)
+        q512 = Q[:BATCHES[0]]
+        rebalanced = []
+        real = churn_ops.shard_rebalance
+
+        def spy(state, **kw):
+            # the same live set: the flat scan's top-k (every CSR and
+            # staged row) before and after; the probed top-k may change,
+            # since a staged row is scored whatever its list and a packed
+            # one only when its list is probed
+            qf = Q[:FLAT_QUERIES]
+            with _counted(side):
+                was = sh_flat.search(state, qf, k=10)
+                probed = sh_ivf.search(state, q512, k=10)
+            rows_was = churn.shard_rows(state)
+            new = real(state, **kw)
+            with _counted(side):
+                now = sh_flat.search(new, qf, k=10)
+                probed_now = sh_ivf.search(new, q512, k=10)
+            rebalanced.append(dict(
+                ids_equal=bool(torch.equal(was.ids, now.ids)),
+                scores_equal=bool(torch.equal(was.scores, now.scores)),
+                probed_equal=_same(probed, probed_now),
+                rows_before=rows_was, rows_after=churn.shard_rows(new)))
+            return new
+
+        adds = ctx["adds"]
+        removed = np.zeros(N + adds.shape[0], dtype=bool)
+        steps, surfaced, side_equal = 0, 0, None
+        t0 = time.perf_counter()
+        churn_ops.shard_rebalance = spy
+        try:
+            with _counted(own):
+                eng_c.search(q512)
+            while not rebalanced and steps < SHARD_MAX_STEPS:
+                lo = steps * CHURN_BATCH
+                dead = np.arange(lo, lo + CHURN_BATCH, dtype=np.int32)
+                add_ids = np.arange(N + lo, N + lo + CHURN_BATCH,
+                                    dtype=np.int32)
+                with _counted(own):
+                    ctl.step(add=adds[lo:lo + CHURN_BATCH], add_ids=add_ids,
+                             remove_ids=dead)
+                    res = eng_c.search(q512)
+                removed[dead] = True
+                got = res.ids.cpu().numpy()
+                surfaced += int(removed[got[got >= 0]].sum())
+                if steps == 0:
+                    # staged rows served by each shard's side pass: the
+                    # same live set and buffer on the single index
+                    one = churn.with_staging(ivf.attach(
+                        index, nprobe=SERVE_NPROBE), CHURN_STAGING * SHARDS,
+                        window_slack=0)
+                    one = churn.stage(churn.tombstone(one, dead),
+                                      adds[:CHURN_BATCH], add_ids)
+                    a = sh_ivf.search(ctl.state, q512, k=10)
+                    qa = adds[:FLAT_QUERIES]
+                    staged_hits = int(torch.isin(sh_ivf.search(
+                        ctl.state, qa, k=10).ids, torch.as_tensor(
+                            add_ids, device=qa.device)).sum())
+                    w = ivf.search(one, q512, k=10)
+                    side_equal = _same(a, w)
+                    held(churn.staged_rows(ctl.state) == CHURN_BATCH,
+                         "the first step's adds are not staged")
+                    held(torch.equal(a.ids, w.ids)
+                         and torch.equal(a.scores, w.scores),
+                         f"the staged sharded state differs from the single "
+                         f"index with the same buffer: {side_equal}")
+                    del one
+                steps += 1
+            torch.cuda.synchronize()
+        finally:
+            churn_ops.shard_rebalance = real
+        sec["churn"] = time.perf_counter() - t0
+        ch = eng_c.stats()["churn"]
+        cell = dict(steps=steps, batch=CHURN_BATCH, rebalances=ch[
+            "rebalances"], flushes=ch["flushes"],
+            compactions=ch["compactions"], grows=ch["grows"],
+            staged=ch["staged"], tombstoned=ch["tombstoned"],
+            surfaced_tombstones=surfaced, rebalance=rebalanced,
+            side_pass_equal=side_equal, staged_ids_served=staged_hits,
+            shard_rows_after=churn.shard_rows(ctl.state))
+        held(ch["rebalances"] >= 1 and len(rebalanced) >= 1,
+             f"no rebalance in {steps} steps: {cell}")
+        held(all(r["ids_equal"] and r["scores_equal"] for r in rebalanced),
+             f"the rebalance changed the flat top-k: {rebalanced}")
+        held(surfaced == 0, f"{surfaced} tombstoned ids served")
+        rows_after = cell["shard_rows_after"]
+        held(max(rows_after) - min(rows_after) <= 1,
+             f"shards unbalanced after the rebalance: {rows_after}")
+        del eng_c, ctl, st_c
+
+        # -- the kernels at the per-shard shapes --------------------------
+        timing = _shard_kernel_rows(st, index, X, Q, errs)
+        t0 = time.perf_counter()
+        lat = dict(
+            sharded=time_ms(lambda: sh_ivf.search(st, q512, k=10), reps=20,
+                            flush=False),
+            single=time_ms(lambda: ivf.search(single, q512, k=10), reps=20,
+                           flush=False))
+        sec["latency"] = time.perf_counter() - t0
+    for key, v in side.items():
+        own[key] = own.get(key, 0) - v
+    own = {k: v for k, v in own.items() if v}
+    for name in SHARDED_KERNELS:
+        held(own.get(name, 0) > 0, f"kernel {name} was not launched")
+    hold = _hold_spied("sharded", seen, errs)
+    emit("sharded", shards=SHARDS, devices=[str(d) for d in mesh.devices],
+         capacity_per_shard=st.capacity, max_blocks=st.max_blocks,
+         single_max_blocks=single.max_blocks,
+         rows_per_shard=stats["rows_per_shard"], parity=equal,
+         sharded_parity=sharded_parity, build_sharded=build, engine=eng,
+         churn=cell, kernels=timing, search_latency_ms=lat, launches=own,
+         held=hold, seconds=sec, total_s=time.perf_counter() - t_all,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(), card=smi)
+    return errs, own
+
+
 def main() -> int:
     import torch
 
@@ -6853,6 +7352,8 @@ def main() -> int:
     errs.update(te_errs)
     serve_errs, paths["serve"] = phase_serve(ctx, smi)
     errs.update(serve_errs)
+    shard_errs, paths["sharded"] = phase_sharded(ctx, smi)
+    errs.update(shard_errs)
     del ctx                          # frees the 1M-row index
     torch.cuda.empty_cache()
     tctx = phase_train(smi)

@@ -1,5 +1,4 @@
-"""Live churn under query load on the port (port of ``benchmarks/churn.py``,
-single device).
+"""Live churn under query load on the port (port of ``benchmarks/churn.py``).
 
 A fused ``ivf`` Engine serves a steady query stream while a
 ``ChurnController`` interleaves, every step:
@@ -25,11 +24,20 @@ every live vector, so it scales to the 1M-row index ``chip_smoke.py``
 churns. The adds are held-out rows of the same ``sift_like`` draw as the
 corpus, as the JAX script draws them.
 
+``--devices N`` adds the JAX script's sharded cell
+(``churn_sharded_cell``): the same controller loop over ``ivf_sharded`` on
+N shards, the deletes taken from the low end of the live ids (shard 0's,
+by the id-rank partition) until the 1.03 imbalance trigger rebalances,
+with four more checks (no new executable, a rebalance, no tombstoned id
+served, recall within 0.01 of a repack of the live rows served by the
+same sharded backend). The shards go on the visible cards, one each,
+unless ``--shard-device`` names them (``cuda:0`` lays all N on one card).
+
     PYTHONPATH=src python -m repro_torch.bench.churn [--fast] [--device cpu]
+        [--devices 4 --shard-device cuda:0]
 
 prints one JSON line of results, one of checks, and the device; it writes
-no file. ``--devices N`` (the JAX script's sharded cell) is not ported yet
-(ROADMAP.md queue 1, item 11).
+no file.
 """
 from __future__ import annotations
 
@@ -95,19 +103,24 @@ def state_shapes(state) -> dict:
 
 def churn_loop(engine, ctl, Q, pool, live: np.ndarray, *, steps: int,
                batch: int, next_id: int, rng: np.random.Generator,
-               refresh: bool = True, on_step=None):
+               refresh: bool = True, on_step=None,
+               low_end_removes: bool = False):
     """Balanced add/remove churn and refreshes under query load. ``live``
     (a bool mask over ``pool``'s rows) is updated in place; the adds are
-    rows ``next_id`` onwards. ``on_step(step, add_ids, dead)``, if given,
-    runs after each step's search. Returns (per-step records, removed
-    mask). Asserts nothing: the callers turn the records into checks."""
-    sub = ctl.state.index.quantizer.sub
+    rows ``next_id`` onwards; the removes are drawn from ``rng``, or the
+    ``batch`` lowest live ids with ``low_end_removes``. ``on_step(step,
+    add_ids, dead)``, if given, runs after each step's search. Returns
+    (per-step records, removed mask). Asserts nothing: the callers turn
+    the records into checks."""
     removed = np.zeros_like(live)
     dev = pool.device
     records = []
     for step in range(steps):
-        dead = rng.choice(np.nonzero(live)[0], size=batch,
-                          replace=False).astype(np.int32)
+        if low_end_removes:
+            dead = np.nonzero(live)[0][:batch].astype(np.int32)
+        else:
+            dead = rng.choice(np.nonzero(live)[0], size=batch,
+                              replace=False).astype(np.int32)
         add_ids = np.arange(next_id, next_id + batch, dtype=np.int32)
         add = pool[next_id:next_id + batch]
         next_id += batch
@@ -122,7 +135,8 @@ def churn_loop(engine, ctl, Q, pool, live: np.ndarray, *, steps: int,
         live[add_ids] = True
 
         if refresh:
-            engine.refresh(delta(ctl.state.index.R, sub, step))
+            idx = ctl.state.index
+            engine.refresh(delta(idx.R, idx.quantizer.sub, step))
         ids = engine.search(Q).ids.cpu().numpy()
         got = ids[ids >= 0]
         records.append(dict(step=step, mutate_ms=mut_ms,
@@ -209,22 +223,98 @@ def checks_of(es: dict, before: dict, records: list, steps: int,
     )
 
 
+def churn_sharded_cell(n: int, dim: int, queries: int, lists: int,
+                       subspaces: int, codewords: int, steps: int,
+                       batch: int, nprobe: int, staging_rows: int,
+                       mesh) -> dict:
+    """The JAX script's ``--devices`` cell on ``mesh``: controller churn
+    over ``ivf_sharded`` with the low-end deletes draining shard 0 until
+    the 1.03 imbalance trigger rebalances, then recall against a repack
+    of the live rows under the same quantizers, served by the same
+    sharded backend."""
+    dev = mesh.devices[0]
+    pool = synthetic.sift_like(_device.generator(0, dev), n + steps * batch,
+                               dim, device=dev)
+    Q = synthetic.sift_like(_device.generator(1, dev), queries, dim,
+                            device=dev)
+    R = givens.random_rotation(_device.generator(2, dev), dim, device=dev)
+    cfg = search.SearchConfig(
+        num_lists=lists, subspaces=subspaces, codewords=codewords,
+        nprobe=nprobe, train_size=min(n, 16384))
+    index = index_ivf.build(_device.generator(3, dev), pool[:n], R,
+                            cfg.ivf_config(), train_size=cfg.train_size,
+                            device=dev)
+    sh_s = search.make("ivf_sharded", mesh=mesh)
+    state = sh_s.attach(index, mesh=mesh, nprobe=nprobe)
+    engine = search.Engine(sh_s, state, k=10, nprobe=nprobe, min_bucket=32)
+    # the tight threshold makes the trigger fire within the short run
+    ctl = churn.ChurnController(engine, staging_rows=staging_rows,
+                                flush_at=0.5, compact_at=0.05,
+                                imbalance_threshold=1.03)
+    rows_before = churn.shard_rows(ctl.state)
+    engine.search(Q)
+    es0 = engine.stats()
+
+    live = np.zeros(pool.shape[0], dtype=bool)
+    live[:n] = True
+    t0 = time.perf_counter()
+    records, _ = churn_loop(engine, ctl, Q, pool, live, steps=steps,
+                            batch=batch, next_id=n,
+                            rng=np.random.default_rng(0), refresh=False,
+                            low_end_removes=True)
+    churn_s = time.perf_counter() - t0
+    es = engine.stats()
+    truth = exact_top10(Q, pool, live)
+    recall = recall_at_k(engine.search(Q).ids, truth)
+
+    live_ids = torch.from_numpy(np.nonzero(live)[0].astype(np.int32))
+    list_ids, codes = index_ivf.encode(pool[live_ids.long().to(dev)]
+                                       @ index.R, index.coarse,
+                                       index.quantizer)
+    repacked = index_ivf.pack(index.R, index.coarse, index.quantizer, codes,
+                              list_ids, live_ids, block_size=cfg.block_size)
+    res = sh_s.search(sh_s.attach(repacked, mesh=mesh, nprobe=nprobe), Q,
+                      k=10, nprobe=nprobe)
+    return dict(
+        devices=len(mesh.devices),
+        shard_devices=[str(d) for d in mesh.devices],
+        recompiles=es["executables"] - es0["executables"],
+        rebalances=es["churn"]["rebalances"], grows=es["churn"]["grows"],
+        compactions=es["churn"]["compactions"],
+        flushes=es["churn"]["flushes"],
+        shard_rows_before=rows_before,
+        shard_rows_after=churn.shard_rows(ctl.state),
+        tombstone_clean=(not any(r["surfaced_tombstone"] for r in records)
+                         and all(r["ids_live"] for r in records)),
+        recall=recall, recall_repack=recall_at_k(res.ids, truth),
+        churn_s=churn_s,
+        mutate_ms_p50=float(np.median([r["mutate_ms"] for r in records])))
+
+
+def sharded_checks(cell: dict) -> dict:
+    """The JAX script's four checks of the sharded cell."""
+    return dict(
+        sharded_zero_recompiles=cell["recompiles"] == 0,
+        sharded_rebalanced=cell["rebalances"] >= 1,
+        sharded_no_tombstones=cell["tombstone_clean"],
+        sharded_recall_matches_repack=abs(
+            cell["recall"] - cell["recall_repack"]) <= 0.01)
+
+
 def run(n: int = 50_000, dim: int = 64, queries: int = 128, lists: int = 64,
         subspaces: int = 16, codewords: int = 64, steps: int = 20,
         batch: int = 128, nprobe: int = 16, staging_rows: int = 1024,
         verbose: bool = True, devices: int = 1, device=None,
-        build_seeds=()):
-    """The single-device churn benchmark: (results, checks). ``device`` is
-    the card unless the caller passes ``device="cpu"``. ``build_seeds``
-    adds a fresh build of the live rows from each seed to the results
+        build_seeds=(), shard_device=None):
+    """The churn benchmark: (results, checks). ``device`` is the card
+    unless the caller passes ``device="cpu"``. ``build_seeds`` adds a
+    fresh build of the live rows from each seed to the results
     (``recall_build_by_seed``): how far the k-means draw alone moves the
-    fresh build's recall, against which ``recall_within_rebuild``
-    holds."""
-    if devices > 1:
-        raise NotImplementedError(
-            "the sharded churn cell (--devices) is not ported yet "
-            "(ROADMAP.md queue 1, item 11)")
+    fresh build's recall, against which ``recall_within_rebuild`` holds.
+    ``devices`` > 1 adds the sharded cell over ``common.shard_mesh``."""
     dev = _device.resolve(device)
+    mesh = common.shard_mesh(devices, shard_device, dev) if devices > 1 \
+        else None
     pool = synthetic.sift_like(_device.generator(0, dev), n + steps * batch,
                                dim, device=dev)
     Q = synthetic.sift_like(_device.generator(1, dev), queries, dim,
@@ -280,6 +370,13 @@ def run(n: int = 50_000, dim: int = 64, queries: int = 128, lists: int = 64,
         **recalls, **{k: ch[k] for k in (
             "staged", "flushed", "tombstoned", "flushes", "compactions",
             "grows", "flush_ms_p95")})
+    if mesh is not None:
+        cell = churn_sharded_cell(
+            n=n, dim=dim, queries=queries, lists=lists, subspaces=subspaces,
+            codewords=codewords, steps=steps, batch=batch, nprobe=nprobe,
+            staging_rows=staging_rows, mesh=mesh)
+        results["sharded"] = cell
+        checks.update(sharded_checks(cell))
     if verbose:
         emit("results", **results)
         emit("checks", passed=all(checks.values()), **checks)
@@ -297,7 +394,10 @@ def main(argv=None) -> int:
     ap.add_argument("--fast", action="store_true",
                     help="the JAX script's --fast sizes")
     ap.add_argument("--devices", type=int, default=1,
-                    help="the sharded cell: not ported yet")
+                    help="shards of the sharded cell (1: no cell)")
+    ap.add_argument("--shard-device", default=None,
+                    help="where the shards go: one device for all (cuda:0, "
+                    "cpu) or a comma list of one a shard")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     ap.add_argument("--build-seeds", type=int, nargs="*", default=[],
@@ -312,7 +412,8 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     _, checks = run(devices=args.devices, device=dev,
-                    build_seeds=tuple(args.build_seeds), **kw)
+                    build_seeds=tuple(args.build_seeds),
+                    shard_device=args.shard_device, **kw)
     emit("device", type=dev.type, seconds=time.perf_counter() - t0,
          device_name=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
                       else "cpu"))

@@ -1,6 +1,7 @@
 """What the port's benchmark scripts share: JSON lines, a device
-synchronisation, deterministic algorithms for a block, and the wall-clock
-timer of ``benchmarks/common.py`` with a CUDA-event time beside it."""
+synchronisation, deterministic algorithms for a block, the wall-clock
+timer of ``benchmarks/common.py`` with a CUDA-event time beside it, and
+the shard mesh of a ``--devices`` run."""
 from __future__ import annotations
 
 import contextlib
@@ -10,6 +11,8 @@ import statistics
 import time
 
 import torch
+
+from repro_torch.launch import mesh as mesh_lib
 
 
 def emit(bench: str, name: str, **fields) -> None:
@@ -75,3 +78,21 @@ def time_call(fn, dev: torch.device, warmup: int = 2, iters: int = 5):
     dev_us = (statistics.median(s.elapsed_time(e) for s, e in events) * 1e3
               if events else None)
     return wall_us, dev_us, out
+
+
+def shard_mesh(devices: int, shard_device, dev: torch.device):
+    """The run's shard mesh: one shard on ``dev`` at ``devices`` = 1; else
+    ``shard_device`` (one device for all shards, or a comma list of one a
+    shard) or one visible card a shard, raising when there are fewer
+    cards than shards and none are named."""
+    if shard_device is not None:
+        named = [d.strip() for d in str(shard_device).split(",")]
+        if len(named) == 1:
+            named = named * devices
+        return mesh_lib.make_data_mesh(devices, devices=named)
+    if devices == 1:
+        return mesh_lib.make_data_mesh(devices=(dev,))
+    if dev.type != "cuda":
+        raise ValueError(f"--devices {devices} on the CPU: name the shard "
+                         f"devices (--shard-device cpu)")
+    return mesh_lib.make_data_mesh(devices)

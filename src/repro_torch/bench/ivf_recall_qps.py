@@ -1,5 +1,5 @@
 """Recall@10 against QPS across the search registry, for PQ and RQ indexes
-(port of ``benchmarks/ivf_recall_qps.py`` ``run()``, single device).
+(port of ``benchmarks/ivf_recall_qps.py``).
 
 One harness over every backend the port registers. Per residual depth (PQ
 at depth 1, RQ above) it builds a rotated IVF index and serves the same
@@ -13,7 +13,11 @@ corpus, queries and rotation through each searcher:
   * ``ivf``: the nprobe sweep, rows scanned against recall;
   * a ``subspace_gcd`` delta through ``Searcher.refresh``, and at depth 1
     the Engine's executables over ragged batches and a fused-refresh
-    Engine's refresh.
+    Engine's refresh;
+  * the sharded twins (``exact_sharded``, ``flat_sharded``,
+    ``ivf_sharded``) on the same artifacts over the run's shard mesh,
+    held to recall ≥ 0.999 against their replicated twins
+    (``sharded_parity``).
 
 The checks are the JAX script's: ``streaming_matches_exact``,
 ``<scheme>_int8_recall_within_0.01``, ``pq_scan_reduction_at_recall``
@@ -25,12 +29,22 @@ mismatch ≤ 0.01 and recall after it), ``rq_beats_pq_quantization``
 (residual distortion strictly lower, flat recall no lower) and
 ``registry_swept`` over the port's ``search.names()``.
 
+``--devices N`` shards the index N ways: the twins' rows run on N shards,
+and the JAX script's sharded cell (``sharded_cell``: the single-device
+``ivf`` against ``ivf_sharded`` on the same index, an Engine's refresh
+over the sharded state) adds ``sharded_scan_linear`` (rows scanned a shard
+within 2× of 1/N of the single device's), ``sharded_recall_unchanged``
+and ``sharded_refresh_no_recompile``. One shard goes on each visible
+card; with fewer cards than N the run raises unless ``--shard-device``
+names where the shards go (``cuda:0`` lays all N on one card, ``cpu``
+on the CPU; or a comma list of N devices). Several shards on one card
+measure per-shard work and parity, not the speed of several cards.
+
     PYTHONPATH=src python -m repro_torch.bench.ivf_recall_qps [--n 100000]
-        [--depths 1,2] [--device cpu]
+        [--depths 1,2] [--device cpu] [--devices 4 --shard-device cuda:0]
 
 prints JSON lines (a row per backend and nprobe, the checks, the device)
-and exits 1 when a check fails; it writes no file. The sharded twins and
-``--devices`` are not ported yet (ROADMAP.md queue 1, item 11).
+and exits 1 when a check fails; it writes no file.
 """
 from __future__ import annotations
 
@@ -46,9 +60,6 @@ from repro_torch.core import givens
 from repro_torch.data import synthetic
 from repro_torch.index import maintain
 from repro_torch.metrics import recall_at_k
-
-SHARDED_LATER = ("the sharded twins and --devices are not ported yet "
-                 "(ROADMAP.md queue 1, item 11)")
 
 
 def emit(name: str, **fields) -> None:
@@ -67,16 +78,53 @@ def _bench(fn, dev: torch.device, reps: int = 3) -> float:
     return (time.perf_counter() - t0) / reps
 
 
+def sharded_cell(X, Q, R, cfg, mesh, truth, nprobe: int = 8) -> dict:
+    """The JAX script's sharded cell: the single-device ``ivf`` against
+    ``ivf_sharded`` on the same index over ``mesh``, rows scanned a shard,
+    recall, and an Engine over the sharded state through a subspace-GCD
+    refresh (its new executables)."""
+    ivf_s = search.make("ivf")
+    dev = mesh.devices[0]
+    single = ivf_s.build(_device.generator(3, dev), X, R, cfg, device=dev)
+    res_single = ivf_s.search(single, Q, k=10, nprobe=nprobe)
+    scan_single = float(res_single.scanned.float().mean())
+    sh_s = search.make("ivf_sharded", mesh=mesh)
+    state = sh_s.attach(single.index, mesh=mesh, nprobe=nprobe)
+    res = sh_s.search(state, Q, k=10)
+    S = len(mesh.devices)
+    per_dev = float(res.scanned.float().mean()) / S
+    engine = search.Engine(sh_s, state, k=10, nprobe=nprobe, min_bucket=32)
+    engine.search(Q)
+    compiles = engine.stats()["compiles"]
+    index = single.index
+    Rp = index.R.clone().requires_grad_(True)
+    (G,) = torch.autograd.grad(
+        index.quantizer.distortion(X[:8192] @ Rp), Rp)
+    learner = rotations.make("subspace_gcd", sub=index.quantizer.sub)
+    _, delta = learner.update(learner.init_from(index.R), G, 2e-3)
+    engine.refresh(delta)
+    post = engine.search(Q)
+    return dict(
+        devices=S, shard_devices=[str(d) for d in mesh.devices],
+        scan_single=scan_single, scan_per_device=per_dev,
+        reduction_per_device=scan_single / max(per_dev, 1.0),
+        recall_single=recall_at_k(res_single.ids, truth),
+        recall_sharded=recall_at_k(res.ids, truth),
+        parity=recall_at_k(res.ids, res_single.ids) >= 0.999,
+        refresh_recompiles=engine.stats()["compiles"] - compiles,
+        post_refresh_recall=recall_at_k(post.ids, truth))
+
+
 def run(n: int = 100_000, dim: int = 64, queries: int = 256,
         lists: int = 256, subspaces: int = 16, codewords: int = 256,
         depths=(1, 2), verbose: bool = True, devices: int = 1,
-        device=None):
+        device=None, shard_device=None):
     """Sweep the registry × residual depths -> (results, checks) on
-    ``device`` (the card unless the caller passes ``device="cpu"``)."""
-    if devices > 1:
-        raise NotImplementedError(SHARDED_LATER)
+    ``device`` (the card unless the caller passes ``device="cpu"``), the
+    sharded twins over ``devices`` shards (``common.shard_mesh``)."""
     out = emit if verbose else (lambda *a, **k: None)
     dev = _device.resolve(device)
+    mesh = common.shard_mesh(devices, shard_device, dev)
     X = synthetic.sift_like(_device.generator(0, dev), n, dim, device=dev)
     Q = synthetic.sift_like(_device.generator(1, dev), queries, dim,
                             device=dev)
@@ -243,6 +291,35 @@ def run(n: int = 100_000, dim: int = 64, queries: int = 256,
                 mismatch <= 0.01 and post_recall == post_recall
                 and post_recall > 0.0)
 
+        if depth == depths[0]:
+            # the sharded twins over the same artifacts: recall against the
+            # replicated twin row for row (every registry name swept at
+            # the first depth)
+            S = len(mesh.devices)
+            ivf8_ids = ivf_s.search(ivf_state, Q, k=10, nprobe=8).ids
+            sharded_ok = True
+            for sh_name, want_ids in (("exact_sharded", exact_ids),
+                                      ("flat_sharded", flat_ids),
+                                      ("ivf_sharded", ivf8_ids)):
+                sh_s = search.make(sh_name, mesh=mesh)
+                if sh_name == "exact_sharded":
+                    sh_state = sh_s.build(None, X, R, search.SearchConfig(
+                        tile_rows=8192))
+                else:
+                    sh_state = sh_s.attach(index, mesh=mesh, nprobe=8)
+                kw = {"nprobe": 8} if sh_name == "ivf_sharded" else {}
+                res = sh_s.search(sh_state, Q, k=10, **kw)
+                dt = _bench(lambda s_=sh_s, st_=sh_state, kw_=kw: s_.search(
+                    st_, Q, k=10, **kw_), dev)
+                r_twin = recall_at_k(res.ids, want_ids)
+                sharded_ok &= r_twin >= 0.999
+                out("row", backend=sh_name, scheme=name, shards=S,
+                    scan_rows_per_shard=float(res.scanned.float().mean()) / S,
+                    qps=queries / dt, recall10_vs_exact=recall_at_k(
+                        res.ids, exact_ids), recall10_vs_twin=r_twin)
+                swept.add(sh_name)
+            checks["sharded_parity"] = bool(sharded_ok)
+
     if 1 in depths and len(full_probe_recall) > 1:
         pq_r, pq_d = full_probe_recall["pq"]
         best_rq = max(v[0] for k, v in full_probe_recall.items() if k != "pq")
@@ -254,6 +331,23 @@ def run(n: int = 100_000, dim: int = 64, queries: int = 256,
             best_rq_d < pq_d and best_rq >= pq_r - 1e-6)
         out("frontier", pq_flat_recall=pq_r, best_rq_flat_recall=best_rq,
             pq_distortion=pq_d, best_rq_distortion=best_rq_d)
+
+    if devices > 1:
+        cfg = search.SearchConfig(
+            num_lists=lists, subspaces=subspaces, codewords=codewords,
+            nprobe=8, train_size=min(n, 16384))
+        cell = sharded_cell(X, Q, R, cfg, mesh, exact_ids)
+        results["sharded"] = cell
+        out("sharded_cell", **cell)
+        # near linear: a shard's scan within 2× of the ideal 1/S slice
+        # (block padding rounds short per-shard lists up to whole tiles)
+        checks["sharded_scan_linear"] = (
+            cell["reduction_per_device"] >= devices / 2.0)
+        checks["sharded_recall_unchanged"] = (
+            cell["recall_sharded"] >= cell["recall_single"] - 1e-6
+            and cell["parity"])
+        checks["sharded_refresh_no_recompile"] = (
+            cell["refresh_recompiles"] == 0)
 
     checks["registry_swept"] = swept == set(search.names())
     out("checks", passed=all(checks.values()), **checks)
@@ -271,7 +365,10 @@ def main(argv=None) -> int:
     ap.add_argument("--depths", default="1,2",
                     help="comma list of residual depths (1 = PQ, 2 = RQ-2)")
     ap.add_argument("--devices", type=int, default=1,
-                    help="the sharded sweep: not ported yet")
+                    help="shards of the sharded twins and cell")
+    ap.add_argument("--shard-device", default=None,
+                    help="where the shards go: one device for all (cuda:0, "
+                    "cpu) or a comma list of one a shard")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
@@ -283,7 +380,8 @@ def main(argv=None) -> int:
                     lists=args.lists, subspaces=args.subspaces,
                     codewords=args.codewords,
                     depths=tuple(int(d) for d in args.depths.split(",")),
-                    devices=args.devices, device=dev)
+                    devices=args.devices, device=dev,
+                    shard_device=args.shard_device)
     emit("device", type=dev.type, seconds=time.perf_counter() - t0,
          device_name=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
                       else "cpu"))

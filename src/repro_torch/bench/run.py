@@ -21,8 +21,12 @@ Departures from the JAX script:
     each kernel's device time beside its plain version's and the port's
     roofline prediction) and **``roofline`` reads the port's dry-run
     records** (``launch.dryrun --out DIR``) from ``--dryrun-dir``; without
-    it the section books no cell. Every section is ported; ``--devices >
-    1`` raises (ROADMAP.md queue 1, item 11).
+    it the section books no cell.
+  * **``--devices N`` shards in one process.** The ``ivf`` and ``churn``
+    sections add their sharded cells over N shards, one a visible card;
+    with fewer cards the run raises unless ``--shard-device`` names where
+    the shards go (``cuda:0`` lays all N on one card). The JAX script
+    forces N host devices in a subprocess instead.
 """
 from __future__ import annotations
 
@@ -37,8 +41,6 @@ from repro_torch.bench import common
 
 SECTIONS = ("train_e2e", "fig2a", "fig2bc", "table1", "fig4", "ivf",
             "churn", "serve", "kernels", "roofline")
-SHARDED_LATER = ("--devices > 1: the sharded cells are not ported yet "
-                 "(ROADMAP.md queue 1, item 11)")
 
 
 def resolve_bench_dir(cli_out: str | None) -> str | None:
@@ -59,9 +61,13 @@ def sections_of(only: str | None) -> list[str]:
 
 
 def run_sections(names, *, fast: bool, device,
-                 dryrun_dir: str | None = None) -> tuple[dict, dict, list]:
+                 dryrun_dir: str | None = None, devices: int = 1,
+                 shard_device=None) -> tuple[dict, dict, list]:
     """Run ``names`` at the JAX script's sizes; (sections, checks,
-    failures) with every check under ``section/check``."""
+    failures) with every check under ``section/check``. ``devices`` > 1
+    adds the ivf and churn sections' sharded cells over
+    ``common.shard_mesh(devices, shard_device, device)``."""
+    sharded = dict(devices=devices, shard_device=shard_device)
     sections: dict = {}
     checks_all: dict = {}
     failures: list = []
@@ -121,7 +127,8 @@ def run_sections(names, *, fast: bool, device,
         from repro_torch.bench import ivf_recall_qps
         res, checks = ivf_recall_qps.run(
             n=20_000 if fast else 100_000, queries=64 if fast else 256,
-            lists=64 if fast else 256, depths=(1, 2), device=device)
+            lists=64 if fast else 256, depths=(1, 2), device=device,
+            **sharded)
         book("ivf", res, checks)
 
     if "churn" in names:
@@ -130,9 +137,9 @@ def run_sections(names, *, fast: bool, device,
             res, checks = churn_bench.run(
                 n=8000, dim=32, queries=64, lists=32, subspaces=8,
                 codewords=32, steps=6, batch=64, nprobe=8,
-                staging_rows=512, device=device)
+                staging_rows=512, device=device, **sharded)
         else:
-            res, checks = churn_bench.run(device=device)
+            res, checks = churn_bench.run(device=device, **sharded)
         book("churn", res, checks)
 
     if "serve" in names:
@@ -160,7 +167,11 @@ def main(argv=None) -> int:
                     help="comma list of " + ",".join(SECTIONS))
     ap.add_argument("--fast", action="store_true")
     ap.add_argument("--devices", type=int, default=1,
-                    help="the sharded cells: not ported yet")
+                    help="shards of the ivf and churn sections' sharded "
+                    "cells (1: none)")
+    ap.add_argument("--shard-device", default=None,
+                    help="where the shards go: one device for all (cuda:0, "
+                    "cpu) or a comma list of one a shard")
     ap.add_argument("--out", default=None,
                     help="BENCH_torch_*.json destination dir (default "
                          "$REPRO_BENCH_DIR; unset: print only)")
@@ -170,17 +181,18 @@ def main(argv=None) -> int:
                     help="the roofline section's records (launch.dryrun "
                          "--out); default none")
     args = ap.parse_args(argv)
-    if args.devices > 1:
-        raise NotImplementedError(SHARDED_LATER)
     names = sections_of(args.only)
     dev = _device.resolve(args.device)
+    common.shard_mesh(args.devices, args.shard_device, dev)  # raises early
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
 
     t0 = time.time()
     sections, checks, failures = run_sections(names, fast=args.fast,
                                               device=dev,
-                                              dryrun_dir=args.dryrun_dir)
+                                              dryrun_dir=args.dryrun_dir,
+                                              devices=args.devices,
+                                              shard_device=args.shard_device)
     elapsed = time.time() - t0
     common.emit("run", "total", seconds=elapsed, sections=names,
                 failures=failures)
@@ -193,7 +205,8 @@ def main(argv=None) -> int:
         path = obs.write_bench(
             out_dir, name, sections=sections, checks=checks,
             config=dict(only=names, fast=args.fast, devices=args.devices,
-                        device=dev.type, elapsed_s=elapsed))
+                        shard_device=args.shard_device, device=dev.type,
+                        elapsed_s=elapsed))
         errs = obs.validate_bench(path)
         common.emit("run", "bench", path=path, valid=not errs, errors=errs)
         if errs:

@@ -1,5 +1,4 @@
-"""Live churn for servable indexes (port of ``repro/churn``, single
-device).
+"""Live churn for servable indexes (port of ``repro/churn``).
 
 Staged adds, tombstone deletes and compaction over the search states, made
 so that the serving path never changes shape:
@@ -18,8 +17,8 @@ so that the serving path never changes shape:
 
 Deletes are id flips the scan kernels mask; adds are visible to the next
 query through the side pass; compaction repacks at the same shapes in
-steady state. The sharded placement and ``shard_rebalance`` raise
-(ROADMAP.md queue 1, item 11).
+steady state. The sharded states churn shard by shard, and
+``shard_rebalance`` moves rows between shards whose occupancy drifted.
 """
 from repro_torch.churn.buffer import (  # noqa: F401
     StagingBuffer,
@@ -36,8 +35,10 @@ from repro_torch.churn.ops import (  # noqa: F401
     ingest_index,
     live_rows,
     shard_rebalance,
+    shard_rows,
     stage,
     staged_rows,
+    staging_capacity,
     tombstone,
     tombstone_index,
     with_staging,
@@ -49,5 +50,6 @@ __all__ = [
     "ChurnController", "BackgroundCompactor", "StalenessTracker",
     "with_staging", "stage", "flush", "tombstone", "compact",
     "shard_rebalance", "tombstone_index", "ingest_index",
-    "staged_rows", "free_slots", "live_rows",
+    "staged_rows", "free_slots", "live_rows", "staging_capacity",
+    "shard_rows",
 ]

@@ -16,7 +16,10 @@ Thresholds:
   compact_at   tombstoned rows as a fraction of the CSR's capacity that
                trigger a compaction (reclaims dead blocks before they
                dominate the scan); compaction also takes the staged rows no
-               flush could place.
+               flush could place;
+  imbalance_threshold
+               sharded states: the largest shard's live rows (staged ones
+               counted) over the mean that triggers ``shard_rebalance``.
 
 The metrics go on the Engine's own always-on registry, so
 ``Engine.stats()["churn"]`` reports them beside the serving counters:
@@ -35,8 +38,8 @@ Flushes are deferred while a pass is in flight (a flush moves the CSR and
 would make the worker's result stale); the one blocking fallback is an
 ``add`` into a full buffer, which joins the worker before it flushes.
 
-Sharded states (``maybe_rebalance``) are not ported yet (ROADMAP.md queue
-1, item 11).
+Sharded states (``search.sharded``) run the same cycle shard by shard,
+plus ``maybe_rebalance`` after every step.
 """
 from __future__ import annotations
 
@@ -113,7 +116,7 @@ class ChurnController:
             return 0
         with self.obs.span("churn.flush") as sp:
             new_state, moved = ops.flush(self.state)
-            sp.sync(new_state.index.ids)
+            sp.sync(_csr_ids(new_state))
         self.engine.state = new_state
         self.obs.distribution("churn.flush_ms").observe(sp.elapsed_ms)
         self._count("flushes")
@@ -136,12 +139,12 @@ class ChurnController:
 
     def _compact_sync(self) -> None:
         st = self.state
-        cap_before, mb_before = st.index.capacity, st.max_blocks
+        cap_before, mb_before = _capacity(st), st.max_blocks
         with self.obs.span("churn.compact") as sp:
             new_state = ops.compact(st)
-            sp.sync(new_state.index.ids)
+            sp.sync(_csr_ids(new_state))
         self.engine.state = new_state
-        if (new_state.index.capacity != cap_before
+        if (_capacity(new_state) != cap_before
                 or new_state.max_blocks != mb_before):
             self._count("grows")
         self._count("compactions")
@@ -161,11 +164,23 @@ class ChurnController:
         return True
 
     def maybe_rebalance(self) -> bool:
-        """Rebalance a sharded state whose shards drifted apart; single
-        device states never need it (returns False)."""
-        if hasattr(self.state, "list_offsets"):
-            raise NotImplementedError(ops.SHARDED_LATER)
-        return False
+        """Sharded states only: ``shard_rebalance`` when the largest
+        shard's live rows (staged ones counted) exceed the mean by
+        ``imbalance_threshold``. Returns whether a rebalance ran."""
+        st = self.state
+        if not hasattr(st, "shards"):
+            return False
+        rows = ops.shard_rows(st)
+        imbalance = max(rows) / max(sum(rows) / len(rows), 1.0)
+        if imbalance <= self.imbalance_threshold:
+            return False
+        with self.obs.span("churn.rebalance") as sp:
+            self.engine.state = ops.shard_rebalance(st)
+            sp.sync(_csr_ids(self.engine.state))
+        self._count("rebalances")
+        self._tombstoned = 0    # the repack reclaims tombstones too
+        self._gauges()
+        return True
 
     # -- the per-batch policy ----------------------------------------------
     def step(self, *, add=None, add_ids=None, remove_ids=None) -> None:
@@ -177,9 +192,27 @@ class ChurnController:
         if add is not None and len(add_ids):
             self.add(add, add_ids)
         st = self.state
-        cap = st.staging.capacity if st.staging is not None else 0
+        cap = ops.staging_capacity(st)
         if cap and ops.staged_rows(st) >= self.flush_at * cap:
             self.flush()
-        if self._tombstoned >= self.compact_at * max(st.index.capacity, 1):
+        if self._tombstoned >= self.compact_at * max(_total_capacity(st), 1):
             self.compact()
         self.maybe_rebalance()
+
+
+def _csr_ids(state):
+    """The CSR id tensor(s) a span waits for: one, or one a shard."""
+    return state.ids if hasattr(state, "shards") else state.index.ids
+
+
+def _capacity(state) -> int:
+    """CSR rows (a shard's, on a sharded state)."""
+    return state.capacity if hasattr(state, "shards") else \
+        state.index.capacity
+
+
+def _total_capacity(state) -> int:
+    """CSR rows over every shard."""
+    if hasattr(state, "shards"):
+        return state.capacity * state.num_shards
+    return state.index.capacity

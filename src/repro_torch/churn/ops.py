@@ -1,5 +1,5 @@
-"""Churn primitives: stage, flush, tombstone, compact (port of
-``repro/churn/ops.py``, single device).
+"""Churn primitives: stage, flush, tombstone, compact, rebalance (port of
+``repro/churn/ops.py``).
 
 Every primitive takes a servable state and returns a new one, and keeps
 every shape the serving path can see wherever it can:
@@ -19,6 +19,15 @@ every shape the serving path can see wherever it can:
     churn swaps tensors of the same shapes under the Engine; a corpus that
     really grew returns larger tensors (and maybe a larger ``max_blocks``),
     which the controller counts as a grow.
+  * ``shard_rebalance``: the sharded form of ``ivf.shard_split``: gather
+    every live (and staged) row of a sharded state, re-partition by id
+    rank, repack each shard. Codes are carried, never re-encoded.
+
+The sharded states (``search.sharded``) keep one CSR and one staging
+buffer a shard, each on its shard's device: ``stage`` puts each new row
+in the shard with the most free slots, ``flush`` and ``compact`` work
+shard by shard, and the host plans read the per-shard ids as the JAX
+package reads its stacked arrays.
 
 States never share a tensor that a primitive writes: a primitive that
 changes ``ids``, ``codes`` or a staging tensor clones it first (or builds
@@ -34,7 +43,6 @@ codes and ids to the host for ``ivf.pack``. The slot choice of ``stage`` is
 made on the device from the buffer's ids.
 
 States are told apart by their fields (``_kind``), as in the JAX package.
-The sharded states and ``shard_rebalance`` are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -48,11 +56,6 @@ from repro_torch.churn import buffer as churn_buffer
 from repro_torch.churn.buffer import StagingBuffer
 from repro_torch.index import ivf as index_ivf
 from repro_torch.index.ivf import IVFPQIndex
-
-SHARDED_LATER = ("sharded churn (the sharded ADC and exact states, "
-                 "shard_rebalance) is not ported yet (ROADMAP.md queue 1, "
-                 "item 11)")
-
 
 # ---------------------------------------------------------------------------
 # State dispatch
@@ -68,18 +71,13 @@ def _kind(state) -> str:
         return "adc"
     if hasattr(state, "tiles"):                    # StreamingExactState
         return "exact_stream"
-    if hasattr(state, "list_offsets"):             # a sharded ADC state
+    if hasattr(state, "list_offsets"):             # ShardedADCState
         return "sharded_adc"
     if hasattr(state, "XR"):                       # Exact(/Sharded)State
-        return "sharded_exact" if state.XR.ndim == 3 else "exact"
+        return "sharded_exact" if isinstance(state.XR, tuple) else "exact"
     raise TypeError(
         f"{type(state).__name__} is not a churn-capable state (expected an "
         "IVFPQIndex or an ADC or exact searcher state)")
-
-
-def _not_sharded(kind: str) -> None:
-    if kind.startswith("sharded"):
-        raise NotImplementedError(SHARDED_LATER)
 
 
 def _as_ids(ids, device) -> torch.Tensor:
@@ -112,37 +110,71 @@ def _repack_bound(live: int, num_lists: int, block_size: int) -> int:
     return math.ceil(bound / block_size) * block_size
 
 
+def _buffers(stg) -> tuple:
+    """The staging buffers of a state: one, or one a shard."""
+    if stg is None:
+        return ()
+    return stg if isinstance(stg, tuple) else (stg,)
+
+
+def _replace_shards(state, codes=None, ids=None, offsets=None):
+    """A sharded ADC state with new per-shard CSR tensors (S-tuples; None
+    keeps a field); the shared components stay."""
+    parts = []
+    for s, p in enumerate(state.shards):
+        upd = {}
+        if codes is not None:
+            upd["codes"] = codes[s]
+        if ids is not None:
+            upd["ids"] = ids[s]
+        if offsets is not None:
+            upd["list_offsets"] = offsets[s]
+        parts.append(dataclasses.replace(p, **upd))
+    return dataclasses.replace(state, shards=tuple(parts))
+
+
 # ---------------------------------------------------------------------------
 # Occupancy facts (host-side, for controllers and tests)
 # ---------------------------------------------------------------------------
 
 
 def staged_rows(state) -> int:
-    """Live rows staged (0 without a buffer)."""
-    stg = getattr(state, "staging", None)
-    if stg is None:
-        return 0
-    return int(torch.sum(stg.ids >= 0))
+    """Live rows staged, over every shard (0 without a buffer)."""
+    return sum(int(torch.sum(b.ids >= 0))
+               for b in _buffers(getattr(state, "staging", None)))
 
 
 def free_slots(state) -> int:
-    """Free staging slots (0 without a buffer)."""
-    stg = getattr(state, "staging", None)
-    if stg is None:
-        return 0
-    return int(torch.sum(stg.ids < 0))
+    """Free staging slots, over every shard (0 without a buffer)."""
+    return sum(int(torch.sum(b.ids < 0))
+               for b in _buffers(getattr(state, "staging", None)))
+
+
+def staging_capacity(state) -> int:
+    """Staging slots, over every shard (0 without a buffer)."""
+    return sum(b.capacity for b in _buffers(getattr(state, "staging", None)))
+
+
+def shard_rows(state) -> list[int]:
+    """Live rows of each shard of a sharded ADC state, staged included."""
+    stg = state.staging or (None,) * state.num_shards
+    return [int(torch.sum(i >= 0)) + (0 if b is None else
+                                      int(torch.sum(b.ids >= 0)))
+            for i, b in zip(state.ids, stg)]
 
 
 def live_rows(state) -> int:
     """Servable rows: CSR or corpus rows plus staged ones."""
     kind = _kind(state)
-    _not_sharded(kind)
     if kind == "index":
         return int(torch.sum(state.ids >= 0))
     if kind == "adc":
         return int(torch.sum(state.index.ids >= 0)) + staged_rows(state)
     if kind == "exact_stream":
         return sum(int(torch.sum(t >= 0)) for t in state.tile_ids)
+    if kind.startswith("sharded"):
+        return sum(int(torch.sum(t >= 0)) for t in state.ids) \
+            + staged_rows(state)
     return int(torch.sum(state.ids >= 0))
 
 
@@ -167,7 +199,8 @@ def with_staging(state, capacity: int, *, window_slack: int | None = None):
     the same live rows may round each list's padding differently, and the
     reserve keeps that drift from growing the tensors."""
     kind = _kind(state)
-    _not_sharded(kind)
+    if kind == "sharded_adc":
+        return _with_staging_sharded(state, capacity, window_slack)
     if kind != "adc":
         raise TypeError(
             "append buffers require a quantized (ADC) state — exact "
@@ -185,6 +218,28 @@ def with_staging(state, capacity: int, *, window_slack: int | None = None):
                                max_blocks=state.max_blocks + slack)
 
 
+def _with_staging_sharded(state, capacity: int, window_slack):
+    """``with_staging`` on a sharded state: one buffer of ``capacity``
+    rows a shard, on its device, and every shard's CSR padded to the
+    reserve of its fullest shard (the CSRs keep one capacity)."""
+    if state.staging is not None:
+        return state
+    bs = state.block_size
+    slack = math.ceil(capacity / bs) if window_slack is None else window_slack
+    mb = state.max_blocks
+    if mb < 1:
+        mb = max(p.max_list_blocks() for p in state.shards)
+    live = max(int(torch.sum(i >= 0)) for i in state.ids)
+    cap = max(state.capacity, _repack_bound(live, state.num_lists, bs))
+    bufs = tuple(churn_buffer.empty(capacity, p.codes.shape[1],
+                                    p.codes.dtype, device=p.device)
+                 for p in state.shards)
+    padded = [_pad_capacity(p, cap) for p in state.shards]
+    out = _replace_shards(state, codes=[p.codes for p in padded],
+                          ids=[p.ids for p in padded])
+    return dataclasses.replace(out, staging=bufs, max_blocks=mb + slack)
+
+
 def stage(state, X_new, new_ids):
     """Encode raw rows against the state's quantizers and park them in the
     lowest free staging slots. Raises ``ValueError`` when the buffer cannot
@@ -194,12 +249,13 @@ def stage(state, X_new, new_ids):
     refresh, like the frozen codebooks the CSR codes live in, so staged and
     resident rows score through one LUT pack."""
     kind = _kind(state)
-    _not_sharded(kind)
     stg = getattr(state, "staging", None)
     if stg is None:
         raise ValueError(
             "state has no staging buffer — churn.with_staging(state, cap) "
             "first (before the first search)")
+    if kind == "sharded_adc":
+        return _stage_sharded(state, X_new, new_ids)
     if kind != "adc":
         raise TypeError("stage() needs a quantized state with a staging "
                         "buffer")
@@ -221,6 +277,46 @@ def stage(state, X_new, new_ids):
     s_lists[sl] = list_ids
     return dataclasses.replace(state, staging=StagingBuffer(
         codes=s_codes, ids=s_ids, lists=s_lists))
+
+
+def _stage_sharded(state, X_new, new_ids):
+    """``stage`` on a sharded state: the rows are encoded on the head
+    device, and each in turn goes to the lowest free slot of the shard
+    with the most free slots (the first such shard on a tie), so the side
+    passes stay balanced."""
+    head = state.R.device
+    new_ids = _as_ids(new_ids, "cpu")
+    m = int(new_ids.shape[0])
+    free = [list(np.nonzero(b.ids.cpu().numpy() < 0)[0])
+            for b in state.staging]
+    if sum(len(f) for f in free) < m:
+        raise ValueError(
+            f"staging buffers full: {m} new rows, "
+            f"{sum(len(f) for f in free)} free slots across shards — "
+            "flush() or compact() first")
+    XR = _as_rows(X_new, head) @ state.R
+    list_ids, codes = index_ivf.encode(XR, state.coarse, state.quantizer)
+    rows_of = [[] for _ in free]
+    slots_of = [[] for _ in free]
+    for r in range(m):
+        s = max(range(len(free)), key=lambda j: len(free[j]))
+        slots_of[s].append(free[s].pop(0))
+        rows_of[s].append(r)
+    bufs = []
+    for b, rows, slots in zip(state.staging, rows_of, slots_of):
+        if not rows:
+            bufs.append(b)
+            continue
+        dev = b.ids.device
+        r = torch.as_tensor(rows, dtype=torch.long)
+        sl = torch.as_tensor(slots, dtype=torch.long, device=dev)
+        s_codes, s_ids, s_lists = b.codes.clone(), b.ids.clone(), \
+            b.lists.clone()
+        s_codes[sl] = codes[r.to(head)].to(dev, s_codes.dtype)
+        s_ids[sl] = new_ids[r].to(dev)
+        s_lists[sl] = list_ids[r.to(head)].to(dev)
+        bufs.append(StagingBuffer(codes=s_codes, ids=s_ids, lists=s_lists))
+    return dataclasses.replace(state, staging=tuple(bufs))
 
 
 def _flush_plan(ids: np.ndarray, offsets: np.ndarray, s_ids: np.ndarray,
@@ -250,28 +346,47 @@ def flush(state):
     Rows whose list has no hole stay staged (``compact`` takes them).
     Returns ``(new_state, rows_moved)``."""
     kind = _kind(state)
-    _not_sharded(kind)
     stg = getattr(state, "staging", None)
     if stg is None:
         return state, 0
+    if kind == "sharded_adc":
+        # each shard flushes into its own CSR
+        moved, codes, ids, bufs = 0, [], [], []
+        for p, b in zip(state.shards, stg):
+            p, b, n = _flush_one(p, b)
+            moved += n
+            codes.append(p.codes)
+            ids.append(p.ids)
+            bufs.append(b)
+        if not moved:
+            return state, 0
+        return dataclasses.replace(_replace_shards(
+            state, codes=codes, ids=ids), staging=tuple(bufs)), moved
     if kind != "adc":
         raise TypeError("flush() needs a quantized state with a staging "
                         "buffer")
-    idx = state.index
+    idx, stg, moved = _flush_one(state.index, stg)
+    if not moved:
+        return state, 0
+    return dataclasses.replace(state, index=idx, staging=stg), moved
+
+
+def _flush_one(idx: IVFPQIndex, stg: StagingBuffer):
+    """Flush one buffer into one CSR -> (index, buffer, rows moved); the
+    inputs themselves when nothing moves."""
     holes, slots = _flush_plan(idx.ids.cpu().numpy(),
                                idx.list_offsets.cpu().numpy(),
                                stg.ids.cpu().numpy(), stg.lists.cpu().numpy())
     if not holes.size:
-        return state, 0
+        return idx, stg, 0
     h = torch.from_numpy(holes).to(idx.device)
     s = torch.from_numpy(slots).to(idx.device)
     ids, codes, s_ids = idx.ids.clone(), idx.codes.clone(), stg.ids.clone()
     ids[h] = stg.ids[s]
     codes[h] = stg.codes[s]
     s_ids[s] = -1
-    return dataclasses.replace(
-        state, index=dataclasses.replace(idx, codes=codes, ids=ids),
-        staging=dataclasses.replace(stg, ids=s_ids)), int(holes.size)
+    return (dataclasses.replace(idx, codes=codes, ids=ids),
+            dataclasses.replace(stg, ids=s_ids), int(holes.size))
 
 
 # ---------------------------------------------------------------------------
@@ -294,11 +409,24 @@ def tombstone_index(index: IVFPQIndex, remove_ids) -> IVFPQIndex:
 
 
 def tombstone(state, remove_ids):
-    """O(1) delete on any single-device state: matching ids, resident and
-    staged, flip to −1. Nothing is reshaped; the rows stop scoring on the
-    next query."""
+    """O(1) delete on any state: matching ids, resident and staged, flip
+    to −1 (on every shard of a sharded state). Nothing is reshaped; the
+    rows stop scoring on the next query."""
     kind = _kind(state)
-    _not_sharded(kind)
+    if kind == "sharded_adc":
+        rids = _as_ids(remove_ids, "cpu")
+        stg = state.staging
+        if stg is not None:
+            stg = tuple(dataclasses.replace(b, ids=_tombstone_ids(b.ids,
+                                                                  rids))
+                        for b in stg)
+        return dataclasses.replace(_replace_shards(
+            state, ids=[_tombstone_ids(i, rids) for i in state.ids]),
+            staging=stg)
+    if kind == "sharded_exact":
+        rids = _as_ids(remove_ids, "cpu")
+        return dataclasses.replace(state, ids=tuple(
+            _tombstone_ids(i, rids) for i in state.ids))
     if kind == "index":
         return tombstone_index(state, remove_ids)
     if kind == "adc":
@@ -409,7 +537,9 @@ def compact(state, *, include_staged: bool = True, reencode=None):
     tensors, and a list grown past the probe window raises ``max_blocks``;
     the controller counts both as grows."""
     kind = _kind(state)
-    _not_sharded(kind)
+    if kind == "sharded_adc":
+        return _compact_sharded(state, include_staged=include_staged,
+                                rebalance=False, reencode=reencode)
     if kind == "index":
         c, l, i = _gather_live(state)
         if reencode is not None:
@@ -435,11 +565,57 @@ def compact(state, *, include_staged: bool = True, reencode=None):
 
 
 def shard_rebalance(state, *, include_staged: bool = True):
-    """Move rows between shards (the sharded generalisation of
-    ``ivf.shard_split``): not ported yet."""
-    if _kind(state) == "sharded_adc":
-        raise NotImplementedError(SHARDED_LATER)
-    raise TypeError("shard_rebalance() needs a sharded ADC state")
+    """Move rows between shards whose occupancy drifted apart: gather every
+    live (and staged) row, re-partition by id rank (``ivf.shard_split``'s
+    rule), repack each shard. Codes are carried, so the scores are a fresh
+    repack's; the capacity is padded back to the common one when the rows
+    fit, so a steady-state rebalance keeps every shape. Tombstoned rows
+    are reclaimed on the way."""
+    if _kind(state) != "sharded_adc":
+        raise TypeError("shard_rebalance() needs a sharded ADC state")
+    return _compact_sharded(state, include_staged=include_staged,
+                            rebalance=True)
+
+
+def _compact_sharded(state, *, include_staged: bool, rebalance: bool,
+                     reencode=None):
+    """Per-shard repack (compact), or a global id-rank re-partition and a
+    per-shard repack (rebalance). The plan runs on host copies of each
+    shard's live rows; each shard's pack lands on its device."""
+    stg = state.staging if include_staged else None
+    per_shard = []
+    for s, p in enumerate(state.shards):
+        parts = [_gather_live(p)]
+        if stg is not None:
+            parts.append(_drain_staged(stg[s]))
+        c, l, i = (np.concatenate([q[j] for q in parts]) for j in range(3))
+        if reencode is not None:
+            c, l, _ = _reencode_rows(c, l, i, reencode, state.R,
+                                     state.coarse, state.quantizer)
+        per_shard.append((c, l, i))
+    if rebalance:
+        all_c, all_l, all_i = (np.concatenate([q[j] for q in per_shard])
+                               for j in range(3))
+        rank = np.empty(all_i.size, dtype=np.int64)
+        rank[np.argsort(all_i, kind="stable")] = np.arange(all_i.size)
+        shard_of = (rank * state.num_shards) // max(all_i.size, 1)
+        per_shard = [(all_c[shard_of == s], all_l[shard_of == s],
+                      all_i[shard_of == s])
+                     for s in range(state.num_shards)]
+    packed = [_repack(p, c, l, i)
+              for p, (c, l, i) in zip(state.shards, per_shard)]
+    cap = max(max(q.capacity for q in packed), state.capacity)
+    packed = [_pad_capacity(q, cap) for q in packed]
+    mb = state.max_blocks
+    if mb >= 1:
+        mb = max(mb, max(q.max_list_blocks() for q in packed))
+    out = _replace_shards(state, codes=[q.codes for q in packed],
+                          ids=[q.ids for q in packed],
+                          offsets=[q.list_offsets for q in packed])
+    staging = state.staging
+    if stg is not None:
+        staging = tuple(_empty_like(b) for b in stg)
+    return dataclasses.replace(out, staging=staging, max_blocks=mb)
 
 
 # ---------------------------------------------------------------------------

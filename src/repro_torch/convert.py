@@ -32,6 +32,7 @@ from repro_torch.rotations.gcd import GCDState
 from repro_torch.rotations.procrustes import ProcrustesState
 from repro_torch.search import exact as search_exact
 from repro_torch.search import flat as search_flat
+from repro_torch.search import sharded as search_sharded
 from repro_torch.training import optimizer as opt_lib
 
 INDEX_KEYS = ("R", "centroids", "codebooks", "codes", "ids", "list_offsets",
@@ -109,6 +110,71 @@ def exact_state_from_numpy(arrays: dict, *,
         ids=_t(arrays["ids"], dev, np.int32),
         tile_rows=int(arrays["tile_rows"]),
         R0=None if R0 is None else _t(R0, dev, np.float32))
+
+
+def sharded_adc_state_from_numpy(arrays: dict, *, mesh, fused: bool,
+                                 nprobe: int = 8, max_blocks: int = -1,
+                                 lut_dtype: str = "float32"
+                                 ) -> search_sharded.ShardedADCState:
+    """A ``ShardedADCState`` over ``mesh`` from a JAX ``ShardedADCState``'s
+    leaves: ``R``, ``centroids``, ``codebooks``, ``block_size`` and the
+    stacked per-shard ``codes`` (S, cap, Dp), ``ids`` (S, cap) and
+    ``list_offsets`` (S, L+1); row s lands on ``mesh.devices[s]`` as it
+    stands (no re-padding). ``max_blocks`` is the JAX state's static (the
+    largest list over the shards when < 1); when ``fused``, ``rot``,
+    ``wacc`` and ``qdelta`` carry across too."""
+    codes = np.asarray(arrays["codes"])
+    S = codes.shape[0]
+    if S != len(mesh.devices):
+        raise ValueError(f"{S} stacked shards for a mesh of "
+                         f"{len(mesh.devices)} devices")
+    shards = []
+    for s, dev in enumerate(mesh.devices):
+        one = {k: arrays[k] for k in ("R", "centroids", "codebooks",
+                                      "block_size")}
+        one.update(codes=codes[s], ids=np.asarray(arrays["ids"])[s],
+                   list_offsets=np.asarray(arrays["list_offsets"])[s])
+        shards.append(index_from_numpy(one, device=dev))
+    head = shards[0]
+    if max_blocks < 1:
+        max_blocks = max(p.max_list_blocks() for p in shards)
+    state = search_sharded.ShardedADCState(
+        shards=tuple(shards), mesh=mesh, max_blocks=max_blocks,
+        nprobe=min(nprobe, head.num_lists), lut_dtype=lut_dtype,
+        axes=search_sharded.resolve_axes(mesh))
+    if not fused:
+        return state
+    missing = [k for k in FUSED_KEYS if k not in arrays]
+    if missing:
+        raise KeyError(f"sharded_adc_state_from_numpy: fused, missing "
+                       f"{missing}")
+    state = search_sharded._fused_sharded_state(state)
+    return dataclasses.replace(
+        state, **{k: _t(arrays[k], head.device, np.float32)
+                  for k in FUSED_KEYS})
+
+
+def sharded_exact_state_from_numpy(arrays: dict, *, mesh
+                                   ) -> search_sharded.ShardedExactState:
+    """A ``ShardedExactState`` over ``mesh`` from a JAX one's leaves:
+    ``R``, the stacked ``XR`` (S, rows_s, n) and ``ids`` (S, rows_s),
+    ``tile_rows`` and ``R0`` (None or absent in eager mode)."""
+    XR = np.asarray(arrays["XR"])
+    ids = np.asarray(arrays["ids"])
+    if XR.shape[0] != len(mesh.devices):
+        raise ValueError(f"{XR.shape[0]} stacked shards for a mesh of "
+                         f"{len(mesh.devices)} devices")
+    head = mesh.devices[0]
+    R0 = arrays.get("R0")
+    return search_sharded.ShardedExactState(
+        R=_t(arrays["R"], head, np.float32),
+        XR=tuple(_t(XR[s], d, np.float32) for s, d in
+                 enumerate(mesh.devices)),
+        ids=tuple(_t(ids[s], d, np.int32) for s, d in
+                  enumerate(mesh.devices)),
+        mesh=mesh, tile_rows=int(arrays["tile_rows"]),
+        axes=search_sharded.resolve_axes(mesh),
+        R0=None if R0 is None else _t(R0, head, np.float32))
 
 
 def gcd_state_from_numpy(arrays: dict, *, device=None) -> GCDState:

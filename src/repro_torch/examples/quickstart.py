@@ -9,9 +9,9 @@ fixed embeddings:
 
 and finishes by serving the GCD-rotated corpus through every backend of
 the port's retrieval registry (``repro_torch.search.names()``): exact
-brute force (tiled and streaming), flat ADC, and probed IVF. The JAX
-registry also lists the three row-sharded twins, which the port does not
-have yet (ROADMAP.md queue 1, item 11); the script says so.
+brute force (tiled and streaming), flat ADC, probed IVF, and their three
+row-sharded twins over one shard a visible card (the JAX script's mesh
+over every device; one shard on the CPU with ``--device cpu``).
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.quickstart [--device cpu]
 """
@@ -22,13 +22,13 @@ import argparse
 from repro_torch import device as _device
 from repro_torch import rotations, search
 from repro_torch.data import synthetic
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.metrics import recall_at_k
 from repro_torch.quant import PQConfig, opq
 
 SOLVERS = (("frozen", {}), ("procrustes", {}),
            ("gcd_greedy", dict(inner_steps=5, lr=2e-3)),
            ("gcd_steepest", dict(inner_steps=5, lr=2e-3)))
-SHARDED = ("exact_sharded", "flat_sharded", "ivf_sharded")
 
 
 def main(argv=None, *, num: int = 4096, dim: int = 64, iters: int = 25,
@@ -73,9 +73,12 @@ def main(argv=None, *, num: int = 4096, dim: int = 64, iters: int = 25,
                                 device=dev)
     truth = oracle.search(oracle_state, Q, k=10).ids
     backends = {}
+    mesh = (mesh_lib.make_data_mesh() if dev.type == "cuda"
+            else mesh_lib.make_data_mesh(devices=(dev,)))
     print("\nbackend       recall@10  scanned rows/query")
     for backend in search.names():
-        searcher = search.make(backend)
+        kw = {"mesh": mesh} if backend.endswith("_sharded") else {}
+        searcher = search.make(backend, **kw)
         state = (oracle_state if backend == "exact" else
                  searcher.build(_device.generator(8, dev), X, R_best, scfg,
                                 device=dev))
@@ -83,14 +86,13 @@ def main(argv=None, *, num: int = 4096, dim: int = 64, iters: int = 25,
         rec = recall_at_k(res.ids, truth)
         scanned = float(res.scanned.double().mean())
         backends[backend] = dict(recall=rec, scanned=scanned)
+        if kw:
+            backends[backend]["shards"] = len(mesh.devices)
         print(f"{backend:12s}  {rec:9.3f}  {scanned:8.0f}")
-    print(f"not ported yet (ROADMAP.md queue 1, item 11): "
-          f"{', '.join(SHARDED)}")
     print("one Searcher API — exact is the oracle, flat_adc pays only "
-          "quantization, ivf adds the probe trade-off (see "
-          "repro_torch.search).")
-    return dict(data=list(X.shape), learners=learners, backends=backends,
-                not_ported=list(SHARDED))
+          "quantization, ivf adds the probe trade-off, and each has a "
+          "row-sharded twin (see repro_torch.search).")
+    return dict(data=list(X.shape), learners=learners, backends=backends)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """IVF index build: coarse quantizer + residual PQ or RQ in a block-aligned
-CSR (port of ``repro/index/ivf.py:47-216``).
+CSR, and its partitioned forms (port of ``repro/index/ivf.py``).
 
 A ``VQ`` coarse quantizer over the rotated vectors XR partitions the corpus
 into ``num_lists`` inverted lists, and a ``PQ`` (depth 1) or a depth-M
@@ -11,6 +11,10 @@ concatenated; ``list_offsets (L+1,)`` int32, every offset a multiple of
 ``block_size`` so a list is a whole number of scan tiles; holes carry
 id −1, and one all-hole sentinel block ends the array as the target of
 out-of-range tiles of short lists.
+
+Partitioned: ``shard_split`` repartitions a built index into per-shard
+CSRs by id rank, carrying the codes; ``build_sharded`` builds one per
+corpus chunk from one shared fit. Both feed ``search.attach_shards``.
 """
 from __future__ import annotations
 
@@ -171,3 +175,103 @@ def build(generator: torch.Generator, X: torch.Tensor, R: torch.Tensor,
         ids = torch.arange(X.shape[0], dtype=torch.int32)
     return pack(R, coarse, quantizer, codes, list_ids, ids,
                 block_size=cfg.block_size)
+
+
+# ---------------------------------------------------------------------------
+# Partitioned build: the corpus lives sharded, each shard a local CSR
+# ---------------------------------------------------------------------------
+
+
+def shard_split(index: IVFPQIndex, num_shards: int) -> list[IVFPQIndex]:
+    """Repartition a built index into ``num_shards`` per-shard CSRs.
+
+    Shard s owns the s-th of S equal slices of the sorted live ids (by id
+    rank, not value: sparse external ids stay balanced within one row);
+    every shard keeps the shared R, coarse and residual quantizer and
+    repacks its own rows into block-aligned lists. Codes are carried, never
+    re-encoded, so a shard's row scores are the source index's bit for
+    bit. The parts stay on the index's device."""
+    ids = index.ids.cpu().numpy()
+    codes = index.codes.cpu().numpy()
+    offsets = index.list_offsets.cpu().numpy()
+    live = ids >= 0
+    row_list = np.searchsorted(offsets, np.arange(len(ids)), side="right") - 1
+    row_list = np.clip(row_list, 0, index.num_lists - 1)
+    live_ids = ids[live]
+    rank = np.empty(live_ids.size, dtype=np.int64)
+    rank[np.argsort(live_ids, kind="stable")] = np.arange(live_ids.size)
+    shard_of = np.full(ids.shape, -1, dtype=np.int64)
+    shard_of[live] = (rank * num_shards) // max(live_ids.size, 1)
+    parts = []
+    for s in range(num_shards):
+        m = shard_of == s
+        parts.append(pack(index.R, index.coarse, index.quantizer,
+                          torch.from_numpy(codes[m]),
+                          torch.from_numpy(row_list[m]),
+                          torch.from_numpy(ids[m]),
+                          block_size=index.block_size))
+    return parts
+
+
+#: Training rows ``build_sharded`` samples when ``train_size`` is None.
+SHARDED_TRAIN_ROWS = 65536
+
+
+def build_sharded(generator: torch.Generator, chunks, R: torch.Tensor,
+                  cfg: IVFPQConfig, *, coarse_iters: int = 10,
+                  pq_iters: int = 10, train_size: int | None = None,
+                  mesh=None, axis: str = "data",
+                  device=None) -> list[IVFPQIndex]:
+    """Chunked ingest: one local index per corpus chunk.
+
+    ``chunks`` is a sequence of (rows_s, n) tensors or arrays, one a shard,
+    rotated and encoded one at a time on ``device`` (the card by default),
+    so the whole corpus never sits there at once. The one cross-chunk state
+    is the training sample, the chunks' heads up to ``train_size`` rows
+    (SHARDED_TRAIN_ROWS by default, never the whole corpus), and the
+    quantizers fitted on it. Item ids are global, in chunk order. With a
+    ``mesh`` the coarse fit is ``quant.kmeans.vq_kmeans_sharded`` over it;
+    the residual fit runs on the sample either way. Returns the per-shard
+    indexes for ``search.attach_shards``."""
+    dev = _device.resolve(device)
+    _device.check_generator(generator, dev)
+    R = R.to(dev, torch.float32)
+
+    def rows(c) -> torch.Tensor:
+        if not isinstance(c, torch.Tensor):
+            c = torch.from_numpy(np.asarray(c, dtype=np.float32))
+        return c.to(dev, torch.float32)
+
+    n_total = sum(int(c.shape[0]) for c in chunks)
+    cap = min(SHARDED_TRAIN_ROWS if train_size is None else train_size,
+              n_total)
+    sample, have = [], 0
+    for c in chunks:
+        if have >= cap:
+            break
+        take = min(int(c.shape[0]), cap - have)
+        sample.append(rows(c[:take]) @ R)
+        have += take
+    XT = torch.cat(sample) if len(sample) > 1 else sample[0]
+    if mesh is not None:
+        coarse = quant.VQ(quant.kmeans.vq_kmeans_sharded(
+            generator, XT, cfg.num_lists, mesh=mesh, axis=axis,
+            iters=coarse_iters).to(dev))
+    else:
+        coarse = quant.VQ.fit(generator, XT, cfg.num_lists,
+                              iters=coarse_iters)
+    train_lists = coarse.assign(XT).long()
+    quantizer, _ = quant.fit_quantizer(
+        generator, XT - coarse.centroids[train_lists], cfg.pq,
+        depth=cfg.depth, iters=pq_iters)
+    del XT, sample
+
+    parts, start = [], 0
+    for c in chunks:
+        m = int(c.shape[0])
+        list_ids, codes = encode(rows(c) @ R, coarse, quantizer)
+        ids = torch.arange(start, start + m, dtype=torch.int32)
+        start += m
+        parts.append(pack(R, coarse, quantizer, codes, list_ids, ids,
+                          block_size=cfg.block_size))
+    return parts

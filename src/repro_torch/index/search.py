@@ -157,9 +157,19 @@ def scan_schedule(index: IVFPQIndex, QR: torch.Tensor, *, nprobe: int,
     return ScanSchedule(blk.reshape(-1), block_query, blk, valid, cscores)
 
 
-def _search_core(index: IVFPQIndex, QR: torch.Tensor, lut, *, nprobe: int,
-                 k: int, max_blocks: int) -> SearchResult:
-    """Probe + scan + top-k over rotated queries and a built LUT pack."""
+class ScanScores(NamedTuple):
+    """A launched probe scan, before its top-k: the candidates' scores with
+    the coarse term added, and the schedule they came from."""
+
+    scores: torch.Tensor       # (b, nprobe·max_blocks·block_size)
+    blocks: torch.Tensor       # (b, p, B) int32 tile of each window slot
+    valid: torch.Tensor        # (b, p, B) bool, False for sentinel tiles
+
+
+def scan_scores(index: IVFPQIndex, QR: torch.Tensor, lut, *, nprobe: int,
+                max_blocks: int) -> ScanScores:
+    """Probe + scan: every candidate's score, no host sync (the launch
+    half of a search)."""
     b = QR.shape[0]
     bs = index.block_size
     block_idx, block_query, blk, valid, cscores = scan_schedule(
@@ -171,6 +181,14 @@ def _search_core(index: IVFPQIndex, QR: torch.Tensor, lut, *, nprobe: int,
                        index.ids, block_size=bs)
     scores = (res.view(b, nprobe, max_blocks, bs)
               + cscores[:, :, None, None]).reshape(b, -1)
+    return ScanScores(scores, blk, valid)
+
+
+def scan_topk(index: IVFPQIndex, scan: ScanScores, k: int) -> SearchResult:
+    """The top-k of a launched scan (one host sync, in ``_candidates``)."""
+    scores, blk, valid = scan
+    b = scores.shape[0]
+    bs = index.block_size
     pos = _candidates(scores, k)
     rows = (blk.view(b, -1).long().gather(1, torch.div(
         pos, bs, rounding_mode="floor")) * bs + pos % bs)
@@ -178,6 +196,13 @@ def _search_core(index: IVFPQIndex, QR: torch.Tensor, lut, *, nprobe: int,
         scores.gather(1, pos), index.ids[rows], k)
     scanned = valid.reshape(b, -1).sum(dim=1).to(torch.int32) * bs
     return SearchResult(scores=top_scores, ids=top_ids, scanned=scanned)
+
+
+def _search_core(index: IVFPQIndex, QR: torch.Tensor, lut, *, nprobe: int,
+                 k: int, max_blocks: int) -> SearchResult:
+    """Probe + scan + top-k over rotated queries and a built LUT pack."""
+    return scan_topk(index, scan_scores(index, QR, lut, nprobe=nprobe,
+                                        max_blocks=max_blocks), k)
 
 
 def search_fixed(index: IVFPQIndex, Q: torch.Tensor, *, nprobe: int,

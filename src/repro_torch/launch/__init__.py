@@ -1,3 +1,5 @@
 """Launch layer (port of ``repro/launch``): the training launcher
-(``launch.train``). The mesh, the dry-run and the cells wait for the
-sharded slice and the zoo (ROADMAP.md queue 1, items 11 and 13)."""
+(``launch.train``), the cells and the dry run (``launch.cells``,
+``launch.dryrun``), and the meshes (``launch.mesh``: one card, and the data
+mesh of the row-sharded searchers). The production meshes wait for a
+multi-process backend (ROADMAP.md queue 1, item 11b)."""

@@ -67,7 +67,7 @@ def _bce_with_logits(logits: torch.Tensor, labels: torch.Tensor
 def _sharded_lookup(name: str) -> NotImplementedError:
     return NotImplementedError(
         f"{name}: psum_lookup=True needs the masked psum lookup of the "
-        "sharded slice (ROADMAP.md queue 1, item 11)")
+        "multi-process backend (ROADMAP.md queue 1, item 11b)")
 
 
 class _Model(param.Params):

@@ -1,6 +1,6 @@
-"""Lloyd's k-means for codebooks and coarse centroids, and the streaming
-EMA codebook update (port of ``repro/quant/kmeans.py:29-108`` and
-``:180-195``, unsharded).
+"""Lloyd's k-means for codebooks and coarse centroids, its row-sharded
+flavour, and the streaming EMA codebook update (port of
+``repro/quant/kmeans.py``).
 
 One implementation serves per-subspace PQ codebooks and, through
 ``vq_kmeans`` (one subspace), the IVF coarse centroids. Random state is an
@@ -10,6 +10,14 @@ The per-codeword sums go through ``segment_sum``, which gives one answer
 a seed on the card too, as the JAX package's ``segment_sum`` does: there
 ``index_add_`` adds in no fixed order, so two builds of one seed would
 differ.
+
+``kmeans_sharded`` splits the rows over a ``launch.mesh.DataMesh``: each
+shard assigns its own rows (``pq_assign`` on its device) and sums them
+per codeword, and the partial sums and counts are added in shard order on
+the first shard's device, the JAX package's ``psum``. The update is
+``kmeans``'s with the sums in another order, so the fit is close to the
+single-device one, not equal to it; each shard's sums are
+``segment_sum``'s, so one seed gives one sharded fit.
 """
 from __future__ import annotations
 
@@ -86,6 +94,68 @@ def vq_kmeans(generator: torch.Generator, X: torch.Tensor, num_centroids: int,
               iters: int = 10) -> torch.Tensor:
     """Full-vector k-means: (L, n) centroids, the IVF coarse fit."""
     cb, _ = kmeans(generator, X, PQConfig(1, num_centroids), iters=iters)
+    return cb[0]
+
+
+def _sharded_lloyd_step(codebooks: torch.Tensor, Xs: torch.Tensor,
+                        w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One shard's part of a Lloyd iteration: the weighted per-codeword
+    sums (D, K, sub) and counts (D, K) of its rows ``Xs``, on their device.
+    ``w`` is 1 for a real row and 0 for the padding that makes the row
+    count a multiple of the shard count, so padding adds nothing."""
+    D, K, sub = codebooks.shape
+    codes = assign(Xs, codebooks)                                  # (m, D)
+    seg = (codes.long()
+           + torch.arange(D, device=Xs.device) * K).reshape(-1)    # (m·D,)
+    rows = (split(Xs, D) * w[:, None, None]).reshape(-1, sub)
+    sums = segment_sum(rows, seg, D * K).view(D, K, sub)
+    cnt = torch.zeros((D * K,), dtype=torch.float32, device=Xs.device)
+    cnt.index_add_(0, seg, w.repeat_interleave(D))
+    return sums, cnt.view(D, K)
+
+
+def kmeans_sharded(generator: torch.Generator, X: torch.Tensor,
+                   cfg: PQConfig, *, mesh, axis: str = "data",
+                   iters: int = 10) -> torch.Tensor:
+    """``kmeans`` with the rows of ``X`` split over ``mesh``'s ``axis``
+    (module docstring). The init samples K rows as ``kmeans`` does, from
+    the same generator; zero-weight rows pad X to a multiple of the shard
+    count. Returns (D, K, sub) codebooks on the first shard's device."""
+    devices = mesh.devices
+    S = mesh.shape[axis]
+    if S != len(devices):
+        raise ValueError(f"axis {axis!r} has {S} shards, the mesh "
+                         f"{len(devices)} devices")
+    head = devices[0]
+    X = X.to(head)
+    m = X.shape[0]
+    pad = (-m) % S
+    cb = kmeans_init(generator, X, cfg)
+    Xp = torch.cat([X, X.new_zeros((pad, X.shape[1]))]) if pad else X
+    w = torch.cat([torch.ones((m,), device=head),
+                   torch.zeros((pad,), device=head)])
+    ms = Xp.shape[0] // S
+    parts = [(Xp[s * ms:(s + 1) * ms].to(d), w[s * ms:(s + 1) * ms].to(d))
+             for s, d in enumerate(devices)]
+    for _ in range(iters):
+        sums = cnt = None
+        for (xs, ws), d in zip(parts, devices):
+            s_sum, s_cnt = _sharded_lloyd_step(cb.to(d), xs, ws)
+            s_sum, s_cnt = s_sum.to(head), s_cnt.to(head)
+            sums = s_sum if sums is None else sums + s_sum
+            cnt = s_cnt if cnt is None else cnt + s_cnt
+        cnt = cnt[..., None]
+        cb = torch.where(cnt > 0, sums / torch.clamp(cnt, min=1.0), cb)
+    return cb
+
+
+def vq_kmeans_sharded(generator: torch.Generator, X: torch.Tensor,
+                      num_centroids: int, *, mesh, axis: str = "data",
+                      iters: int = 10) -> torch.Tensor:
+    """``vq_kmeans`` with the fit sharded over ``mesh``'s ``axis``: the
+    coarse fit of ``index.ivf.build_sharded``."""
+    cb = kmeans_sharded(generator, X, PQConfig(1, num_centroids), mesh=mesh,
+                        axis=axis, iters=iters)
     return cb[0]
 
 

@@ -9,12 +9,25 @@
     res = engine.search(Q_any_size)
     engine.refresh(delta)                            # after a GCD step
 
+The row-sharded twins (``exact_sharded``, ``flat_sharded``,
+``ivf_sharded``) take a ``launch.mesh.DataMesh``::
+
+    mesh = launch.mesh.make_data_mesh(4, devices=("cuda:0",) * 4)
+    searcher = search.make("ivf_sharded", mesh=mesh)
+    state = searcher.attach(index, mesh=mesh, nprobe=32)
+    # or search.attach_shards(index.ivf.build_sharded(...), mesh=mesh)
+
 ``names()`` lists the canonical backends; aliases resolve through ``make``
-and ``canonical`` without counting twice. The row-sharded twins
-(``exact_sharded``, ``flat_sharded``, ``ivf_sharded``) wait for a later
-slice (ROADMAP.md queue 11).
+and ``canonical`` without counting twice.
 """
-from repro_torch.search import base, engine, exact, flat, ivf  # noqa: F401
+from repro_torch.search import (  # noqa: F401
+    base,
+    engine,
+    exact,
+    flat,
+    ivf,
+    sharded,
+)
 from repro_torch.search.base import (  # noqa: F401
     SearchConfig,
     Searcher,
@@ -30,12 +43,23 @@ from repro_torch.search.exact import (  # noqa: F401
 )
 from repro_torch.search.flat import ADCState, FlatADC  # noqa: F401
 from repro_torch.search.ivf import IVF  # noqa: F401
+from repro_torch.search.sharded import (  # noqa: F401
+    ExactSharded,
+    FlatSharded,
+    IVFSharded,
+    ShardedADCState,
+    ShardedExactState,
+    attach_shards,
+)
 
 _REGISTRY = {
     "exact": Exact,
     "exact_stream": ExactStreaming,
     "flat_adc": FlatADC,
     "ivf": IVF,
+    "exact_sharded": ExactSharded,
+    "flat_sharded": FlatSharded,
+    "ivf_sharded": IVFSharded,
 }
 
 _ALIASES = {
@@ -44,10 +68,9 @@ _ALIASES = {
     "bruteforce": "exact",
     "exact_streaming": "exact_stream",
     "streaming": "exact_stream",
+    "flat_adc_sharded": "flat_sharded",
+    "sharded": "ivf_sharded",
 }
-
-_SHARDED = ("exact_sharded", "flat_sharded", "ivf_sharded",
-            "flat_adc_sharded", "sharded")
 
 
 def names() -> tuple[str, ...]:
@@ -61,11 +84,7 @@ def canonical(spec: str) -> str:
 
 def make(spec: str, **kwargs):
     """A backend by registry name or alias; ``kwargs`` go to its
-    constructor (the backends take none yet)."""
-    if spec in _SHARDED:
-        raise NotImplementedError(
-            f"search backend {spec!r}: the sharded twins are not ported yet "
-            "(ROADMAP.md queue 11)")
+    constructor (the sharded twins take ``mesh`` and ``axis``)."""
     cls = _REGISTRY.get(canonical(spec))
     if cls is None:
         raise ValueError(f"unknown search backend {spec!r}; registered: "

@@ -90,6 +90,17 @@ def _query_rotation(state) -> torch.Tensor:
     return state.R if state.R0 is None else state.R0
 
 
+def scan_tiles(QR: torch.Tensor, XR: torch.Tensor, ids: torch.Tensor,
+               tile_rows: int, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (b, k) running top-k of rotated queries over a padded rotated
+    corpus, one (tile_rows, n) tile at a time (ids grow with the row)."""
+    b, n = QR.shape
+    carry = _init_carry(b, k, QR.device)
+    for xr, t_ids in zip(XR.view(-1, tile_rows, n), ids.view(-1, tile_rows)):
+        carry = _merge_tile(carry, QR @ xr.T, t_ids, k)
+    return carry
+
+
 def _tile_ids(start: int, rows: int, tile: int) -> torch.Tensor:
     ids = torch.full((tile,), -1, dtype=torch.int32)
     ids[:rows] = torch.arange(start, start + rows, dtype=torch.int32)
@@ -119,15 +130,10 @@ class Exact:
 
     def search(self, state: ExactState, Q, *, k: int = 10) -> SearchResult:
         QR = rotate(Q, _query_rotation(state))
-        b, n = QR.shape
-        tiles = state.XR.view(-1, state.tile_rows, n)
-        tile_ids = state.ids.view(-1, state.tile_rows)
-        carry = _init_carry(b, k, QR.device)
-        for xr, ids in zip(tiles, tile_ids):
-            carry = _merge_tile(carry, QR @ xr.T, ids, k)
-        scanned = torch.full((b,), int(torch.sum(state.ids >= 0)),
+        top_s, top_i = scan_tiles(QR, state.XR, state.ids, state.tile_rows, k)
+        scanned = torch.full((QR.shape[0],), int(torch.sum(state.ids >= 0)),
                              dtype=torch.int32, device=QR.device)
-        return SearchResult(scores=carry[0], ids=carry[1], scanned=scanned)
+        return SearchResult(scores=top_s, ids=top_i, scanned=scanned)
 
     def refresh(self, state: ExactState, delta) -> ExactState:
         R = rotations.apply(state.R, delta)

@@ -186,7 +186,8 @@ def test_run_destination_never_falls_back_to_benchmarks(monkeypatch,
 
 
 def test_run_raises_for_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # --devices N on the CPU needs the shards named; it never stacks them
+    with pytest.raises(ValueError, match="--shard-device"):
         brun.main(["--devices", "2", "--only", "serve", "--device", "cpu"])
     with pytest.raises(ValueError, match="unknown section"):
         brun.sections_of("nope")

@@ -25,8 +25,8 @@ unchanged through the churn, at ``compact_at = 0.05``, where a compaction
 fires; ``test_engine_churn_stats_match_jax`` holds the JAX test's own
 thresholds, where both packages count no compaction.
 
-The sharded tests are not ported (ROADMAP.md queue 1, item 11); one test
-holds that the sharded branches raise and name the item.
+The sharded branches run here on CPU shards in one test; their parity
+with the JAX package is in ``tests/test_torch_sharded.py``.
 """
 from __future__ import annotations
 
@@ -34,7 +34,6 @@ import dataclasses
 import sys
 import threading
 import time
-import types
 
 import hypothesis.strategies as st
 import jax
@@ -56,6 +55,7 @@ from repro_torch.bench import churn as bench
 from repro_torch.index import ivf as index_ivf
 from repro_torch.index import maintain
 from repro_torch.index import search as index_search
+from repro_torch.launch import mesh as launch_mesh
 
 DIM, SUB, K, L, BS = 16, 4, 16, 8, 8
 N, B = 1200, 8
@@ -740,29 +740,40 @@ def test_snapshot_is_unchanged_by_later_mutations(data):
 
 
 def test_sharded_branches_raise_and_name_item_11(data):
-    X, _, _, _ = data
-    fake = types.SimpleNamespace(
-        codes=torch.zeros((2, 16, 4), dtype=torch.uint8),
-        ids=torch.full((2, 16), -1, dtype=torch.int32),
-        list_offsets=torch.zeros((2, 3), dtype=torch.int32), staging=None,
-        max_blocks=1, block_size=8)
-    calls = [lambda: churn.with_staging(fake, 8),
-             lambda: churn.stage(fake, X[:1], [N]),
-             lambda: churn.flush(fake), lambda: churn.compact(fake),
-             lambda: churn.tombstone(fake, [1]),
-             lambda: churn.live_rows(fake),
-             lambda: churn.shard_rebalance(fake)]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="item 11"):
-            call()
-    fake_exact = types.SimpleNamespace(XR=torch.zeros((2, 4, DIM)),
-                                       ids=torch.zeros((2, 4)))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        churn.tombstone(fake_exact, [1])
+    """The sharded branches are ported (tests/test_torch_sharded.py holds
+    them to the JAX package): every primitive runs on a sharded state
+    over two CPU shards and keeps the live set; ``shard_rebalance`` still
+    refuses a single-device state; the churn bench's ``--devices`` cell
+    runs and passes its four checks."""
+    X, _, Q, tindex = data
+    mesh = launch_mesh.make_data_mesh(devices=("cpu",) * 2)
+    s = search.make("ivf_sharded", mesh=mesh)
+    st = churn.with_staging(s.attach(tindex, mesh=mesh, nprobe=L), 8)
+    st = churn.stage(st, X[:4], np.arange(N, N + 4))
+    assert churn.staged_rows(st) == 4 and churn.live_rows(st) == N + 4
+    st, moved = churn.flush(st)
+    st = churn.tombstone(st, np.arange(0, 100))
+    assert churn.live_rows(st) == N + 4 - 100
+    before = s.search(st, torch.tensor(Q), k=10, nprobe=L)
+    for op in (churn.compact, churn.shard_rebalance):
+        st = op(st)
+        after = s.search(st, torch.tensor(Q), k=10, nprobe=L)
+        assert torch.equal(before.ids, after.ids)
+        assert torch.equal(before.scores, after.scores)
+    assert churn.live_rows(st) == N + 4 - 100
+    fake_exact = search.make("exact_sharded", mesh=mesh).build(
+        None, torch.from_numpy(X), torch.eye(DIM),
+        search.SearchConfig(**CFG))
+    assert churn.live_rows(churn.tombstone(fake_exact, [1])) == N - 1
     with pytest.raises(TypeError, match="sharded ADC state"):
         churn.shard_rebalance(_fresh_ivf(data))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        bench.run(devices=2, device="cpu")
+    _, checks = bench.run(n=2000, dim=16, queries=16, lists=8, subspaces=4,
+                          codewords=16, steps=3, batch=64, nprobe=8,
+                          staging_rows=128, verbose=False, devices=2,
+                          device="cpu", shard_device="cpu")
+    assert all(checks[k] for k in (
+        "sharded_zero_recompiles", "sharded_rebalanced",
+        "sharded_no_tombstones", "sharded_recall_matches_repack"))
 
 
 # ---------------------------------------------------------------------------

@@ -25,8 +25,8 @@ def _one_thread():
 def test_quickstart_learners_and_every_backend():
     """Every learner keeps R orthogonal (1e-4), GCD-G ends below frozen's
     distortion, every registered backend is served, ``exact`` and its
-    streaming twin find the truth, and the sharded twins are named as not
-    ported."""
+    streaming twin find the truth, and the sharded twins (one CPU shard)
+    return their replicated twins' recall."""
     out = quickstart.main(["--device", "cpu"], num=1024, iters=6,
                           queries=32)
     learners = out["learners"]
@@ -42,8 +42,11 @@ def test_quickstart_learners_and_every_backend():
     for name, r in out["backends"].items():
         assert 0.0 < r["recall"] <= 1.0 and r["scanned"] > 0, name
     assert out["backends"]["ivf"]["scanned"] < 1024
-    assert out["not_ported"] == ["exact_sharded", "flat_sharded",
-                                 "ivf_sharded"]
+    for twin in ("exact", "flat_adc", "ivf"):
+        name = ("flat" if twin == "flat_adc" else twin) + "_sharded"
+        assert out["backends"][name]["shards"] == 1
+        assert out["backends"][name]["recall"] == out["backends"][twin][
+            "recall"], name
 
 
 def test_serve_ann_refresh_keeps_executables():

@@ -100,10 +100,16 @@ def test_one_card_mesh_and_the_production_meshes_raise():
     assert mesh.shape == {"data": 1, "model": 1}
     assert mesh.name == "1xCPU"
     for fn in (lambda: mesh_lib.make_production_mesh(),
-               lambda: mesh_lib.make_production_mesh(multi_pod=True),
-               lambda: mesh_lib.make_data_mesh(4)):
+               lambda: mesh_lib.make_production_mesh(multi_pod=True)):
         with pytest.raises(NotImplementedError, match="item 11"):
             fn()
+    # the serving mesh: named CPU shards serve; shards on missing cards
+    # raise (tests/test_torch_sharded.py holds the rest)
+    assert mesh_lib.make_data_mesh(devices=("cpu",) * 4).shape == {
+        "data": 4}
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mesh_lib.make_data_mesh(4)
     assert mesh_lib.CHIP_HBM_BYTES == analysis.CHIP_HBM_BYTES
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

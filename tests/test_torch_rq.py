@@ -498,7 +498,9 @@ def test_fused_lut_rq_colmap_matches_jax_kernel():
 
 def test_ivf_recall_qps_bench_on_cpu():
     """The port of benchmarks/ivf_recall_qps.py at a tiny size: every check
-    computed, RQ-2 beats PQ and the registry swept."""
+    computed, RQ-2 beats PQ, the registry swept (the sharded twins on one
+    CPU shard, at parity), and --devices on the CPU needs the shards
+    named."""
     results, checks = ivf_recall_qps.run(
         n=3000, dim=16, queries=16, lists=16, subspaces=4, codewords=16,
         depths=(1, 2), verbose=False, device="cpu")
@@ -507,11 +509,14 @@ def test_ivf_recall_qps_bench_on_cpu():
         "rq2_int8_recall_within_0.01", "pq_scan_reduction_at_recall",
         "engine_compile_cache", "fused_refresh_no_recompile",
         "fused_refresh_no_lut_invalidation", "rq2_end_to_end",
-        "rq_beats_pq_quantization", "registry_swept"}
+        "rq_beats_pq_quantization", "registry_swept", "sharded_parity"}
     assert checks["rq_beats_pq_quantization"]
     assert checks["rq2_end_to_end"] and checks["registry_swept"]
     assert checks["streaming_matches_exact"]
     assert results["rq2"]["residual_distortion"] < \
         results["pq"]["residual_distortion"]
-    with pytest.raises(NotImplementedError, match="item 11"):
+    assert checks["sharded_parity"]
+    assert {"exact_sharded", "flat_sharded", "ivf_sharded"} <= set(
+        search.names())
+    with pytest.raises(ValueError, match="--shard-device"):
         ivf_recall_qps.run(n=100, devices=2, device="cpu")

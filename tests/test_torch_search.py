@@ -28,6 +28,7 @@ from repro import rotations as jrot
 from repro import search as jsearch
 from repro.data import synthetic as jsynth
 from repro_torch import convert, rotations, search
+from repro_torch.launch import mesh as launch_mesh
 from repro_torch.metrics import recall_at_k
 
 DIM, SUB, K, L, BS = 16, 4, 16, 8, 8
@@ -109,8 +110,9 @@ def _assert_same(got, want) -> None:
 def test_registry_names_aliases_and_canonical():
     from repro.search import registry as jregistry
 
-    assert search.names() == ("exact", "exact_stream", "flat_adc", "ivf")
-    assert set(search.names()) <= set(jsearch.names())
+    assert search.names() == ("exact", "exact_stream", "flat_adc", "ivf",
+                              "exact_sharded", "flat_sharded", "ivf_sharded")
+    assert search.names() == tuple(jsearch.names())
     for alias in search._ALIASES:
         assert search.canonical(alias) == jregistry.canonical(alias)
         assert type(search.make(alias)).name == search.canonical(alias)
@@ -119,8 +121,14 @@ def test_registry_names_aliases_and_canonical():
         assert isinstance(search.make(name), search.Searcher)
     with pytest.raises(ValueError, match="unknown search backend"):
         search.make("no_such_backend")
-    with pytest.raises(NotImplementedError, match="queue 11"):
-        search.make("ivf_sharded")
+    # the sharded twins take a mesh; without one they lay a shard on each
+    # visible card, and a machine without a card raises
+    mesh = search.sharded.resolve_mesh(
+        launch_mesh.make_data_mesh(devices=("cpu",) * 2))
+    assert search.make("ivf_sharded", mesh=mesh).mesh is mesh
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            search.sharded.resolve_mesh()
 
 
 # ---------------------------------------------------------------------------
