@@ -418,7 +418,24 @@ Phases, one JSON line each:
            the refresh, refresh_mismatch ≤ 1%, recall before and after)
            and train_twotower straight and resumed from its step-300
            checkpoint (loss and p@50 bit-equal), every kernel they
-           launched held against its plain version at each shape.
+           launched held against its plain version at each shape;
+  sharded_train  Wide&Deep at its full config (40 fields × 1,000,000 rows
+           × 32, MLP 1280-1024-512-256-1) and the zoo's batch of 65,536,
+           its table and wide leaves placed on a (data 1, model 4) mesh of
+           ("cuda:0",) * 4 (1.28 GB a table piece), batches from the
+           pipeline with the cell's input shardings, under deterministic
+           algorithms. Arm A runs psum_lookup=True (embedding
+           .sharded_lookup), arm B the same init and batches with the
+           plain gather; 4 AdamW steps each (launch.cells._opt_cfg_for).
+           Held: step-1 logits bit-equal, every table piece's step-1
+           gradient bit-equal to its rows of B's, the losses within 1e-6
+           relative at every step, and A's step-2 checkpoint (one table
+           entry, the JAX layout) restored at 2 shards and at 1 reaching
+           step 4 within 1e-6 of A's losses. Prints each arm's
+           synchronised step ms (p50), its peak memory and the piece
+           bytes, and the checkpoint's bytes and seconds. The path reaches
+           no hand-written kernel (the JAX one is jnp.take inside
+           shard_map): its launches are held at none.
 Every check raises on failure, so the script exits non-zero with the error;
 it also exits non-zero without a CUDA device. The last three lines are the
 nvidia-smi line, the per-kernel JSON summary and the device JSON. A
@@ -433,7 +450,7 @@ train's parts; table1's run; fig4's and fig2's runs;
 decode's prefill and greedy tokens; lm_train's kvq steps, and its decode
 of the trained and initial leaves; moe's PQ prefills, greedy tokens and
 train steps; zoo's gnn_index; dryrun's cells; tooling's bf16 rotation
-step; the examples' runs. The checks that run beside them in a phase's window are left out.
+step; the examples' runs; sharded_train's arm A (none). The checks that run beside them in a phase's window are left out.
 """
 from __future__ import annotations
 
@@ -761,6 +778,16 @@ SHARD_BUILD_SEED = SEED + 120
 SHARD_REBALANCE = 1.03             # benchmarks/churn.py's sharded cell
 SHARD_COMPACT_AT = 0.05            # its compact_at
 SHARD_MAX_STEPS = 24               # the trigger fires at step 15 (PERF.md)
+#: sharded_train: Wide&Deep's table over ST_SHARDS shards of one card
+ST_ARCH = "wide-deep"
+ST_SHARDS = 4
+ST_DEVICE = "cuda:0"
+ST_BATCH = 65_536                  # RECSYS_SHAPES train_batch (the zoo's)
+ST_STEPS = 4
+ST_CKPT_AT = 2                     # A's checkpoint; resumed at RESHARD
+ST_RESHARD = (2, 1)
+ST_SEED = SEED + 130
+ST_RTOL = 1e-6                     # losses: global_norm sums in shard order
 
 
 def lm_orth_bound(steps: int) -> float:
@@ -6070,6 +6097,7 @@ def _zoo_launcher(arch: str) -> dict:
     their batches (host clock, synchronised; the first holds the warm-up),
     and the batch maker alone (``_zoo_batch_ms``)."""
     import shutil
+    import zipfile
 
     import torch
 
@@ -7329,6 +7357,206 @@ def phase_sharded(ctx: dict, smi: str) -> tuple[dict, dict]:
     return errs, own
 
 
+# -- sharded_train ----------------------------------------------------------
+
+
+def _st_steps(step, state, batches, start: int = 0):
+    """(state, losses, synchronised step ms) over ``batches[start:]``."""
+    import torch
+
+    losses, ms = [], []
+    for ids, labels in batches[start:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, ids, labels)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    return state, losses, ms
+
+
+def _st_rel(a: list, b: list) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def phase_sharded_train(smi: str) -> tuple[dict, dict]:
+    """Wide&Deep's masked psum lookup trained at full width on ST_SHARDS
+    shards of one card (module docstring). Returns (errors, the path's
+    launches: arm A's steps)."""
+    import shutil
+    import zipfile
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.bench import common
+    from repro_torch.data import pipeline, synthetic
+    from repro_torch.launch import cells
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import recsys
+    from repro_torch.sharding import placed
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import train_state as ts
+
+    t_all = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg_b = configs.get(ST_ARCH).make_config()
+    cfg_a = cfg_b._replace(psum_lookup=True)
+
+    def mesh_of(shards: int):
+        return make_mesh_compat((1, shards), ("data", "model"),
+                                devices=(ST_DEVICE,) * shards)
+
+    mesh = mesh_of(ST_SHARDS)
+    dev = mesh.devices[0]
+    ocfg = cells._opt_cfg_for(cfg_b)
+    cell = cells.build_cell(ST_ARCH, "train_batch", mesh=mesh)
+    errs, out, sec, launches = {}, {}, {}, {}
+
+    def make_batch(g):
+        return synthetic.ctr_batch(g, ST_BATCH, cfg_b.n_sparse,
+                                   cfg_b.vocab_per_field)
+
+    pipe = pipeline.Pipeline(make_batch, seed=ST_SEED, device=dev,
+                             shardings=tuple(cell.in_shardings[1:]))
+    batches = [next(pipe) for _ in range(ST_STEPS)]
+    pipe.close()
+    check(all(b[0].device == dev and b[1].device == dev for b in batches),
+          "sharded_train: the batches are not on the mesh's first device")
+
+    def step_of(cfg, m):
+        return ts.make_train_step(
+            lambda p, i, lab: recsys.widedeep_loss(p, i, lab, cfg, m), ocfg,
+            grad_shardings=cell.in_shardings[0].params)
+
+    with common.deterministic():
+        t0 = time.perf_counter()
+        model_b = recsys.WideDeep.init(torch.Generator(dev).manual_seed(
+            ST_SEED), cfg_b, device=dev)
+        model_a = recsys.WideDeep.init(torch.Generator(dev).manual_seed(
+            ST_SEED), cfg_a, mesh=mesh)
+        torch.cuda.synchronize()
+        sec["init"] = time.perf_counter() - t0
+        pieces = model_a.table.pieces
+        check(len(pieces) == ST_SHARDS and all(p.device == dev
+                                               for p in pieces),
+              "sharded_train: the table is not in ST_SHARDS pieces")
+        out["piece_bytes"] = {
+            k: [p.numel() * p.element_size() for p in leaf.pieces]
+            for k, leaf in opt_lib.named_leaves(model_a).items()
+            if placed.is_placed(leaf)}
+        ids, labels = batches[0]
+        # -- step 1 against the dense lookup --------------------------------
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            la = recsys.widedeep_forward(model_a, ids, cfg_a, mesh)
+            lb = recsys.widedeep_forward(model_b, ids, cfg_b)
+        errs["sharded_train/logits"] = bit_equal(la, lb, "step-1 logits")
+        del la, lb
+        ga = torch.autograd.grad(recsys.widedeep_loss(
+            model_a, ids, labels, cfg_a, mesh), model_a.table.pieces)
+        gb = torch.autograd.grad(recsys.widedeep_loss(
+            model_b, ids, labels, cfg_b), model_b.table)[0]
+        for s, (g, idx) in enumerate(zip(ga, model_a.table.indices)):
+            errs[f"sharded_train/grad_piece{s}"] = bit_equal(
+                g, gb[idx], f"table piece {s}'s step-1 gradient")
+        del ga, gb
+        sec["step1_checks"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        # -- arm B: the dense lookup ------------------------------------------
+        arm = {}
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        st, losses_b, ms_b = _st_steps(
+            step_of(cfg_b, None), ts.init_state(None, model_b, ocfg),
+            batches)
+        arm["B"] = dict(losses=losses_b, step_ms=ms_b,
+                        step_p50_ms=statistics.median(ms_b),
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                        resident_gb=base / 1e9)
+        del st, model_b
+        gc.collect()
+        torch.cuda.empty_cache()
+        # -- arm A: the psum lookup, a checkpoint at ST_CKPT_AT --------------
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step_a = step_of(cfg_a, mesh)
+        with _counted(launches):
+            st, first, ms1 = _st_steps(step_a, ts.init_state(
+                None, model_a, ocfg), batches[:ST_CKPT_AT])
+            d = Path(__file__).resolve().parent / "build" / \
+                "sharded_train_ckpt"
+            shutil.rmtree(d, ignore_errors=True)
+            t0 = time.perf_counter()
+            path = ckpt.save(str(d), ST_CKPT_AT, st._replace(rng=None))
+            sec["save"] = time.perf_counter() - t0
+            st, rest, ms2 = _st_steps(step_a, st, batches, ST_CKPT_AT)
+        losses_a = first + rest
+        arm["A"] = dict(losses=losses_a, step_ms=ms1 + ms2,
+                        step_p50_ms=statistics.median(ms1 + ms2),
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                        resident_gb=base / 1e9)
+        _expect("the sharded_train path", launches, {})
+        npz = Path(path) / "arrays.npz"
+        out["checkpoint_bytes"] = npz.stat().st_size
+        with zipfile.ZipFile(npz) as z:
+            keys = {n[:-4] for n in z.namelist()}
+        check({"params/table", "opt_state/mu/table"} <= keys and not any(
+            k.startswith("params/table/") for k in keys),
+            "sharded_train: the checkpoint is not in the JAX layout")
+        rel = _st_rel(losses_a, losses_b)
+        check(rel <= ST_RTOL, f"sharded_train: losses {losses_a} against "
+              f"{losses_b} (rel {rel})")
+        errs["sharded_train/losses_rel"] = rel
+        del st, model_a, step_a
+        gc.collect()
+        torch.cuda.empty_cache()
+        # -- elastic resume: the step-2 checkpoint at other shard counts -----
+        resumed = {}
+        specs = recsys.widedeep_specs(cfg_a)
+        for shards in ST_RESHARD:
+            m = mesh_of(shards)
+            t0 = time.perf_counter()
+            fresh = recsys.WideDeep({k: torch.empty(v.shape, device=dev)
+                                     for k, v in specs.items()}).place(
+                cfg_a, m)
+            like = ts.init_state(None, fresh, ocfg)._replace(rng=None)
+            restored, _ = ckpt.restore(str(d), ST_CKPT_AT, like)
+            del like
+            with torch.no_grad():
+                for k, p in opt_lib.named_leaves(fresh).items():
+                    p.copy_(restored.params[k])
+            state = ts.TrainState(params=fresh,
+                                  opt_state=restored.opt_state,
+                                  step=restored.step, rng=None)
+            del restored
+            restore_s = time.perf_counter() - t0
+            _, got, _ = _st_steps(step_of(cfg_a, m), state, batches,
+                                  ST_CKPT_AT)
+            r = _st_rel(got, losses_a[ST_CKPT_AT:])
+            check(r <= ST_RTOL, f"sharded_train: resumed at {shards} "
+                  f"shard(s): {got} against {losses_a[ST_CKPT_AT:]}")
+            errs[f"sharded_train/resume{shards}_rel"] = r
+            resumed[shards] = dict(losses=got, rel=r, restore_s=restore_s,
+                                   pieces=len(fresh.table.pieces))
+            del state, fresh
+            gc.collect()
+            torch.cuda.empty_cache()
+        shutil.rmtree(d, ignore_errors=True)
+    ratio = arm["A"]["step_p50_ms"] / arm["B"]["step_p50_ms"]
+    emit("sharded_train", config={k: v for k, v in cfg_a._asdict().items()
+                                  if k not in ("dtype", "param_dtype")},
+         batch=ST_BATCH, steps=ST_STEPS, mesh=dict(mesh.shape),
+         devices=[str(x) for x in mesh.devices], arms=arm,
+         a_over_b_step=ratio, resumed=resumed, launches=launches,
+         max_abs_err=errs, seconds_by_part=sec,
+         seconds=time.perf_counter() - t_all, card=smi, **out)
+    return errs, launches
+
+
 def main() -> int:
     import torch
 
@@ -7393,6 +7621,9 @@ def main() -> int:
     tool_errs, tool_paths = phase_tooling(smi)
     errs.update(tool_errs)
     paths.update(tool_paths)
+    torch.cuda.empty_cache()
+    st_errs, paths["sharded_train"] = phase_sharded_train(smi)
+    errs.update(st_errs)
     summary = []
     for name, (src, replaces) in SOURCES.items():
         r = rows[name]

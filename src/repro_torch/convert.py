@@ -287,12 +287,17 @@ def graphsage_params_from_numpy(arrays: dict, cfg: gnn.GraphSAGEConfig, *,
 
 
 def widedeep_params_from_numpy(arrays: dict, cfg: recsys.WideDeepConfig, *,
-                               device=None) -> recsys.WideDeep:
+                               device=None, mesh=None) -> recsys.WideDeep:
     """A ``WideDeep`` on ``device`` from the JAX model's leaves (``table``,
-    ``wide``, ``mlp{i}_w``, ``mlp{i}_b``)."""
-    return _module_from_numpy(arrays, recsys.widedeep_specs(cfg),
-                              recsys.WideDeep, "widedeep_params_from_numpy",
-                              _device.resolve(device))
+    ``wide``, ``mlp{i}_w``, ``mlp{i}_b``). With ``cfg.psum_lookup`` it
+    lives on ``mesh`` (``WideDeep.init``'s rule): the one ``table`` and
+    ``wide`` leaf of the JAX layout are placed over its "model" axis."""
+    recsys._need_mesh(cfg, mesh, "widedeep_params_from_numpy")
+    dev = _device.resolve(device) if mesh is None else mesh.devices[0]
+    model = _module_from_numpy(arrays, recsys.widedeep_specs(cfg),
+                               recsys.WideDeep, "widedeep_params_from_numpy",
+                               dev)
+    return model.place(cfg, mesh) if cfg.psum_lookup else model
 
 
 def mind_params_from_numpy(arrays: dict, cfg: recsys.MINDConfig, *,

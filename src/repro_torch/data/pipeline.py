@@ -16,6 +16,14 @@ offset alone, not on the stream, so the prefetched stream is bit-identical
 to the synchronous one. ``state()`` reports the step of the next
 unconsumed batch, and ``restore()`` drops an in-flight prefetch (the batch
 at the restored step is made again from (seed, step)).
+
+``shardings`` (a ``sharding.rules.NamedSharding`` for every leaf of the
+batch, in its structure) lays each batch out as the JAX
+package's ``device_put(batch, shardings)`` does: a leaf whose spec
+splits nothing comes out as one tensor on the mesh's first device, a
+split leaf as its pieces in mesh order (``NamedSharding.shard``). Under
+prefetch the pieces are made on the worker's side stream too, and every
+piece is ``record_stream``-ed onto its device's consumer stream.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch import device as _device
+from repro_torch.sharding import rules as sh
 
 _MASK = (1 << 63) - 1
 
@@ -34,6 +43,17 @@ def step_seed(seed: int, step: int) -> int:
     bits, the step in the low 32 (a fixed rule, the counterpart of the JAX
     package's ``fold_in(PRNGKey(seed), step)``)."""
     return ((int(seed) << 32) + int(step)) & _MASK
+
+
+def _put(batch, shardings):
+    """``batch`` laid out by ``shardings`` (module docstring)."""
+    def one(x, s):
+        if s.splits_nothing:
+            dev = s.mesh.devices[0]
+            return x if x.device == dev else x.to(dev)
+        return s.shard(x)
+    return sh.tree_map(one, batch, shardings,
+                       is_leaf=lambda x: isinstance(x, torch.Tensor))
 
 
 def _tensors(batch) -> list[torch.Tensor]:
@@ -55,8 +75,10 @@ class Pipeline:
 
     def __init__(self, make_batch: Callable[[torch.Generator], Any],
                  seed: int = 0, prefetch: bool = False,
-                 registry: Any | None = None, device=None):
+                 registry: Any | None = None, device=None,
+                 shardings=None):
         self._make = make_batch
+        self._shardings = shardings
         self._seed = int(seed)
         self._step = 0
         self._registry = registry
@@ -94,7 +116,10 @@ class Pipeline:
         return self.generator(self._step)
 
     def _produce(self, step: int):
-        return self._make(self.generator(step))
+        batch = self._make(self.generator(step))
+        if self._shardings is not None:
+            batch = _put(batch, self._shardings)
+        return batch
 
     def _produce_side(self, step: int):
         """On the worker: the batch made on the side stream, and the event
@@ -122,10 +147,9 @@ class Pipeline:
         if self._inflight is not None and self._inflight[0] == self._step:
             batch, ready = self._inflight[1].result()
             if ready is not None:
-                stream = torch.cuda.current_stream(self.device)
-                stream.wait_event(ready)
+                torch.cuda.current_stream(self.device).wait_event(ready)
                 for t in _tensors(batch):
-                    t.record_stream(stream)
+                    t.record_stream(torch.cuda.current_stream(t.device))
             self.prefetch_hits += 1
             self._count("prefetch_hits")
         else:

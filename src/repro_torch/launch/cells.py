@@ -18,9 +18,29 @@ module gives, without allocating anything:
     the global batch over its accumulation), ``depth`` (LM layers), the
     accumulation and the config.
 
-The JAX module lowers each cell against a mesh with shardings and donated
-buffers; on one card there is no sharding, and the train step updates its
-parameters in place. ``_opt_cfg_for`` is the JAX file's ``:159-178``.
+Every cell also carries what the JAX builder hands ``jax.jit`` for its
+mesh (``build_cell(..., mesh=)``, the host mesh's axes by default; an
+``launch.mesh.AbstractMesh`` resolves with nothing allocated):
+  * ``in_shardings`` / ``out_shardings`` — the JAX builder's
+    ``NamedSharding`` trees, resolved from the config's rule table
+    (``sharding.rules``): parameters (``params_shardings``), optimizer
+    state (``opt_shardings``: AdamW's moments as their parameters,
+    Adafactor's factored stats by the remaining logical axes, every
+    rotation-learner state replicated), tokens, caches, logits, graph and
+    recsys inputs, metrics. The train state is the port's ``TrainState``
+    and ``OptState``, whose ``mu``, ``nu`` and ``rot`` are keyed by path
+    (``layers/attn/wq``) where the JAX trees nest;
+  * ``abstract_inputs`` — the JAX cell's argument shapes and dtypes
+    (``Abstract``, its ``ShapeDtypeStruct``: int32 tokens and ids, the
+    learner states as the JAX package's), in the same structure: what
+    ``launch.dryrun`` reckons per-device argument bytes from.
+Every resolution the JAX builder makes is made (the batch of 8 a
+retrieval cell resolves for its specs included), so ``sharding.rules
+.pop_warnings()`` after a build gives the JAX build's set of warnings.
+
+The JAX module lowers each cell against a mesh with donated buffers; the
+port runs a cell on one card, where the train step updates its parameters
+in place. ``_opt_cfg_for`` is the JAX file's ``:159-178``.
 
 ``build_cell(..., smoke=True)`` gives the same cell at the architecture's
 ``make_smoke`` config and ``SMOKE_SHAPES``' sizes: what the dry run runs
@@ -28,6 +48,7 @@ on the CPU.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -35,8 +56,11 @@ import torch
 from repro_torch import configs, rotations
 from repro_torch.configs import base as cbase
 from repro_torch.core.kv_quant import KVQuantConfig
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import embedding, gnn, param, recsys
 from repro_torch.models import transformer as tfm
+from repro_torch.models.param import ParamSpec
+from repro_torch.sharding import rules as sh
 from repro_torch.training import optimizer as opt_lib
 from repro_torch.training import train_state as ts
 
@@ -70,6 +94,20 @@ class Cell(NamedTuple):
     fn: Callable
     make_inputs: Callable
     meta: dict
+    in_shardings: Any = None
+    out_shardings: Any = None
+    abstract_inputs: Any = None
+
+
+class Abstract(NamedTuple):
+    """A leaf's shape and dtype, nothing allocated (the JAX
+    ``ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
+
+    @property
+    def nbytes(self) -> int:
+        return math.prod(self.shape) * self.dtype.itemsize
 
 
 def _pad_to(x: int, mult: int) -> int:
@@ -478,6 +516,341 @@ def _recsys_retrieval_cell(cfg, shape: cbase.Shape) -> Cell:
 
 
 # ---------------------------------------------------------------------------
+# Shardings (the JAX builders' in_shardings / out_shardings)
+# ---------------------------------------------------------------------------
+
+def _is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def _repl(mesh) -> sh.NamedSharding:
+    return sh.NamedSharding(mesh, sh.P())
+
+
+def _shard(mesh, logical, rules, shape, name="?") -> sh.NamedSharding:
+    return sh.NamedSharding(
+        mesh, sh.logical_to_spec(logical, rules, mesh, shape, name))
+
+
+def _flat(tree: dict, prefix: str = "") -> dict:
+    """A nested spec dict flattened to path keys (``layers/attn/wq``)."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_flat(v, key))
+        else:
+            out[key] = v
+    return out
+
+
+def params_shardings(spec_tree, rules, mesh):
+    """The parameter tree's shardings, in the spec tree's structure."""
+    return sh.tree_map(
+        lambda s: sh.NamedSharding(
+            mesh, sh.logical_to_spec(s.logical, rules, mesh, s.shape)),
+        spec_tree, is_leaf=_is_spec)
+
+
+def _rot_state(p: ParamSpec, dtype, ocfg):
+    """The learner state of a manifold leaf as meta tensors: its fields'
+    shapes and dtypes, nothing allocated (the JAX ``eval_shape``)."""
+    learner = rotations.from_config(ocfg.rotation)
+    return opt_lib._init_rot_leaf(
+        learner, torch.empty(p.shape, dtype=p.dtype or dtype, device="meta"))
+
+
+def _manifold(spec_tree) -> dict:
+    return {k: v for k, v in _flat(spec_tree).items()
+            if opt_lib.is_manifold(k)}
+
+
+def opt_shardings(spec_tree, rules, mesh, ocfg):
+    """The ``OptState``'s shardings: AdamW's moments as their parameters,
+    Adafactor's factored row and column stats by the logical axes of
+    their remaining dimensions, every learner state replicated."""
+    flat = _flat(spec_tree)
+
+    def factored_sh(s: ParamSpec, which: int):
+        lg, shp = s.logical, tuple(s.shape)
+        if len(shp) >= 2:
+            lg2 = lg[:-1] if which == 0 else lg[:-2] + lg[-1:]
+            shp2 = opt_lib.factored_shapes(shp)[which]
+        else:
+            lg2, shp2 = (lg, shp) if which == 0 else ((), ())
+        return sh.NamedSharding(mesh,
+                                sh.logical_to_spec(lg2, rules, mesh, shp2))
+
+    if ocfg.name == "adafactor":
+        mu = {k: factored_sh(s, 0) for k, s in flat.items()}
+        nu = {k: factored_sh(s, 1) for k, s in flat.items()}
+    else:
+        ps = _flat(params_shardings(spec_tree, rules, mesh))
+        mu = nu = ps
+    rot = {k: type(st)(*(_repl(mesh) for _ in st))
+           for k, st in ((k, _rot_state(s, torch.float32, ocfg))
+                         for k, s in _manifold(spec_tree).items())}
+    return opt_lib.OptState(mu=mu, nu=nu, rot=rot, step=_repl(mesh))
+
+
+def train_state_shardings(spec_tree, rules, mesh, ocfg):
+    ps = params_shardings(spec_tree, rules, mesh)
+    return ts.TrainState(params=ps,
+                         opt_state=opt_shardings(spec_tree, rules, mesh,
+                                                 ocfg),
+                         step=_repl(mesh), rng=_repl(mesh))
+
+
+def abstract_params(spec_tree, param_dtype):
+    return sh.tree_map(lambda s: Abstract(tuple(s.shape),
+                                          s.dtype or param_dtype),
+                       spec_tree, is_leaf=_is_spec)
+
+
+def abstract_train_state(spec_tree, param_dtype, ocfg):
+    """The JAX ``abstract_train_state``: parameters, the moments (AdamW's
+    in ``moment_dtype``, Adafactor's float32 factored stats), the learner
+    states (R in the leaf's dtype), int32 steps and a (2,) uint32 key."""
+    flat = _flat(spec_tree)
+    ada = ocfg.name == "adafactor"
+
+    def moment(s: ParamSpec, which: int):
+        if ada:
+            return Abstract(opt_lib.factored_shapes(tuple(s.shape))[which],
+                            torch.float32)
+        return Abstract(tuple(s.shape), ocfg.moment_dtype)
+
+    rot = {k: type(st)(*(Abstract(tuple(f.shape), f.dtype) for f in st))
+           for k, st in ((k, _rot_state(s, param_dtype, ocfg))
+                         for k, s in _manifold(spec_tree).items())}
+    i32 = Abstract((), torch.int32)
+    return ts.TrainState(
+        params=abstract_params(spec_tree, param_dtype),
+        opt_state=opt_lib.OptState(
+            mu={k: moment(s, 0) for k, s in flat.items()},
+            nu={k: moment(s, 1) for k, s in flat.items()},
+            rot=rot, step=i32),
+        step=i32, rng=Abstract((2,), torch.uint32))
+
+
+def _metrics_shardings(mesh) -> dict:
+    return {"loss": _repl(mesh), "grad_norm": _repl(mesh),
+            "lr": _repl(mesh)}
+
+
+def _train_shardings(spec_tree, cfg, mesh, ocfg, inputs, shards):
+    """(in, out, abstract) of a train cell: the state, then its inputs."""
+    rules = cfg.rule_table
+    sstate = train_state_shardings(spec_tree, rules, mesh, ocfg)
+    astate = abstract_train_state(spec_tree, cfg.param_dtype, ocfg)
+    return ((sstate, *shards), (sstate, _metrics_shardings(mesh)),
+            (astate, *inputs))
+
+
+def _lm_cache_abstract(cfg, B: int, S: int):
+    L, Hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    length = Abstract((B,), torch.int32)
+    if cfg.kv_quant is not None:
+        z = Abstract((L, B, Hkv, S, cfg.kv_quant.num_subspaces),
+                     torch.uint8)
+        return tfm.PQDecodeCache(k_codes=z, v_codes=z, length=length)
+    z = Abstract((L, B, Hkv, S, hd), cfg.dtype)
+    return tfm.DecodeCache(k=z, v=z, length=length)
+
+
+def _lm_cache_shardings(cfg, B: int, S: int, mesh):
+    rules = cfg.rule_table
+    L, Hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    e = cfg.kv_quant.num_subspaces if cfg.kv_quant is not None else hd
+    spec = _shard(mesh, ("layers", "act_batch", None, "act_kv_seq", None),
+                  rules, (L, B, Hkv, S, e), "kv_cache")
+    length = _repl(mesh)
+    if cfg.kv_quant is not None:
+        return tfm.PQDecodeCache(k_codes=spec, v_codes=spec, length=length)
+    return tfm.DecodeCache(k=spec, v=spec, length=length)
+
+
+def _lm_shardings(cfg, shape: cbase.Shape, mesh, kind: str):
+    rules = cfg.rule_table
+    B, S = shape.params["global_batch"], shape.params["seq_len"]
+    spec_tree = tfm.param_specs(cfg)
+    i32 = torch.int32
+    if kind == "train":
+        ocfg = _opt_cfg_for(cfg)
+        tok = Abstract((B, S), i32)
+        tok_sh = _shard(mesh, ("act_batch", "act_seq"), rules, (B, S),
+                        "tokens")
+        return _train_shardings(spec_tree, cfg, mesh, ocfg, (tok, tok),
+                                (tok_sh, tok_sh))
+    aparams = abstract_params(spec_tree, cfg.param_dtype)
+    pshard = params_shardings(spec_tree, rules, mesh)
+    if kind == "decode":
+        tok = Abstract((B,), i32)
+        tok_sh = _shard(mesh, ("act_batch",), rules, (B,), "token")
+        acache = _lm_cache_abstract(cfg, B, S)
+        scache = _lm_cache_shardings(cfg, B, S, mesh)
+        logits_sh = _shard(mesh, ("act_batch", "act_vocab"), rules,
+                           (B, cfg.vocab_size), "logits")
+        return ((pshard, tok_sh, scache), (logits_sh, scache),
+                (aparams, tok, acache))
+    tok = Abstract((B, S), i32)
+    tok_sh = _shard(mesh, ("act_batch", "act_seq"), rules, (B, S), "tokens")
+    scache = _lm_cache_shardings(cfg, B, S, mesh)
+    logits_sh = _shard(mesh, ("act_batch", "act_vocab"), rules,
+                       (B, cfg.vocab_size), "logits")
+    return (pshard, tok_sh), (logits_sh, scache), (aparams, tok)
+
+
+def _gnn_shardings(cfg, shape: cbase.Shape, mesh, kind: str):
+    rules = cfg.rule_table
+    ocfg = _opt_cfg_for(cfg)
+    spec_tree = gnn.param_specs(cfg)
+    F = shape.params["d_feat"]
+    f32, i32 = torch.float32, torch.int32
+    if kind == "gnn_minibatch":
+        B = shape.params["batch_nodes"]
+        f1, f2 = shape.params["fanout"]
+        inputs = (Abstract((B, F), f32), Abstract((B, f1, F), f32),
+                  Abstract((B, f1, f2, F), f32), Abstract((B,), i32))
+        shards = tuple(_shard(mesh, ("act_nodes",)
+                              + (None,) * (len(i.shape) - 1), rules,
+                              i.shape, "block") for i in inputs)
+        return _train_shardings(spec_tree, cfg, mesh, ocfg, inputs, shards)
+    if kind == "gnn_full":
+        n_dev = math.prod(mesh.shape.values())
+        N = _pad_to(shape.params["n_nodes"], 2 * n_dev)
+        E = _pad_to(shape.params["n_edges"], 2 * n_dev)
+        last = (Abstract((N,), i32), Abstract((N,), torch.bool))
+        last_sh = (_shard(mesh, ("act_nodes",), rules, (N,), "labels"),
+                   _shard(mesh, ("act_nodes",), rules, (N,), "mask"))
+        G = None
+    else:
+        G = shape.params["batch"]
+        N = G * shape.params["n_nodes"]
+        E = G * shape.params["n_edges"]
+        last = (Abstract((N,), i32), Abstract((G,), i32))
+        last_sh = (_shard(mesh, ("act_nodes",), rules, (N,), "gids"),
+                   _shard(mesh, ("act_nodes",), rules, (G,), "labels"))
+    inputs = (Abstract((N, F), f32), Abstract((E,), i32),
+              Abstract((E,), i32), *last)
+    shards = (_shard(mesh, ("act_nodes", "act_feat"), rules, (N, F),
+                     "feats"),
+              _shard(mesh, ("act_edges",), rules, (E,), "src"),
+              _shard(mesh, ("act_edges",), rules, (E,), "dst"), *last_sh)
+    return _train_shardings(spec_tree, cfg, mesh, ocfg, inputs, shards)
+
+
+def _recsys_specs(cfg) -> dict:
+    """The JAX cell's parameter specs (two-tower's with its index layer's
+    ``R`` and codebooks)."""
+    if isinstance(cfg, recsys.WideDeepConfig):
+        return recsys.widedeep_specs(cfg)
+    if isinstance(cfg, recsys.MINDConfig):
+        return recsys.mind_specs(cfg)
+    if isinstance(cfg, recsys.DINConfig):
+        return recsys.din_specs(cfg)
+    specs = recsys.twotower_specs(cfg)
+    if cfg.index is not None:
+        n, D = cfg.index.dim, cfg.index.num_subspaces
+        specs["index"] = {
+            "R": ParamSpec((n, n), ("rot_in", "rot_out"), init="eye"),
+            "codebooks": ParamSpec((D, cfg.index.num_codewords, n // D),
+                                   ("pq_dim", "pq_code", "pq_sub"),
+                                   scale=0.01)}
+    return specs
+
+
+def _recsys_batch_shardings(cfg, B: int, mesh, rules):
+    """(abstract inputs, shardings) of one batch: the JAX
+    ``_recsys_batch_inputs``."""
+    def bsh(shp, nm):
+        return _shard(mesh, ("act_batch",) + (None,) * (len(shp) - 1),
+                      rules, shp, nm)
+    i32, f32 = torch.int32, torch.float32
+    if isinstance(cfg, recsys.WideDeepConfig):
+        return ((Abstract((B, cfg.n_sparse), i32), Abstract((B,), f32)),
+                (bsh((B, cfg.n_sparse), "ids"), bsh((B,), "labels")))
+    if isinstance(cfg, (recsys.TwoTowerConfig, recsys.MINDConfig)):
+        return ((Abstract((B, cfg.hist_len), i32), Abstract((B,), i32)),
+                (bsh((B, cfg.hist_len), "hist"), bsh((B,), "pos")))
+    return ((Abstract((B, cfg.hist_len), i32), Abstract((B,), i32),
+             Abstract((B,), f32)),
+            (bsh((B, cfg.hist_len), "hist"), bsh((B,), "target"),
+             bsh((B,), "labels")))
+
+
+def _recsys_shardings(cfg, shape: cbase.Shape, mesh, kind: str):
+    rules = cfg.rule_table
+    specs = _recsys_specs(cfg)
+    if kind == "recsys_train":
+        ocfg = _opt_cfg_for(cfg)
+        inputs, shards = _recsys_batch_shardings(cfg, shape.params["batch"],
+                                                 mesh, rules)
+        return _train_shardings(specs, cfg, mesh, ocfg, inputs, shards)
+    if kind == "recsys_serve":
+        B = shape.params["batch"]
+        inputs, shards = _recsys_batch_shardings(cfg, B, mesh, rules)
+        aparams = abstract_params(specs, cfg.param_dtype)
+        pshard = params_shardings(specs, rules, mesh)
+        out_sh = _shard(mesh, ("act_batch",), rules, (B,), "scores")
+        return (pshard, *shards), out_sh, (aparams, *inputs)
+    N = shape.params["n_candidates"]
+    # the JAX cell resolves a batch of 8 for its specs: its warnings
+    _recsys_batch_shardings(cfg, 8, mesh, rules)
+    aparams = abstract_params(specs, cfg.param_dtype)
+    pshard = params_shardings(specs, rules, mesh)
+    cand_sh1 = _shard(mesh, ("act_cand",), rules, (N,), "cands")
+    i32 = torch.int32
+    if isinstance(cfg, recsys.TwoTowerConfig):
+        D = cfg.index.num_subspaces
+        inputs = (Abstract((1, cfg.hist_len), i32), Abstract((N, D), i32))
+        shards = (_repl(mesh),
+                  _shard(mesh, ("act_cand", None), rules, (N, D), "codes"))
+        out_sh = _shard(mesh, (None, "act_cand"), rules, (1, N), "scores")
+    elif isinstance(cfg, recsys.MINDConfig):
+        inputs = (Abstract((1, cfg.hist_len), i32),
+                  Abstract((N, cfg.embed_dim), torch.float32))
+        shards = (_repl(mesh),
+                  _shard(mesh, ("act_cand", None), rules,
+                         (N, cfg.embed_dim), "cand_vecs"))
+        out_sh = _shard(mesh, (None, "act_cand"), rules, (1, N), "scores")
+    elif isinstance(cfg, recsys.DINConfig):
+        inputs = (Abstract((cfg.hist_len,), i32), Abstract((N,), i32))
+        shards = (_repl(mesh), cand_sh1)
+        out_sh = cand_sh1
+    else:
+        inputs = (Abstract((N, cfg.n_sparse), i32),)
+        shards = (_shard(mesh, ("act_cand", None), rules,
+                         (N, cfg.n_sparse), "ids"),)
+        out_sh = cand_sh1
+    return (pshard, *shards), out_sh, (aparams, *inputs)
+
+
+def _cell_shardings(family: str, kind: str, cfg, shape: cbase.Shape, mesh):
+    """(in_shardings, out_shardings, abstract_inputs) of a cell on
+    ``mesh``, resolved as the JAX builder resolves them."""
+    if family == "lm":
+        return _lm_shardings(cfg, shape, mesh, kind)
+    if family == "gnn":
+        return _gnn_shardings(cfg, shape, mesh, kind)
+    return _recsys_shardings(cfg, shape, mesh, kind)
+
+
+def argument_bytes(cell: Cell) -> int:
+    """Bytes of the cell's arguments that one device holds under its
+    ``in_shardings``: each leaf's bytes over the product of the mesh axes
+    its spec splits it by (a replicated leaf whole)."""
+    total = []
+
+    def one(a: Abstract, s: sh.NamedSharding) -> None:
+        total.append(a.nbytes // math.prod(s.splits(len(a.shape))))
+
+    sh.tree_map(one, cell.abstract_inputs, cell.in_shardings,
+                is_leaf=lambda x: isinstance(x, Abstract))
+    return int(sum(total))
+
+
+# ---------------------------------------------------------------------------
 # Dispatcher
 # ---------------------------------------------------------------------------
 
@@ -495,10 +868,11 @@ def smoke_config(arch_id: str, shape_name: str):
     return cfg
 
 
-def build_cell(arch_id: str, shape_name: str, *, smoke: bool = False
-               ) -> Cell:
-    """The cell's step, its input maker and ``meta``; ``smoke`` for the
-    architecture's smoke config at ``SMOKE_SHAPES``' sizes."""
+def build_cell(arch_id: str, shape_name: str, *, smoke: bool = False,
+               mesh=None) -> Cell:
+    """The cell's step, its input maker, ``meta``, and its shardings on
+    ``mesh`` (a host mesh's axes, (data 1, model 1), by default); ``smoke``
+    for the architecture's smoke config at ``SMOKE_SHAPES``' sizes."""
     arch = configs.get(arch_id)
     shape = arch.shapes[shape_name]
     if smoke:
@@ -524,7 +898,12 @@ def build_cell(arch_id: str, shape_name: str, *, smoke: bool = False
     cell = build(cfg, shape)
     cell.meta.update(arch=arch_id, shape=shape_name, shape_kind=shape.kind,
                      shape_params=dict(shape.params), smoke=smoke)
-    return cell
+    if mesh is None:
+        mesh = mesh_lib.abstract_mesh((1, 1), ("data", "model"))
+    ins, outs, abstract = _cell_shardings(arch.family, shape.kind, cfg,
+                                          shape, mesh)
+    return cell._replace(in_shardings=ins, out_shardings=outs,
+                         abstract_inputs=abstract)
 
 
 def at_depth(cfg: Any, depth: int | None):

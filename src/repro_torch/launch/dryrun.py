@@ -40,10 +40,21 @@ shapes are never changed. ``mesh`` is "1xH100", ``n_chips`` 1,
 ``collective_bytes`` 0 and ``loop_trips`` 1.0: the port counts by
 running, not per loop body.
 
+Every record also carries ``production_mesh``: for the JAX meshes
+``16x16`` and ``2x16x16``, the full cell's ``sharding_warnings`` (the
+rule resolution's, ``sorted(set(pop_warnings()))`` as the JAX record
+has them) and ``argument_bytes``, one device's bytes of the cell's
+arguments under its specs (``cells.argument_bytes``; XLA's count leaves
+out an argument the step never reads, such as a serve cell's labels).
+Both are reckoned from the specs on an ``AbstractMesh``, ``"from":
+"reckoned"``: nothing runs on 256 chips. ``--production`` prints these
+entries alone, without running any cell.
+
 Usage (the records go to ``--out`` only; without it the run prints):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b \\
       --shape train_4k [--out DIR] [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out DIR
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --production
 On ``--device cpu`` each cell runs at its architecture's ``make_smoke``
 config and ``cells.SMOKE_SHAPES``' sizes.
 """
@@ -67,6 +78,7 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import gnn, recsys
 from repro_torch.models import transformer as tfm
 from repro_torch.roofline import analysis
+from repro_torch.sharding import rules as sh
 
 #: the share of the card's memory a plan's reckoned peak may take
 PLAN_SHARE = 0.92
@@ -682,6 +694,21 @@ def _whole_after_fit(cell, points: list, used: Plan, dev, seed: int,
     return [whole], Plan((None,), (B,), A, 1, "whole")
 
 
+def production_mesh(arch_id: str, shape_name: str) -> dict:
+    """{mesh name: the full cell's sharding warnings and per-device
+    argument bytes on that production mesh}, reckoned from its specs."""
+    out = {}
+    for multi_pod in (False, True):
+        mesh = mesh_lib.abstract_production_mesh(multi_pod=multi_pod)
+        sh.pop_warnings()
+        cell = cells_lib.build_cell(arch_id, shape_name, mesh=mesh)
+        out[mesh.name] = {
+            "sharding_warnings": sorted(set(sh.pop_warnings())),
+            "argument_bytes": cells_lib.argument_bytes(cell),
+            "n_chips": analysis.num_chips(mesh), "from": "reckoned"}
+    return out
+
+
 def run_cell(arch_id: str, shape_name: str, *, device=None,
              out_dir: str | None = None, verbose: bool = True,
              plan: Plan | None = None, seed: int = SEED) -> dict:
@@ -697,6 +724,7 @@ def run_cell(arch_id: str, shape_name: str, *, device=None,
     rec = {"arch": arch_id, "shape": shape_name, "mesh": mesh.name,
            "ok": False}
     try:
+        rec["production_mesh"] = production_mesh(arch_id, shape_name)
         smoke = dev.type != "cuda"
         cell = cells_lib.build_cell(arch_id, shape_name, smoke=smoke)
         meta = cell.meta
@@ -809,9 +837,22 @@ def main(argv=None) -> int:
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu (smoke configs)")
+    ap.add_argument("--production", action="store_true",
+                    help="print each cell's production-mesh entries "
+                         "(reckoned) and run nothing")
     args = ap.parse_args(argv)
 
     from repro_torch import configs
+
+    if not args.all and not (args.arch and args.shape):
+        ap.error("--arch and --shape, or --all")
+    todo = configs.grid_cells() if args.all else [(args.arch, args.shape)]
+    if args.production:
+        for arch_id, shape_name in todo:
+            print(json.dumps({"arch": arch_id, "shape": shape_name,
+                              "production_mesh": production_mesh(
+                                  arch_id, shape_name)}), flush=True)
+        return 0
 
     dev = _device.resolve(args.device)
     if dev.type == "cuda":
@@ -821,12 +862,6 @@ def main(argv=None) -> int:
             "device": torch.cuda.get_device_name(dev),
             "total_memory_bytes": _device_memory(dev),
             "chip_hbm_bytes": analysis.CHIP_HBM_BYTES}), flush=True)
-    if args.all:
-        todo = configs.grid_cells()
-    else:
-        if not (args.arch and args.shape):
-            ap.error("--arch and --shape, or --all")
-        todo = [(args.arch, args.shape)]
     mesh = mesh_lib.make_host_mesh(dev)
     n_ok = n_fail = n_skip = 0
     for arch_id, shape_name in todo:

@@ -4,8 +4,11 @@ searchers (port of ``repro/launch/mesh.py``).
 The card's numbers are owned by ``repro_torch.roofline.analysis`` and
 re-exported here, so the dry run's capacity check and the roofline table
 never disagree on what a chip is. ``make_host_mesh``'s counterpart is one
-card; the production meshes (16×16 and 2×16×16 TPU chips) need a
-multi-process backend and raise.
+card. The production meshes are the JAX shapes, (16, 16) as ("data",
+"model") and (2, 16, 16) as ("pod", "data", "model"): ``AbstractMesh``
+carries their axis sizes and no devices, so sharding rules resolve
+against them with nothing allocated (the dry run's reckoning), and
+``make_production_mesh`` lays them over devices the caller names.
 
 A ``DataMesh`` is named axes over an explicit tuple of shard devices, one
 process driving them all (the JAX package's single-controller
@@ -32,8 +35,11 @@ from repro_torch.roofline.analysis import (  # noqa: F401  (re-exports)
     num_chips,
 )
 
-SHARDED_LATER = ("production meshes (16x16, 2x16x16) need a multi-process "
-                 "backend (ROADMAP.md queue 1, item 11b)")
+#: the production meshes: name -> (axis sizes, axis names)
+PRODUCTION_MESHES = {
+    "16x16": ((16, 16), ("data", "model")),
+    "2x16x16": ((2, 16, 16), ("pod", "data", "model")),
+}
 
 
 class Mesh(NamedTuple):
@@ -41,6 +47,39 @@ class Mesh(NamedTuple):
     shape: dict
     device: torch.device
     name: str
+
+    @property
+    def devices(self) -> tuple:
+        return (self.device,)
+
+
+class AbstractMesh(NamedTuple):
+    """Named axes and their sizes, no devices (``jax.sharding
+    .AbstractMesh``): what rule resolution and the dry run's per-device
+    reckoning read."""
+    shape: dict
+    name: str
+
+    @property
+    def devices(self):
+        return None
+
+
+def abstract_mesh(shape, axes) -> AbstractMesh:
+    shape, axes = tuple(int(v) for v in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} does not name {axes}")
+    return AbstractMesh(shape=dict(zip(axes, shape)),
+                        name="x".join(str(v) for v in shape))
+
+
+def production_mesh_name(multi_pod: bool = False) -> str:
+    return "2x16x16" if multi_pod else "16x16"
+
+
+def abstract_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The production mesh's axes without devices."""
+    return abstract_mesh(*PRODUCTION_MESHES[production_mesh_name(multi_pod)])
 
 
 def make_host_mesh(device=None) -> Mesh:
@@ -51,8 +90,23 @@ def make_host_mesh(device=None) -> Mesh:
                 name="1xH100" if dev.type == "cuda" else "1xCPU")
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    raise NotImplementedError(SHARDED_LATER)
+def make_production_mesh(*, multi_pod: bool = False, devices=None):
+    """The JAX production mesh, (16, 16) as ("data", "model") or (2, 16,
+    16) as ("pod", "data", "model"), over ``devices`` (one a shard,
+    row-major: ``("cuda:0",) * 256`` lays every shard on one card). With
+    no devices it takes one visible card a shard and raises when there
+    are fewer cards, as ``make_data_mesh`` does: 256 or 512 cards need
+    the multi-process backend (ROADMAP.md queue 1, item 11b)."""
+    shape, axes = PRODUCTION_MESHES[production_mesh_name(multi_pod)]
+    if devices is None:
+        n, cards = math.prod(shape), torch.cuda.device_count()
+        if cards < n:
+            raise ValueError(
+                f"the {production_mesh_name(multi_pod)} mesh has {n} shards "
+                f"but {cards} visible card(s): name the devices "
+                f"(devices=('cuda:0',) * {n}); more cards need ROADMAP.md "
+                "queue 1, item 11b")
+    return make_mesh_compat(shape, axes, devices=devices)
 
 
 class DataMesh(NamedTuple):

@@ -51,6 +51,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.models import param
 from repro_torch.models.param import ParamSpec
+from repro_torch.sharding import rules as sh
 
 #: elements of a message block the aggregation gathers at a time
 CSR_BLOCK_ELEMS = 1 << 28
@@ -66,6 +67,11 @@ class GraphSAGEConfig(NamedTuple):
     sample_sizes: tuple[int, ...] = (25, 10)
     dtype: Any = torch.float32
     param_dtype: Any = torch.float32
+    rules: str = "gnn"
+
+    @property
+    def rule_table(self) -> dict:
+        return sh.RULE_REGISTRY[self.rules]
 
 
 def param_specs(cfg: GraphSAGEConfig) -> dict:

@@ -8,8 +8,11 @@ the paper's two-tower retrieval model, MIND and DIN.
   din          target attention over the user history → MLP (ranking, BCE)
 
 The rankers gather their tables with ``embedding.lookup`` (a plain gather,
-a dense gradient), as the JAX package does with ``jnp.take``; the masked
-psum lookup of the sharded slice (``psum_lookup=True``) raises.
+a dense gradient), as the JAX package does with ``jnp.take``. Wide&Deep's
+``psum_lookup=True`` takes the mesh explicitly (``WideDeep.init(...,
+mesh=)``, ``widedeep_forward(..., mesh)``): its tables are placed over
+the mesh's "model" axis and read by ``embedding.sharded_lookup``, the JAX
+package's masked psum lookup.
 
 Two-tower: a user tower (EmbeddingBag over the click history, then an MLP) and an
 item tower (embedding lookup, then an MLP, then the trainable index layer
@@ -34,6 +37,8 @@ from repro_torch import device as _device
 from repro_torch.core import index_layer as il
 from repro_torch.models import embedding, param
 from repro_torch.models.param import ParamSpec
+from repro_torch.sharding import placed as pl
+from repro_torch.sharding import rules as sh
 
 
 def _mlp_specs(dims: tuple[int, ...], prefix: str = "mlp"):
@@ -64,12 +69,6 @@ def _bce_with_logits(logits: torch.Tensor, labels: torch.Tensor
                       + torch.log1p(torch.exp(-torch.abs(logits))))
 
 
-def _sharded_lookup(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name}: psum_lookup=True needs the masked psum lookup of the "
-        "multi-process backend (ROADMAP.md queue 1, item 11b)")
-
-
 class _Model(param.Params):
     """A ranker's parameters, drawn from its ``specs`` function."""
 
@@ -93,9 +92,14 @@ class WideDeepConfig(NamedTuple):
     vocab_per_field: int = 1_000_000
     embed_dim: int = 32
     mlp_dims: tuple[int, ...] = (1024, 512, 256)
-    psum_lookup: bool = False        # the sharded slice's lookup (raises)
+    psum_lookup: bool = False        # masked psum lookup over a mesh
     dtype: Any = torch.float32
     param_dtype: Any = torch.float32
+    rules: str = "recsys"
+
+    @property
+    def rule_table(self) -> dict:
+        return sh.RULE_REGISTRY[self.rules]
 
     @property
     def total_vocab(self) -> int:
@@ -115,29 +119,79 @@ def widedeep_specs(cfg: WideDeepConfig) -> dict[str, ParamSpec]:
     }
 
 
+def _need_mesh(cfg: WideDeepConfig, mesh, what: str) -> None:
+    if cfg.psum_lookup and mesh is None:
+        raise ValueError(f"{what}: psum_lookup=True needs the mesh its "
+                         "table is placed on (mesh=None)")
+
+
 class WideDeep(_Model):
+    """With ``cfg.psum_lookup`` the model lives on ``mesh``: its
+    ``vocab_rows`` leaves (``table`` and ``wide``) are ``Placed`` by
+    ``tree_shardings(widedeep_specs, cfg.rule_table, mesh)``, rows over
+    "model", and the MLP stays whole on ``mesh.devices[0]``."""
+
     specs = staticmethod(widedeep_specs)
+
+    @classmethod
+    def init(cls, generator: torch.Generator, cfg, *, device=None,
+             mesh=None):
+        """Fresh parameters on ``device`` (the card by default), or on
+        ``mesh`` (needed by, and only by, ``psum_lookup=True``): the same
+        draws, then the table and ``wide`` placed."""
+        _need_mesh(cfg, mesh, "WideDeep.init")
+        if mesh is None:
+            return super().init(generator, cfg, device=device)
+        if not cfg.psum_lookup:
+            raise ValueError("WideDeep.init: a mesh places the tables of "
+                             "psum_lookup=True only")
+        return super().init(generator, cfg,
+                            device=mesh.devices[0]).place(cfg, mesh)
+
+    def place(self, cfg, mesh) -> "WideDeep":
+        """Lay every ``vocab_rows`` leaf over ``mesh`` (in place)."""
+        specs = widedeep_specs(cfg)
+        names = [k for k in sorted(specs) if "vocab_rows" in specs[k].logical]
+        shardings = sh.tree_shardings(
+            {k: specs[k].logical for k in names}, cfg.rule_table, mesh,
+            {k: specs[k].shape for k in names})
+        for k in names:
+            leaf = self._parameters.pop(k)
+            self.add_module(k, pl.place(leaf, shardings[k]))
+            del leaf
+        return self
 
 
 def widedeep_forward(params: WideDeep, sparse_ids: torch.Tensor,
-                     cfg: WideDeepConfig) -> torch.Tensor:
-    """sparse_ids (B, n_sparse) field-local ids -> logits (B,)."""
-    if cfg.psum_lookup:
-        raise _sharded_lookup("widedeep_forward")
+                     cfg: WideDeepConfig, mesh=None) -> torch.Tensor:
+    """sparse_ids (B, n_sparse) field-local ids -> logits (B,). With
+    ``cfg.psum_lookup`` both tables are read by
+    ``embedding.sharded_lookup`` over ``mesh``'s "model" axis (the JAX
+    package reads its ambient mesh), and the logits land on
+    ``mesh.devices[0]``."""
+    _need_mesh(cfg, mesh, "widedeep_forward")
+    rt = cfg.rule_table
     B, F = sparse_ids.shape
     offsets = torch.arange(F, device=sparse_ids.device) * cfg.vocab_per_field
     gids = sparse_ids.long() + offsets[None, :]
-    emb = embedding.lookup(params.table, gids)                 # (B, F, e)
+    if cfg.psum_lookup:
+        def lookup(t, i):
+            return embedding.sharded_lookup(t, i, mesh, "model")
+    else:
+        lookup = embedding.lookup
+    emb = lookup(params.table, gids)                           # (B, F, e)
+    emb = sh.constrain(emb, ("act_batch", "fields", None), rt, mesh)
     deep_in = emb.reshape(B, F * cfg.embed_dim).to(cfg.dtype)
     d_in = F * cfg.embed_dim
     deep = _mlp_apply(params, deep_in, (d_in, *cfg.mlp_dims, 1))[:, 0]
-    wide = torch.sum(embedding.lookup(params.wide, gids)[..., 0], dim=-1)
+    wide = torch.sum(lookup(params.wide, gids)[..., 0], dim=-1)
     return deep + wide.to(deep.dtype)
 
 
 def widedeep_loss(params: WideDeep, sparse_ids: torch.Tensor,
-                  labels: torch.Tensor, cfg: WideDeepConfig) -> torch.Tensor:
-    logits = widedeep_forward(params, sparse_ids, cfg).float()
+                  labels: torch.Tensor, cfg: WideDeepConfig,
+                  mesh=None) -> torch.Tensor:
+    logits = widedeep_forward(params, sparse_ids, cfg, mesh).float()
     return _bce_with_logits(logits, labels)
 
 
@@ -156,6 +210,11 @@ class TwoTowerConfig(NamedTuple):
     index: il.IndexLayerConfig | None = None  # index layer on the item tower
     dtype: Any = torch.float32
     param_dtype: Any = torch.float32
+    rules: str = "recsys"
+
+    @property
+    def rule_table(self) -> dict:
+        return sh.RULE_REGISTRY[self.rules]
 
     @property
     def out_dim(self) -> int:
@@ -283,6 +342,11 @@ class MINDConfig(NamedTuple):
     hist_len: int = 50
     dtype: Any = torch.float32
     param_dtype: Any = torch.float32
+    rules: str = "recsys"
+
+    @property
+    def rule_table(self) -> dict:
+        return sh.RULE_REGISTRY[self.rules]
 
 
 def mind_specs(cfg: MINDConfig) -> dict[str, ParamSpec]:
@@ -363,6 +427,11 @@ class DINConfig(NamedTuple):
     mlp_dims: tuple[int, ...] = (200, 80)
     dtype: Any = torch.float32
     param_dtype: Any = torch.float32
+    rules: str = "recsys"
+
+    @property
+    def rule_table(self) -> dict:
+        return sh.RULE_REGISTRY[self.rules]
 
 
 def din_specs(cfg: DINConfig) -> dict[str, ParamSpec]:

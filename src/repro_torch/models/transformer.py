@@ -42,8 +42,9 @@ leaves are row 2j + i of ``kvq`` and its cache layer 2j + i. With
 chunks (T must divide), which bounds the (E·C, d_ff) dispatch buffers of
 a long prefill; the chunks' load-balance losses are averaged.
 ``forward_train`` adds 0.01·aux/L, aux summed over the layers; serving
-drops aux. ``rules``, ``scan_groups`` and the other sharding fields are
-kept for the sharded slices and not read on one card.
+drops aux. ``rules`` names the config's sharding rule table
+(``rule_table``), which ``launch.cells`` resolves the production specs
+from; ``scan_groups`` is not read on one card.
 """
 from __future__ import annotations
 
@@ -57,6 +58,7 @@ from repro_torch.core import kv_quant
 from repro_torch.models import layers, param
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.param import ParamSpec
+from repro_torch.sharding import rules as sh
 
 
 class TransformerConfig(NamedTuple):
@@ -85,7 +87,11 @@ class TransformerConfig(NamedTuple):
     remat: bool = True
     scan_groups: int = 1
     train_accum_steps: int = 1
-    rules: str = "lm_base"           # sharding rules: unused on one card
+    rules: str = "lm_base"           # key into sharding.rules.RULE_REGISTRY
+
+    @property
+    def rule_table(self) -> dict:
+        return sh.RULE_REGISTRY[self.rules]
 
     @property
     def interleaved(self) -> bool:

@@ -1,2 +1,3 @@
-"""Sharding rule tables (port of ``repro/sharding``, the part the row-sharded
-search reads)."""
+"""Sharding (port of ``repro/sharding``): the logical-axis rule tables and
+their resolution (``rules``), and leaves laid over a mesh as their pieces
+(``placed``)."""

@@ -15,7 +15,11 @@ parameter tree reads back in either package:
   * the ``keep_n`` newest complete checkpoints are kept.
 
 A leaf is a tensor, a numpy array or a Python scalar. An ``nn.Module`` is
-saved as the dict of its parameters under their path keys. ``restore``
+saved as the dict of its parameters under their path keys. A placed leaf
+(``sharding.placed.Placed``: a table's pieces over a mesh, or its
+moments) is saved gathered, as one entry with its rows in order (the JAX
+layout), and restored re-sharded onto the ``like`` leaf's mesh, whatever
+mesh wrote it: the JAX launcher's mesh-agnostic resume. ``restore``
 puts each tensor on the device, and in the dtype, of the leaf it replaces
 in ``like``. A bfloat16 tensor is stored as the JAX package stores one:
 ``np.savez`` of an ``ml_dtypes`` bfloat16 array writes its raw 2-byte
@@ -37,6 +41,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.sharding import placed as pl
+
 _SEP = "/"
 
 
@@ -46,9 +52,11 @@ def _is_namedtuple(x) -> bool:
 
 def _items(node):
     """(path entry, child) pairs of an inner node, or None for a leaf."""
+    if pl.is_placed(node):
+        return None
     if isinstance(node, nn.Module):
         return [(n.replace(".", _SEP), p)
-                for n, p in node.named_parameters()]
+                for n, p in pl.module_leaves(node)]
     if isinstance(node, dict):
         return [(str(k), node[k]) for k in sorted(node, key=str)]
     if _is_namedtuple(node):
@@ -63,6 +71,11 @@ _BF16_ON_DISK = np.dtype("V2")
 
 
 def _host(leaf) -> np.ndarray:
+    if pl.is_placed(leaf):          # gathered into a fresh host tensor
+        t = leaf.gather("cpu")
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(_BF16_ON_DISK)
+        return t.numpy()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -76,7 +89,9 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
     if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
         return torch.from_numpy(arr.view(np.int16).copy()).view(
             torch.bfloat16)
-    return torch.from_numpy(np.array(arr))
+    if not (arr.flags.writeable and arr.flags.c_contiguous):
+        arr = np.array(arr)
+    return torch.from_numpy(arr)      # np.load's array is a fresh one
 
 
 def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -169,6 +184,12 @@ def _rebuild(like, data, prefix: str):
         if like is None:
             return None
         arr = data[prefix]
+        if pl.is_placed(like):
+            if arr.shape != tuple(like.shape):
+                raise ValueError(f"checkpoint mismatch at {prefix}: "
+                                 f"{arr.shape} vs {tuple(like.shape)}")
+            return pl.place(_tensor(arr).to(like.dtype), like.sharding,
+                            requires_grad=False)
         if isinstance(like, torch.Tensor):
             if arr.shape != tuple(like.shape):
                 raise ValueError(f"checkpoint mismatch at {prefix}: "

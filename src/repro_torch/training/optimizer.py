@@ -73,6 +73,8 @@ import torch
 from torch import nn
 
 from repro_torch import rotations as rot_lib
+from repro_torch.sharding import placed as pl
+from repro_torch.sharding import rules as sh
 
 MANIFOLD_LEAVES = ("R", "rot_k", "rot_v")
 #: elements of a leaf an Adafactor pass works on at a time
@@ -119,9 +121,10 @@ def is_manifold(key: str) -> bool:
 
 def named_leaves(params) -> dict[str, torch.Tensor]:
     """Parameters keyed by their JAX path keys (a nested dict's keys
-    joined by ``/``)."""
+    joined by ``/``); a placed leaf (``sharding.placed.Placed``) is one
+    leaf under its own key."""
     if isinstance(params, nn.Module):
-        return {path_key(n): p for n, p in params.named_parameters()}
+        return {path_key(n): p for n, p in pl.module_leaves(params)}
     out: dict[str, torch.Tensor] = {}
 
     def walk(tree: dict, prefix: str) -> None:
@@ -189,6 +192,8 @@ def init(params, cfg: OptimizerConfig) -> OptState:
     learner = rot_lib.from_config(cfg.rotation)
 
     def zeros(p, slot: int):
+        if pl.is_placed(p):
+            return _placed_moment(p, slot, cfg)
         if cfg.name == "adafactor":    # float32 factored stats
             return torch.zeros(factored_shapes(p.shape)[slot],
                                dtype=torch.float32, device=p.device)
@@ -222,23 +227,31 @@ def schedule_lr(cfg: OptimizerConfig, step: int) -> float:
 
 
 def global_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:
-    """√(Σ over leaves of ⟨g, g⟩), float32, on the gradients' device; one
-    dot product per leaf, so no squared copy of the table is made. A
-    half-precision leaf is widened to float32 first, NORM_CHUNK elements
-    at a time, so its sum accumulates in float32 (as the JAX package's
-    ``preferred_element_type``), not in the leaf's dtype; so is a leaf of
-    more than 2³¹ − 1 elements (two-tower-retrieval's 10M × 256 table),
-    which cuBLAS's dot cannot take in one call."""
+    """√(Σ over leaves of ⟨g, g⟩), float32, on the first gradient's
+    device; one dot product per leaf, so no squared copy of the table is
+    made. A half-precision leaf is widened to float32 first, NORM_CHUNK
+    elements at a time, so its sum accumulates in float32 (as the JAX
+    package's ``preferred_element_type``), not in the leaf's dtype; so is
+    a leaf of more than 2³¹ − 1 elements (two-tower-retrieval's 10M × 256
+    table), which cuBLAS's dot cannot take in one call. A placed leaf
+    contributes each piece's dot, taken on that piece's device; the
+    partials are added on the first device in shard order (the JAX
+    package's sharded norm is a psum of per-device partials too)."""
     total = None
-    for g in grads.values():
-        g = g.reshape(-1)
-        half = g.dtype in (torch.bfloat16, torch.float16)
-        whole = not half and g.numel() <= DOT_MAX
-        for c in (g,) if whole else g.split(NORM_CHUNK):
-            if half:
-                c = c.float()              # one chunk's copy at a time
-            sq = torch.dot(c, c)
-            total = sq if total is None else total + sq
+    for leaf in grads.values():
+        for g in pl.pieces_of(leaf):
+            g = g.reshape(-1)
+            half = g.dtype in (torch.bfloat16, torch.float16)
+            whole = not half and g.numel() <= DOT_MAX
+            for c in (g,) if whole else g.split(NORM_CHUNK):
+                if half:
+                    c = c.float()          # one chunk's copy at a time
+                sq = torch.dot(c, c)
+                if total is None:
+                    total = sq
+                else:
+                    total = total + (sq if sq.device == total.device
+                                     else sq.to(total.device))
     if total is None:
         return torch.zeros(())
     return torch.sqrt(total)
@@ -339,6 +352,110 @@ def _adafactor_leaf(cfg, p, g, vr, vc, lr: float, t: np.float32):
             P[b].copy_(P[b].to(cdt).sub_(u))
 
 
+def _placed_moment(p, slot: int, cfg: OptimizerConfig):
+    """A placed leaf's zero moment in ``slot`` (0: mu, 1: nu). AdamW's is
+    placed as the leaf; Adafactor's factored stat takes the spec's
+    entries of its remaining dimensions (the JAX package's
+    ``opt_shardings``), placed where those split something and whole on
+    the mesh's first device otherwise."""
+    if cfg.name != "adafactor":
+        return p.like([torch.zeros(q.shape, dtype=cfg.moment_dtype,
+                                   device=q.device) for q in p.pieces])
+    shape = factored_shapes(p.shape)[slot]
+    spec = tuple(p.sharding.spec) + (None,) * (p.dim() - len(p.sharding.spec))
+    if p.dim() >= 2:
+        spec = spec[:-1] if slot == 0 else spec[:-2] + spec[-1:]
+    elif slot == 1:
+        spec = ()
+    stat = sh.NamedSharding(p.sharding.mesh, sh.P(*spec))
+    z = torch.zeros(shape, dtype=torch.float32,
+                    device=p.sharding.mesh.devices[0])
+    return z if stat.splits_nothing else pl.place(z, stat,
+                                                  requires_grad=False)
+
+
+def _shard_sum(parts: list, dev: torch.device) -> torch.Tensor:
+    """Partials added on ``dev`` in shard order."""
+    total = None
+    for x in parts:
+        x = x if x.device == dev else x.to(dev)
+        total = x if total is None else total + x
+    return total
+
+
+def _adafactor_placed(cfg, p, gs: list, vr, vc, lr: float, t: np.float32):
+    """``_adafactor_leaf`` on a placed leaf, piece by piece: ``gs`` are
+    the pieces' clipped gradients in the compute dtype (consumed). The
+    factored statistics are the whole leaf's: a sum over a split
+    dimension (the column stat of a row-split 2-D table, the row
+    stats' mean) adds the pieces' partials in shard order on the mesh's
+    first device, as does the update's RMS. Splits of the last two
+    dimensions of a leaf of 3 or more dimensions, or of a 2-D leaf's
+    columns, raise."""
+    cdt = cfg.compute_dtype
+    eps = 1e-30
+    b2 = _f32(1.0) - t ** _f32(-0.8)
+    keep, new = float(b2), float(_f32(1.0) - b2)
+    split = p.sharding.splits(p.dim())
+    head = p.sharding.mesh.devices[0]
+    rows_split = p.dim() == 2 and split[0] > 1
+    if (p.dim() >= 3 and any(n > 1 for n in split[-2:])) or (
+            p.dim() == 2 and split[1] > 1):
+        raise NotImplementedError(
+            f"Adafactor on a leaf of {tuple(p.shape)} split {split}: only "
+            "leading dimensions (a 2-D table's rows) split (ROADMAP.md "
+            "queue 1, item 11b)")
+    P = p.pieces
+    VR = pl.pieces_of(vr)
+    if p.dim() >= 2:
+        rows, cols = p.shape[-2], p.shape[-1]
+        G3 = [g.view(-1, g.shape[-2], g.shape[-1]) for g in gs]
+        g2s = [g * g for g in G3]           # squared in the gradient's dtype
+        r = [torch.sum(x, dim=-1, dtype=torch.float32) / cols for x in g2s]
+        c = [torch.sum(x, dim=-2, dtype=torch.float32) for x in g2s]
+        del g2s
+        if rows_split:
+            c = [_shard_sum(c, head)]
+            VCs = [vc.view(1, cols)]
+            vrs = [v.view(1, -1) for v in VR]
+        else:
+            VCs = [v.view(-1, cols) for v in pl.pieces_of(vc)]
+            vrs = [v.view(-1, v.shape[-1]) for v in VR]
+        for v, x in zip(vrs, r):
+            v.mul_(keep).add_(x.mul_(new))
+        for v, x in zip(VCs, c):
+            v.mul_(keep).add_(x.div_(rows).mul_(new))
+        if rows_split:
+            mean = _shard_sum([v.sum(dim=-1, keepdim=True) for v in vrs],
+                              head) / float(p.shape[0])
+            denoms = [torch.clamp(mean, min=eps).to(v.device) for v in vrs]
+            VCs = [VCs[0].to(v.device) for v in vrs]
+        else:
+            denoms = [torch.clamp(v.mean(-1, keepdim=True), min=eps)
+                      for v in vrs]
+        for g, v, d, vcol in zip(G3, vrs, denoms, VCs):
+            fac = torch.rsqrt(v / d + eps)[..., None] * torch.rsqrt(
+                vcol + eps)[..., None, :]
+            g.mul_(fac.to(cdt))
+    else:
+        for g, v in zip(gs, VR):
+            v.mul_(keep).add_(g.float().square().mul_(new))
+            g.mul_(torch.rsqrt(v + eps).to(cdt))
+    sq = _shard_sum([torch.dot(g.float().reshape(-1), g.float().reshape(-1))
+                     for g in gs], head)
+    rms = torch.sqrt(torch.clamp(sq * (1.0 / float(p.numel())), min=1e-30))
+    scale = (lr / torch.clamp(rms, min=1.0)).to(cdt)
+    wd = _cst(cfg.weight_decay, cdt)
+    for q, u in zip(P, gs):
+        if cfg.weight_decay > 0:
+            u.add_(q.to(cdt) * wd)
+        u.mul_(scale.to(u.device))
+        if q.dtype == cdt:
+            q.sub_(u)
+        else:
+            q.copy_(q.to(cdt).sub_(u))
+
+
 def _rotate_into(learner, p: torch.Tensor, st, g, lr: float, generator):
     """One learner step of the rotation ``p`` (written in place): the state
     re-synced from p in float32, moved in float32, and the moved R rounded
@@ -380,7 +497,8 @@ def _update_impl(grads, state: OptState, params, cfg: OptimizerConfig,
     rot_n = dict(state.rot)
     deltas: dict[str, Any] = {}
     with torch.no_grad():
-        grads = {k: grads[k] if k in grads else torch.zeros_like(p)
+        grads = {k: grads[k] if k in grads
+                 else pl.map_pieces(torch.zeros_like, p)
                  for k, p in leaves.items()}
         clip = None
         if cfg.grad_clip > 0:
@@ -388,26 +506,33 @@ def _update_impl(grads, state: OptState, params, cfg: OptimizerConfig,
                 cfg.grad_clip / torch.clamp(global_norm(grads), min=1e-9),
                 max=1.0).to(cdt)
 
-        def clipped(k):
-            g = grads[k].to(cdt)
-            return g.mul_(clip) if clip is not None else g
+        def clipped(g):
+            g = g.to(cdt)
+            if clip is None:
+                return g
+            return g.mul_(clip if clip.device == g.device
+                          else clip.to(g.device))
 
         for k in grads:
             if is_manifold(k):
                 continue
-            if cfg.name == "adafactor":
-                _adafactor_leaf(cfg, leaves[k], clipped(k), state.mu[k],
-                                state.nu[k], lr, t)
-            else:
-                _adamw_leaf(cfg, leaves[k], clipped(k), state.mu[k],
-                            state.nu[k], lr, b1c, b2c)
+            p, g, mu, nu = leaves[k], grads[k], state.mu[k], state.nu[k]
+            if cfg.name == "adafactor" and pl.is_placed(p):
+                _adafactor_placed(cfg, p, [clipped(x) for x in g.pieces],
+                                  mu, nu, lr, t)
+            elif cfg.name == "adafactor":
+                _adafactor_leaf(cfg, p, clipped(g), mu, nu, lr, t)
+            else:                      # a placed leaf piece by piece
+                for pp, gp, mp, vp in zip(*map(pl.pieces_of,
+                                               (p, g, mu, nu))):
+                    _adamw_leaf(cfg, pp, clipped(gp), mp, vp, lr, b1c, b2c)
         if marks is not None:
             marks(cfg.name)
         for k in grads:
             if is_manifold(k):
                 rot_n[k], deltas[k] = _rotation_leaf(
-                    learner, cfg, leaves[k], clipped(k), state.rot[k],
-                    generator)
+                    learner, cfg, leaves[k], clipped(grads[k]),
+                    state.rot[k], generator)
         if marks is not None:
             marks("rotation")
     return params, OptState(mu=state.mu, nu=state.nu, rot=rot_n,

@@ -16,6 +16,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.sharding import placed as pl
 from repro_torch.training import optimizer as opt_lib
 
 
@@ -44,9 +45,16 @@ def init_state(generator: torch.Generator | None, params,
 
 def make_train_step(loss_fn: Callable[..., torch.Tensor],
                     opt_cfg: opt_lib.OptimizerConfig,
+                    grad_shardings=None,
                     emit_deltas: bool = False,
                     marks: Callable[[str], None] | None = None) -> Callable:
     """loss_fn(params, *batch) -> scalar. Returns the step function.
+
+    A placed leaf (``sharding.placed.Placed``) is differentiated piece by
+    piece: its gradient is a ``Placed`` of the same sharding, each piece
+    on its piece's device. ``grad_shardings`` is the JAX argument that
+    pins each gradient to its parameter's sharding; the port's gradients
+    live on their pieces already, so it is accepted and not read.
 
     ``emit_deltas=True`` adds ``metrics["rotation_deltas"]``, the
     ``{path key: RotationDelta}`` each manifold update applied. ``marks``,
@@ -70,26 +78,47 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor],
             marks(name)
 
     def _grads(params, named, batch):
-        leaves = [p for _, p in named]
+        leaves = [q for _, p in named for q in pl.pieces_of(p)]
+
+        def regroup(grads) -> dict:
+            """{key: gradient}, a placed leaf's pieces as one ``Placed``
+            (a piece the loss does not reach gets zeros)."""
+            out, i = {}, 0
+            for k, p in named:
+                ps = pl.pieces_of(p)
+                gs = list(grads[i:i + len(ps)])
+                i += len(ps)
+                if all(g is None for g in gs):
+                    continue
+                if pl.is_placed(p):
+                    out[k] = p.like([torch.zeros_like(q) if g is None else g
+                                     for q, g in zip(ps, gs)])
+                else:
+                    out[k] = gs[0]
+            return out
+
         if A == 1:
             loss = loss_fn(params, *batch)
             mark("forward")
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            return loss.detach(), {k: g for (k, _), g in zip(named, grads)
-                                   if g is not None}
+            return loss.detach(), regroup(grads)
         micro = [_split(x, A) for x in batch]
         inv = 1.0 / A
         lsum, gsum = None, {}
+
+        def acc(a, g):
+            return g if a is None else a + g
+
         for i in range(A):
             loss = loss_fn(params, *[m[i] if m is not None else x
                                      for m, x in zip(micro, batch)]) * inv
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = regroup(torch.autograd.grad(loss, leaves,
+                                                allow_unused=True))
             lsum = loss.detach() if lsum is None else lsum + loss.detach()
-            for (k, _), g in zip(named, grads):
-                if g is None:
-                    continue
-                g = g.to(opt_cfg.accum_dtype)
-                gsum[k] = g if k not in gsum else gsum[k] + g
+            for k, g in grads.items():
+                g = pl.map_pieces(lambda x: x.to(opt_cfg.accum_dtype), g)
+                gsum[k] = g if k not in gsum else pl.map_pieces(
+                    acc, gsum[k], g)
             del loss, grads
         mark("forward")
         return lsum, gsum

@@ -101,7 +101,7 @@ def test_one_card_mesh_and_the_production_meshes_raise():
     assert mesh.name == "1xCPU"
     for fn in (lambda: mesh_lib.make_production_mesh(),
                lambda: mesh_lib.make_production_mesh(multi_pod=True)):
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(ValueError, match="item 11b"):
             fn()
     # the serving mesh: named CPU shards serve; shards on missing cards
     # raise (tests/test_torch_sharded.py holds the rest)

@@ -136,13 +136,25 @@ def test_widedeep_forward_loss_and_grads_match_jax():
     _grads_close(model, loss, jg)
 
 
-def test_psum_lookup_raises_naming_the_sharded_item():
+def test_psum_lookup_without_a_mesh_raises():
+    """``psum_lookup=True`` takes its mesh explicitly; without one the
+    model, the forward and ``convert`` name the missing mesh
+    (``tests/test_torch_sharded_train.py`` holds the lookup itself)."""
     cfg = configs.get("wide-deep").make_smoke()._replace(psum_lookup=True)
-    model = recsys.WideDeep.init(torch.Generator().manual_seed(0), cfg,
+    with pytest.raises(ValueError, match="mesh"):
+        recsys.WideDeep.init(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    model = recsys.WideDeep.init(torch.Generator().manual_seed(0),
+                                 cfg._replace(psum_lookup=False),
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="mesh"):
         recsys.widedeep_forward(model, torch.zeros((2, cfg.n_sparse),
                                                    dtype=torch.long), cfg)
+    with pytest.raises(ValueError, match="mesh"):
+        convert.widedeep_params_from_numpy(
+            {k: np.zeros(s.shape, np.float32)
+             for k, s in recsys.widedeep_specs(cfg).items()}, cfg,
+            device="cpu")
 
 
 # -- MIND ---------------------------------------------------------------------
